@@ -46,6 +46,10 @@ def pytest_configure(config):
         "markers",
         "slow: compile-heavy test; deselect with -m 'not slow' for quick runs",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc; skips with a reason without one",
+    )
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,170 @@
+"""The CUDA kernels against their plain torch twins, on the card.
+
+Every test here needs an NVIDIA GPU and nvcc and skips without them.  The
+file imports no jax, so it runs where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Inputs are small host-encoded mixed frames (I4 and I16 MBs, a size that is
+not a whole number of MBs) and seeded random keyframes (`random_vp8.py`:
+both loop filter kinds, escapes, several partitions).  Tolerance:
+bit-exact (integer arithmetic).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from webp_tpu_torch import _build
+from webp_tpu_torch.decode import device as tdev
+from webp_tpu_torch.ops import residual
+from webp_tpu_torch.ops.loopfilter import loop_filter_, loop_filter_plain_
+from webp_tpu_torch.ops.wavefront import recon_, recon_plain_
+from webp_tpu_torch.ops.yuv import fancy_yuv420_to_rgb, fancy_yuv420_to_rgb_plain
+
+from random_vp8 import random_keyframe
+from torch_fixtures import encode_frame, force_escapes, mixed_payloads, scalar_decode
+
+pytestmark = pytest.mark.cuda
+
+W, H = 72, 40
+MBW, MBH = 5, 3
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _build.load()
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def payloads():
+    return mixed_payloads(W, H, seeds=(41, 42))
+
+
+@pytest.fixture(scope="module")
+def uploaded(cuda, payloads):
+    b = force_escapes(tdev.parse_levels_batch(payloads))
+    d = tdev.to_device_batch(b, cuda)
+    d["i16buf"] = torch.from_numpy(b["i16buf"]).to(cuda)
+    return d
+
+
+def _fields(d):
+    return tdev.field_views(d["u8buf"], MBW * MBH)
+
+
+def _mb(f):
+    return f["segment_ids"], f["luma_mode"], f["skipped"], f["non_zero"]
+
+
+def _planes(device):
+    return (torch.zeros((2, MBH * 16, MBW * 16), dtype=torch.uint8, device=device),
+            torch.zeros((2, MBH * 8, MBW * 8), dtype=torch.uint8, device=device),
+            torch.zeros((2, MBH * 8, MBW * 8), dtype=torch.uint8, device=device))
+
+
+@pytest.mark.parametrize("form", ["sparse", "dense_int16"])
+def test_residual_kernel_matches_plain(uploaded, form):
+    d, f = uploaded, _fields(uploaded)
+    before = _build.LAUNCHES["residual"]
+    if form == "sparse":
+        args = [d[k] for k in ("bitmap", "vals", "esc_pos", "esc_val", "qtab")]
+        got = residual.residuals_sparse(*args, *_mb(f))
+        want = residual.residuals_sparse_plain(*args, *_mb(f))
+    else:
+        got = residual.residuals_dense(d["i16buf"], *_mb(f))
+        want = residual.residuals_dense_plain(d["i16buf"], *_mb(f))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["residual"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("simple", [False, True], ids=["normal", "simple"])
+def test_recon_and_filter_kernels_match_plain(uploaded, cuda, simple):
+    d, f = uploaded, _fields(uploaded)
+    res, do_sub = residual.residuals_sparse_plain(
+        *(d[k] for k in ("bitmap", "vals", "esc_pos", "esc_val", "qtab")), *_mb(f))
+    got, want = _planes(cuda), _planes(cuda)
+    before = dict(_build.LAUNCHES)
+    recon_(*got, res, f["luma_mode"], f["bpred"], f["chroma_mode"])
+    recon_plain_(*want, res, f["luma_mode"], f["bpred"], f["chroma_mode"])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rng = np.random.RandomState(7)
+    shape = (2, MBW * MBH)
+    params = [torch.from_numpy(a).to(cuda) for a in (
+        (rng.randint(0, 64, shape) * (rng.rand(*shape) > 0.15)).astype(np.uint8),
+        rng.randint(1, 64, shape).astype(np.uint8),
+        rng.randint(0, 3, shape).astype(np.uint8),
+        rng.rand(*shape) < 0.6,
+    )]
+    loop_filter_(*got, *params, simple)
+    loop_filter_plain_(*want, *params, simple)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["recon"] == before["recon"] + 1
+    assert _build.LAUNCHES["loopfilter"] == before["loopfilter"] + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("width,height", [(64, 48), (72, 40), (63, 47), (17, 1), (1, 1)])
+def test_yuv2rgb_kernel_matches_plain(cuda, width, height):
+    mbw, mbh = (width + 15) // 16, (height + 15) // 16
+    g = torch.Generator().manual_seed(width * 31 + height)
+    planes = [torch.randint(0, 256, (2, mbh * n, mbw * n), generator=g, dtype=torch.uint8).to(cuda)
+              for n in (16, 8, 8)]
+    before = _build.LAUNCHES["yuv2rgb"]
+    got = fancy_yuv420_to_rgb(*planes, width, height)
+    want = fancy_yuv420_to_rgb_plain(*planes, width, height)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["yuv2rgb"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out", ["rgb", "yuv"])
+def test_slice_on_card_matches_scalar(cuda, payloads, out):
+    _build.reset_launches()
+    got = tdev.dispatch_decode_batch(payloads, out=out, device=cuda).cpu()
+    assert _build.LAUNCHES == {"residual": 1, "recon": 1, "loopfilter": 1,
+                               "yuv2rgb": int(out == "rgb")}
+    for i, p in enumerate(payloads):
+        np.testing.assert_array_equal(got[i].numpy(), scalar_decode(p)[0 if out == "rgb" else 1])
+
+
+@pytest.mark.parametrize("simple", [False, True], ids=["normal", "simple"])
+def test_random_streams_on_card_match_scalar(cuda, simple):
+    ps = [random_keyframe(W, H, seed=50 + s, simple=simple, escapes=12)[0] for s in (1, 2)]
+    for out in ("rgb", "yuv"):
+        got = tdev.dispatch_decode_batch(ps, out=out, device=cuda).cpu()
+        for i, p in enumerate(ps):
+            np.testing.assert_array_equal(got[i].numpy(), scalar_decode(p)[0 if out == "rgb" else 1])
+
+
+def test_mixed_geometry_and_dense_overflow_on_card(cuda, payloads):
+    rng = np.random.RandomState(0)
+    noisy = encode_frame(rng.randint(0, 256, (40, 72, 3)).astype(np.uint8), 100, 2)
+    assert tdev.parse_levels_batch([noisy])["bitmap"] is None
+    ps = [payloads[0]] + mixed_payloads(64, 48, seeds=(43,)) + [noisy]
+    got = tdev.decode_vp8_batch_device_mixed(ps, device=cuda)
+    for g, p in zip(got, ps):
+        np.testing.assert_array_equal(g, scalar_decode(p)[0])
+
+
+def test_more_mb_rows_than_wavefront_warps(cuda):
+    """66 MB rows: each of the block's 32 warps walks several rows per step."""
+    ps = mixed_payloads(40, 1050, seeds=(44,))
+    got = tdev.decode_vp8_batch_device(ps, device=cuda)
+    np.testing.assert_array_equal(got[0], scalar_decode(ps[0])[0])
+
+
+def test_wrappers_reject_bad_layouts(cuda):
+    y, u, v = _planes(cuda)
+    with pytest.raises(ValueError):
+        fancy_yuv420_to_rgb(y.transpose(1, 2), u, v, 8, 8)
+    with pytest.raises(ValueError):
+        fancy_yuv420_to_rgb(y, u.to(torch.int32), v, 8, 8)

@@ -1,0 +1,179 @@
+"""Build and bind the hand-written CUDA kernels under `csrc/`.
+
+The sources are compiled by `nvcc` for Hopper (`sm_90a`) into one shared
+library with a plain C interface at first use, into `build/` beside the
+package, and loaded with ctypes.  Every kernel entry point takes its device
+pointers (`tensor.data_ptr()`) and the current CUDA stream as `void*`,
+launches without synchronising, and returns the `cudaGetLastError()` of the
+launch; `launch` raises on a non-zero status and counts the launch.
+
+Nothing here runs at import: the CPU path never needs nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build"
+LIB_PATH = BUILD_DIR / "libwebp_tpu_torch_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# C entry point -> argument types (the trailing stream included).
+_SIGNATURES = {
+    "webp_residual": [
+        _P, _P, _I,          # bitmap, vals, cap_mb
+        _P, _P, _I,          # esc_pos, esc_val, n_esc
+        _P, _L,              # dense int16 levels, row stride
+        _P, _L,              # qtab, row stride
+        _P, _L, _P, _L,      # segment_ids, luma_mode (+ batch strides)
+        _P, _L, _P, _L,      # skipped, non_zero (+ batch strides)
+        _I, _I,              # nmb, batch
+        _P, _P,              # residuals out, do_sub out
+        _P,                  # stream
+    ],
+    "webp_recon": [
+        _P,                  # residuals
+        _P, _L, _P, _L, _P, _L,   # luma_mode, bpred, chroma_mode (+ batch strides)
+        _I, _I, _I,          # mbw, mbh, batch
+        _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides)
+        _P,
+    ],
+    "webp_loopfilter": [
+        _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides), in place
+        _P, _L, _P, _L, _P, _L, _P, _L,  # level, interior, hev, do_sub
+        _I, _I, _I, _I,      # mbw, mbh, batch, simple
+        _P,
+    ],
+    "webp_yuv2rgb": [
+        _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides)
+        _I, _I, _I, _I, _I,  # mbw, mbh, width, height, batch
+        _P,                  # rgb out [B, height, width, 3]
+        _P,
+    ],
+}
+
+# Kernel name -> launches since the last reset_launches().  Each wrapper
+# counts here, and only when its kernel was launched.
+LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "yuv2rgb": 0}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _build() -> None:
+    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIB_PATH.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)
+
+
+def load():
+    """Build (if the sources are newer than the library) and load the kernels."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        newest = max(p.stat().st_mtime for p in CSRC.iterdir())
+        if not LIB_PATH.exists() or LIB_PATH.stat().st_mtime < newest:
+            _build()
+        lib = ctypes.CDLL(str(LIB_PATH))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.webp_error_string.argtypes = [ctypes.c_int]
+        lib.webp_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def launch(kernel: str, entry: str, device, *args) -> None:
+    """Launch `entry` on `device`'s current stream; raise on a refused launch."""
+    import torch
+
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        msg = lib.webp_error_string(rc).decode()
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES[kernel] += 1
+
+
+def mb_field(t, batch: int, nmb: int, width: int = 1):
+    """(pointer, batch stride) of a per-MB uint8/bool field [B, nmb(, width)].
+
+    The field may be a strided view (a slice of the packed u8 buffer); its
+    per-image data must be contiguous.
+    """
+    import torch
+
+    want = (batch, nmb) if width == 1 else (batch, nmb, width)
+    if t.dtype not in (torch.uint8, torch.bool) or tuple(t.shape) != want:
+        raise ValueError(f"per-MB field must be uint8 {want}, got {t.dtype} {tuple(t.shape)}")
+    inner = (1,) if width == 1 else (width, 1)
+    if tuple(t.stride()[1:]) != inner:
+        raise ValueError("per-MB field must be contiguous within each image")
+    return t.data_ptr(), t.stride(0)
+
+
+def dense(t, dtype, shape) -> int:
+    """Pointer of a contiguous tensor of the given dtype and shape."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"expected contiguous {dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}"
+        )
+    return t.data_ptr()
+
+
+def plane(t, batch: int, rows: int, cols: int):
+    """(pointer, batch stride) of a uint8 plane [B, rows, cols] with packed rows."""
+    import torch
+
+    if t.dtype != torch.uint8 or tuple(t.shape) != (batch, rows, cols):
+        raise ValueError(f"plane must be uint8 {(batch, rows, cols)}, got {t.dtype} {tuple(t.shape)}")
+    if t.stride(2) != 1 or t.stride(1) != cols:
+        raise ValueError("plane rows must be packed")
+    return t.data_ptr(), t.stride(0)
+
+
+def same_device(*tensors):
+    """The one device all `tensors` lie on (raises if they differ)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+    return dev

@@ -1,0 +1,269 @@
+// Kernel K2: intra prediction + residue, in wavefront order.
+//
+// Replaces webp_tpu/ops/wavefront2.py:152 recon_step, driven over the MB
+// grid by decode_frames_fused_v2 (:274, its recon half).  The JAX version
+// predicts the ten 4x4 B modes as one [13]x[13,160] float matmul and routes
+// rows through ring buffers, both TPU workarounds; here each predictor is
+// computed directly as RFC 6386 / webp_tpu/ops/predict.py write it, and the
+// neighbours are read back from the (unfiltered) output planes.
+//
+// Bound: latency of the dependency chain.  An MB needs its left, top-left,
+// top and top-right neighbours, so the T = mbw + 2(mbh-1) anti-diagonals
+// t = x + 2y run one after another, and inside a B-predicted MB the 16
+// subblocks do too.  Design: one block per image, one warp per MB row; at
+// step t warp r reconstructs MB (t - 2r, r), then the block synchronises.
+// I16 and chroma spread their pixels over the 32 lanes; a B-predicted MB
+// walks its subblocks with one lane per pixel.  At 768x512 at most 24 MBs
+// are in flight per image, and a batch of B images fills only B SMs: the
+// wavefront's parallelism, not the card, is the limit.
+
+#include "common.cuh"
+
+namespace {
+
+// Pixel of a plane with VP8's frame borders: the row above the frame is
+// 127 (its corner included), the column left of it 129.
+__device__ __forceinline__ int pix(const uint8_t* p, int stride, int row, int col) {
+    if (row < 0) return 127;
+    if (col < 0) return 129;
+    return p[row * stride + col];
+}
+
+__device__ __forceinline__ int avg2(int a, int b) { return (a + b + 1) >> 1; }
+__device__ __forceinline__ int avg3(int a, int b, int c) { return (a + 2 * b + c + 2) >> 2; }
+
+// The ten 4x4 B-mode predictors (RFC 6386 12.3, webp_tpu/ops/predict.py
+// predict_b).  e[0..3] = left pixels bottom-up (L3 L2 L1 L0), e[4] = the
+// top-left corner, e[5..12] = the eight pixels above (A0..A7, A4..A7 being
+// above-right).  out[r*4 + c].
+__device__ void predict_b4(int mode, const int* e, int* out) {
+    const int L0 = e[3], L1 = e[2], L2 = e[1], L3 = e[0], P = e[4];
+    const int* A = e + 5;
+    switch (mode) {
+    case 0: {  // B_DC
+        int v = 4;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) v += A[i] + e[3 - i];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) out[i] = v >> 3;
+        break;
+    }
+    case 1:  // B_TM
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) out[r * 4 + c] = clip255(e[3 - r] + A[c] - P);
+        break;
+    case 2: {  // B_VE
+        const int row[4] = {avg3(P, A[0], A[1]), avg3(A[0], A[1], A[2]),
+                            avg3(A[1], A[2], A[3]), avg3(A[2], A[3], A[4])};
+#pragma unroll
+        for (int i = 0; i < 16; ++i) out[i] = row[i & 3];
+        break;
+    }
+    case 3: {  // B_HE
+        const int col[4] = {avg3(P, L0, L1), avg3(L0, L1, L2), avg3(L1, L2, L3), avg3(L2, L3, L3)};
+#pragma unroll
+        for (int i = 0; i < 16; ++i) out[i] = col[i >> 2];
+        break;
+    }
+    case 4: {  // B_LD
+        int avgs[7];
+#pragma unroll
+        for (int i = 0; i < 7; ++i) avgs[i] = avg3(A[i], A[i + 1], A[i + 2 < 7 ? i + 2 : 7]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) out[r * 4 + c] = avgs[r + c];
+        break;
+    }
+    case 5: {  // B_RD
+        int avgs[7];
+#pragma unroll
+        for (int i = 0; i < 7; ++i) avgs[i] = avg3(e[i], e[i + 1], e[i + 2]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) out[r * 4 + c] = avgs[3 - r + c];
+        break;
+    }
+    case 6:  // B_VR
+        out[12] = avg3(e[1], e[2], e[3]);
+        out[8] = avg3(e[2], e[3], e[4]);
+        out[13] = out[4] = avg3(e[3], e[4], e[5]);
+        out[9] = out[0] = avg2(e[4], e[5]);
+        out[14] = out[5] = avg3(e[4], e[5], e[6]);
+        out[10] = out[1] = avg2(e[5], e[6]);
+        out[15] = out[6] = avg3(e[5], e[6], e[7]);
+        out[11] = out[2] = avg2(e[6], e[7]);
+        out[7] = avg3(e[6], e[7], e[8]);
+        out[3] = avg2(e[7], e[8]);
+        break;
+    case 7:  // B_VL
+        out[0] = avg2(A[0], A[1]);
+        out[4] = avg3(A[0], A[1], A[2]);
+        out[8] = out[1] = avg2(A[1], A[2]);
+        out[5] = out[12] = avg3(A[1], A[2], A[3]);
+        out[9] = out[2] = avg2(A[2], A[3]);
+        out[13] = out[6] = avg3(A[2], A[3], A[4]);
+        out[10] = out[3] = avg2(A[3], A[4]);
+        out[14] = out[7] = avg3(A[3], A[4], A[5]);
+        out[11] = avg3(A[4], A[5], A[6]);
+        out[15] = avg3(A[5], A[6], A[7]);
+        break;
+    case 8:  // B_HD
+        out[12] = avg2(e[0], e[1]);
+        out[13] = avg3(e[0], e[1], e[2]);
+        out[8] = out[14] = avg2(e[1], e[2]);
+        out[9] = out[15] = avg3(e[1], e[2], e[3]);
+        out[10] = out[4] = avg2(e[2], e[3]);
+        out[11] = out[5] = avg3(e[2], e[3], e[4]);
+        out[6] = out[0] = avg2(e[3], e[4]);
+        out[7] = out[1] = avg3(e[3], e[4], e[5]);
+        out[2] = avg3(e[4], e[5], e[6]);
+        out[3] = avg3(e[5], e[6], e[7]);
+        break;
+    default:  // 9: B_HU
+        out[0] = avg2(L0, L1);
+        out[1] = avg3(L0, L1, L2);
+        out[2] = out[4] = avg2(L1, L2);
+        out[3] = out[5] = avg3(L1, L2, L3);
+        out[6] = out[8] = avg2(L2, L3);
+        out[7] = out[9] = avg3(L2, L3, L3);
+        out[10] = out[11] = L3;
+        out[12] = out[13] = out[14] = out[15] = L3;
+        break;
+    }
+}
+
+// Whole-block DC/V/H/TM prediction of pixel (r, c) of an n x n block whose
+// top-left pixel is (row0, col0); `dc` is precomputed by the caller.
+__device__ __forceinline__ int predict_whole(int mode, const uint8_t* p, int stride,
+                                             int row0, int col0, int r, int c, int dc) {
+    switch (mode) {
+    case 0: return dc;
+    case 1: return pix(p, stride, row0 - 1, col0 + c);
+    case 2: return pix(p, stride, row0 + r, col0 - 1);
+    default:
+        return clip255(pix(p, stride, row0 + r, col0 - 1) + pix(p, stride, row0 - 1, col0 + c)
+                       - pix(p, stride, row0 - 1, col0 - 1));
+    }
+}
+
+// DC of an n x n block: the rounded mean of the neighbours that exist, 128
+// at the frame's top-left MB.
+__device__ int whole_dc(const uint8_t* p, int stride, int row0, int col0, int n, int log2n) {
+    const bool above = row0 > 0, left = col0 > 0;
+    if (!above && !left) return 128;
+    int total = 0;
+    for (int i = 0; i < n; ++i) {
+        if (above) total += p[(row0 - 1) * stride + col0 + i];
+        if (left) total += p[(row0 + i) * stride + col0 - 1];
+    }
+    const int shf = log2n - 1 + above + left;
+    return (total + (1 << (shf - 1))) >> shf;
+}
+
+__device__ void recon_mb(int lane, int x, int y, int mbw, const int32_t* __restrict__ rs,
+                         int lm, const uint8_t* __restrict__ modes, int cm,
+                         uint8_t* Y, uint8_t* U, uint8_t* V) {
+    const int W = mbw * 16, CW = mbw * 8;
+    const int y0 = y * 16, x0 = x * 16;
+    if (lm == 4) {
+        for (int i = 0; i < 16; ++i) {
+            if (lane < 16) {
+                const int sby = i >> 2, sbx = i & 3;
+                const int py = y0 + sby * 4, px = x0 + sbx * 4;
+                int e[13];
+#pragma unroll
+                for (int k = 0; k < 4; ++k) e[3 - k] = pix(Y, W, py + k, px - 1);
+                e[4] = pix(Y, W, py - 1, px - 1);
+#pragma unroll
+                for (int k = 0; k < 4; ++k) e[5 + k] = pix(Y, W, py - 1, px + k);
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    int v;
+                    if (sbx < 3) {
+                        v = pix(Y, W, py - 1, px + 4 + k);
+                    } else if (y == 0) {
+                        v = 127;  // the MB's top-right, used by every row of column 3
+                    } else {
+                        v = Y[(y0 - 1) * W + (x == mbw - 1 ? x0 + 15 : x0 + 16 + k)];
+                    }
+                    e[9 + k] = v;
+                }
+                int out[16];
+                predict_b4(modes[i], e, out);
+                int pred = 0;
+#pragma unroll
+                for (int k = 0; k < 16; ++k) pred = (k == lane) ? out[k] : pred;
+                Y[(py + (lane >> 2)) * W + px + (lane & 3)] = clip255(pred + rs[i * 16 + lane]);
+            }
+            __syncwarp();
+        }
+    } else {
+        const int dc = lm == 0 ? whole_dc(Y, W, y0, x0, 16, 4) : 0;
+        for (int p = lane; p < 256; p += 32) {
+            const int r = p >> 4, c = p & 15;
+            const int pred = predict_whole(lm, Y, W, y0, x0, r, c, dc);
+            const int blk = (r >> 2) * 4 + (c >> 2), k = (r & 3) * 4 + (c & 3);
+            Y[(y0 + r) * W + x0 + c] = clip255(pred + rs[blk * 16 + k]);
+        }
+    }
+    const int cy0 = y * 8, cx0 = x * 8;
+    const int dcu = cm == 0 ? whole_dc(U, CW, cy0, cx0, 8, 3) : 0;
+    const int dcv = cm == 0 ? whole_dc(V, CW, cy0, cx0, 8, 3) : 0;
+    for (int p = lane; p < 128; p += 32) {
+        const int pl = p >> 6, r = (p >> 3) & 7, c = p & 7;
+        uint8_t* C = pl ? V : U;
+        const int pred = predict_whole(cm, C, CW, cy0, cx0, r, c, pl ? dcv : dcu);
+        const int blk = 16 + pl * 4 + (r >> 2) * 2 + (c >> 2), k = (r & 3) * 4 + (c & 3);
+        C[(cy0 + r) * CW + cx0 + c] = clip255(pred + rs[blk * 16 + k]);
+    }
+}
+
+// Plane pointers are deliberately not __restrict__/const: the kernel reads
+// back pixels it wrote in earlier steps, so loads must stay coherent.
+__global__ void recon_kernel(const int32_t* __restrict__ res,
+                             const uint8_t* __restrict__ lmode, long long lm_bs,
+                             const uint8_t* __restrict__ bpred, long long bp_bs,
+                             const uint8_t* __restrict__ cmode, long long cm_bs,
+                             int mbw, int mbh,
+                             uint8_t* y, long long y_bs, uint8_t* u, long long u_bs,
+                             uint8_t* v, long long v_bs) {
+    const int b = blockIdx.x;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+    const int nmb = mbw * mbh;
+    uint8_t* Y = y + b * y_bs;
+    uint8_t* U = u + b * u_bs;
+    uint8_t* V = v + b * v_bs;
+    const int T = wavefront_steps(mbw, mbh);
+    for (int t = 0; t < T; ++t) {
+        for (int r = warp; r < mbh; r += nwarps) {
+            const int x = t - 2 * r;
+            if (x < 0 || x >= mbw) continue;
+            const int m = r * mbw + x;
+            recon_mb(lane, x, r, mbw, res + (static_cast<long long>(b) * nmb + m) * 24 * 16,
+                     lmode[b * lm_bs + m], bpred + b * bp_bs + m * 16, cmode[b * cm_bs + m],
+                     Y, U, V);
+        }
+        __syncthreads();
+    }
+}
+
+}  // namespace
+
+WEBP_API int webp_recon(const void* res, const void* lmode, long long lm_bs,
+                        const void* bpred, long long bp_bs, const void* cmode, long long cm_bs,
+                        int mbw, int mbh, int batch,
+                        void* y, long long y_bs, void* u, long long u_bs, void* v, long long v_bs,
+                        void* stream) {
+    if (mbw <= 0 || mbh <= 0 || batch <= 0) return 0;
+    recon_kernel<<<batch, wavefront_threads(mbh), 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(res),
+        static_cast<const uint8_t*>(lmode), lm_bs, static_cast<const uint8_t*>(bpred), bp_bs,
+        static_cast<const uint8_t*>(cmode), cm_bs, mbw, mbh,
+        static_cast<uint8_t*>(y), y_bs, static_cast<uint8_t*>(u), u_bs,
+        static_cast<uint8_t*>(v), v_bs);
+    return static_cast<int>(cudaGetLastError());
+}

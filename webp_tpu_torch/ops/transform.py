@@ -1,0 +1,59 @@
+"""Decode-side 4x4 inverse transforms on int32 tensors (RFC 6386 section 14.3).
+
+Plain torch twins of `webp_tpu/ops/jax_ops.py` `idct4x4` / `iwht4x4`; the
+CUDA kernel in `csrc/residual.cu` computes the same integer arithmetic.
+"""
+
+from __future__ import annotations
+
+import torch
+
+C1 = 20091
+C2 = 35468
+
+
+def _mul16(a: torch.Tensor, c: int) -> torch.Tensor:
+    """Exact (a * c) >> 16 (the product is formed in int64)."""
+    return ((a.to(torch.int64) * c) >> 16).to(torch.int32)
+
+
+def idct4x4(blocks: torch.Tensor) -> torch.Tensor:
+    """Inverse DCT on [..., 16] integer blocks -> int32 [..., 16]."""
+    b = blocks.to(torch.int32).reshape(*blocks.shape[:-1], 4, 4)
+    r0, r1, r2, r3 = b[..., 0, :], b[..., 1, :], b[..., 2, :], b[..., 3, :]
+    a1 = r0 + r2
+    b1 = r0 - r2
+    c1 = _mul16(r1, C2) - (r3 + _mul16(r3, C1))
+    d1 = (r1 + _mul16(r1, C1)) + _mul16(r3, C2)
+    t = torch.stack([a1 + d1, b1 + c1, b1 - c1, a1 - d1], dim=-2)
+    c0, c1_, c2_, c3 = t[..., 0], t[..., 1], t[..., 2], t[..., 3]
+    a1 = c0 + c2_
+    b1 = c0 - c2_
+    cc = _mul16(c1_, C2) - (c3 + _mul16(c3, C1))
+    dd = (c1_ + _mul16(c1_, C1)) + _mul16(c3, C2)
+    out = torch.stack(
+        [(a1 + dd + 4) >> 3, (b1 + cc + 4) >> 3, (b1 - cc + 4) >> 3, (a1 - dd + 4) >> 3],
+        dim=-1,
+    )
+    return out.reshape(blocks.shape)
+
+
+def iwht4x4(blocks: torch.Tensor) -> torch.Tensor:
+    """Inverse Walsh-Hadamard transform of the Y2 block, [..., 16] -> int32."""
+    b = blocks.to(torch.int32).reshape(*blocks.shape[:-1], 4, 4)
+    r0, r1, r2, r3 = b[..., 0, :], b[..., 1, :], b[..., 2, :], b[..., 3, :]
+    t = torch.stack(
+        [(r0 + r3) + (r1 + r2), (r1 - r2) + (r0 - r3),
+         (r0 + r3) - (r1 + r2), (r0 - r3) - (r1 - r2)],
+        dim=-2,
+    )
+    c0, c1_, c2_, c3 = t[..., 0], t[..., 1], t[..., 2], t[..., 3]
+    a1 = c0 + c3
+    b1 = c1_ + c2_
+    c1n = c1_ - c2_
+    d1 = c0 - c3
+    out = torch.stack(
+        [(a1 + b1 + 3) >> 3, (c1n + d1 + 3) >> 3, (a1 - b1 + 3) >> 3, (d1 - c1n + 3) >> 3],
+        dim=-1,
+    )
+    return out.reshape(blocks.shape)
