@@ -3,24 +3,38 @@
 
     python3 chip_smoke.py
 
-Builds the host entropy library (g++) and the decode kernels
-(`webp_tpu_torch/csrc`, nvcc), writes four distinct seeded 768x512 VP8
-keyframes (`tests/random_vp8.py`: I4 and I16 macroblocks, segments,
-|level| > 127 escapes, several token partitions; two with the normal loop
-filter, two with the simple one) and decodes a batch of 8 of each kind
-through the port's main path (`dispatch_decode_batch`, out="rgb" and
-out="yuv") on the card.  It checks the output bit-exact against the port's
-plain torch decode of the same payloads on the CPU (which the tests hold to
-the JAX package and its scalar decoder) and the RGB also against the host's
-C++ YUV->RGB conversion of the YUV output, checks each kernel (K1 residual,
-K2 recon, K3 loop filter in both kinds, K4 yuv2rgb) bit-exact against its
-plain torch twin on the same card inputs, and shows that the main path
-launched every kernel.  It imports neither jax nor the JAX package.
+Builds the host entropy library (g++) and the kernels (`webp_tpu_torch/csrc`,
+nvcc, one process per source), then drives both ported paths at 768x512
+through their public entry points, each with the launch counts set to 0
+just before it and read just after:
 
-Prints the card's name and power limit, per-kernel and per-batch timings
-(CUDA events; kernel beside plain twin), one JSON line of kernel records,
-and, last, {"ok": true, "device": {...}}.  Exits non-zero, without that
-line, when there is no CUDA device or any phase fails.  Needs no network.
+Decode.  Writes four distinct seeded VP8 keyframes (`tests/random_vp8.py`:
+I4 and I16 macroblocks, segments, |level| > 127 escapes, several token
+partitions; two with the normal loop filter, two with the simple one) and
+decodes a batch of 8 of each kind (`dispatch_decode_batch`, out="rgb" and
+out="yuv").  The output must be bit-exact with the port's plain torch
+decode of the same payloads on the CPU (which the tests hold to the JAX
+package and its scalar decoder), the RGB also with the host's C++
+YUV->RGB conversion of the YUV output.  K1 residual, K2 recon, K3 loop
+filter (both kinds) and K4 yuv2rgb are each held bit-exact to their plain
+twins on the same card inputs.
+
+Encode.  Two distinct seeded synthetic frames (`tests/synthetic_rgb.py`,
+asserted to give I4 and I16 MBs and at least three chroma modes) tiled to
+a batch of 8 go through `encode_frames_lossy_batch` at Q75, method 3, 8
+partitions, two-pass and one-pass.  The payloads must be byte-equal to the
+port's plain encode of the distinct frames on the CPU (which the tests
+hold byte-equal to the JAX package).  K5 enc (default and per-image
+tables, n_try 0 and 3), K6 token_stats (also against the host C++ token
+statistics) and K7 enc_tables are each held bit-exact to their plain
+twins on the main path's card inputs; the payloads decode through K1-K4
+bit-exact with the plain CPU decode.
+
+Prints the card's name and power limit, per-kernel timings (CUDA events;
+kernel beside plain twin), the encode's per-stage host-clock split, one
+JSON line of kernel records and, last, {"ok": true, "device": {...}}.
+Exits non-zero, without that line, when there is no CUDA device or any
+phase fails.  Imports neither jax nor the JAX package; needs no network.
 """
 
 from __future__ import annotations
@@ -38,12 +52,21 @@ BATCH = 8
 SEEDS = {False: (101, 202), True: (303, 404)}  # simple filter -> distinct frames
 ESCAPES = 32  # |level| > 127 per frame
 
-KERNELS = [
+QUALITY, METHOD, PARTITIONS = 75, 3, 8
+ENC_SEEDS = (11, 12)
+
+DECODE_KERNELS = [
     # name, source, replaced TPU kernel (file:line)
     ("residual", "webp_tpu_torch/csrc/residual.cu", "webp_tpu/decode/device.py:509"),
     ("recon", "webp_tpu_torch/csrc/recon.cu", "webp_tpu/ops/wavefront2.py:152"),
     ("loopfilter", "webp_tpu_torch/csrc/loopfilter.cu", "webp_tpu/ops/loopfilter2.py:192"),
     ("yuv2rgb", "webp_tpu_torch/csrc/yuv2rgb.cu", "webp_tpu/ops/jax_ops.py:189"),
+]
+ENCODE_KERNELS = [
+    ("enc", "webp_tpu_torch/csrc/enc.cu", "webp_tpu/ops/encode_wavefront2.py:803"),
+    ("token_stats", "webp_tpu_torch/csrc/token_stats.cu", "webp_tpu/ops/token_stats.py:183"),
+    ("enc_tables", "webp_tpu_torch/csrc/enc_tables.cu",
+     "webp_tpu/ops/encode_wavefront2.py:1405"),
 ]
 
 
@@ -108,39 +131,18 @@ def max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
 
 
-def main() -> int:
+def decode_phase(dev, card: str) -> dict:
+    """The decode path, counted, checked and timed; name -> kernel record."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    _import_paths()
     from webp_tpu_torch import _build
     from webp_tpu_torch.decode import device as tdev
-    from webp_tpu_torch.io import native
     from webp_tpu_torch.ops import residual
     from webp_tpu_torch.ops.loopfilter import loop_filter_, loop_filter_plain_
     from webp_tpu_torch.ops.wavefront import recon_, recon_plain_
     from webp_tpu_torch.ops.yuv import fancy_yuv420_to_rgb, fancy_yuv420_to_rgb_plain
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-
-    # 1. Build the host library and the kernels from the checkout.
-    t0 = time.perf_counter()
-    native.load()
-    _build.load()
-    print(f"build + load: {time.perf_counter() - t0:.1f} s", flush=True)
-
-    # 2. The card.
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
-    print(f"card: {card}", flush=True)
-
-    # 3. Inputs: two distinct frames per filter kind, tiled into batches of
+    # 1. Inputs: two distinct frames per filter kind, tiled into batches of
     #    8, and the plain CPU decode of the distinct frames.
     t0 = time.perf_counter()
     batches, refs = {}, {}
@@ -161,13 +163,13 @@ def main() -> int:
     if host["bitmap"] is None or n_esc == 0:
         raise AssertionError(f"main path must take the sparse form with escapes ({n_esc})")
 
-    # 4. The main path, counted: both filter kinds, both outputs.
+    # 2. The main path, counted: both filter kinds, both outputs.
     _build.reset_launches()
     outs = {(simple, out): tdev.dispatch_decode_batch(batches[simple], out=out, device=dev)
             for simple in (False, True) for out in ("rgb", "yuv")}
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [name for name, _, _ in DECODE_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel: {launches}")
     mbw, mbh = (WIDTH + 15) // 16, (HEIGHT + 15) // 16
@@ -189,7 +191,7 @@ def main() -> int:
     print(f"main path: bit-exact vs the plain CPU decode on 2 x {BATCH} images "
           f"(normal and simple filter, rgb and yuv); launches {launches}", flush=True)
 
-    # 5. Each kernel against its plain twin, on the main path's inputs.
+    # 3. Each kernel against its plain twin, on the main path's inputs.
     d = tdev.to_device_batch(host, dev)
     _, _, simple, width, height = tdev.geometry(host["headers"])
     f = tdev.field_views(d["u8buf"], nmb)
@@ -233,7 +235,7 @@ def main() -> int:
         raise AssertionError(f"kernels differ from their plain twins: {bad}")
     print(f"kernels vs plain twins (bit-exact, tolerance 0): {err}", flush=True)
 
-    # 6. Timings, kernel beside plain twin, at the main path's shapes.  The
+    # 4. Timings, kernel beside plain twin, at the main path's shapes.  The
     #    filter works in place, so each run starts from fresh unfiltered planes.
     work = [p.clone() for p in rec]
 
@@ -253,7 +255,7 @@ def main() -> int:
         "loopfilter": time_ms(lambda: loop_filter_plain_(*work, *lf_args, simple), 2, fresh),
         "yuv2rgb": time_ms(lambda: fancy_yuv420_to_rgb_plain(*filtered, width, height), 5),
     }
-    for name, _, _ in KERNELS:
+    for name, _, _ in DECODE_KERNELS:
         print(f"{name}: {ms[name]:.4f} ms kernel, {plain_ms[name]:.4f} ms plain "
               f"(batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
     # K3's branches depend on the pixels: its time on planes it has already
@@ -282,15 +284,277 @@ def main() -> int:
     print(f"dispatch_decode_batch (host parse + upload + kernels, host clock): "
           f"{e2e_ms / BATCH:.4f} ms/img ({card})", flush=True)
 
+    return {name: {"launches": launches[name], "max_abs_err": err[name], "ms": ms[name],
+                   "plain_ms": plain_ms[name]} for name, _, _ in DECODE_KERNELS}
+
+
+def encode_inputs(width: int, height: int):
+    """The distinct seeded synthetic frames, and the batch of BATCH they tile."""
+    _import_paths()
+    from synthetic_rgb import synthetic_frame
+
+    distinct = [synthetic_frame(width, height, s) for s in ENC_SEEDS]
+    return distinct, [distinct[i % len(distinct)] for i in range(BATCH)]
+
+
+def encode_reference(distinct):
+    """The port's plain encode of the distinct frames on the CPU, for both
+    flows: two_pass -> (per-image arrays, payloads)."""
+    _import_paths()
+    from webp_tpu_torch.encode import device as edev
+
+    height, width = distinct[0].shape[:2]
+    planes = edev.rgb_to_planes(distinct)
+    out = {}
+    for two_pass in (True, False):
+        arrays, probs = edev.analyze_frames_lossy_batch(planes, QUALITY, METHOD, two_pass,
+                                                        device="cpu")
+        out[two_pass] = arrays, edev.finish_frames_lossy_batch(arrays, probs, QUALITY, width,
+                                                               height, PARTITIONS)
+    return out
+
+
+def mode_counts(arrays):
+    """(I4 MBs, I16 MBs, distinct chroma modes) over per-image arrays."""
+    import numpy as np
+
+    lm = np.concatenate([a["luma_mode"] for a in arrays])
+    cm = np.concatenate([a["chroma_mode"] for a in arrays])
+    return int((lm == 4).sum()), int((lm != 4).sum()), len(set(cm.tolist()))
+
+
+def encode_stages(rgbs, dev, reps: int = 3):
+    """Host-clock ms per stage of the two-pass encode (a synchronise ends
+    each), the median of `reps` runs after a warm-up; also the bytes of the
+    pass-2 arrays fetched and the payloads."""
+    import torch
+
+    from webp_tpu_torch.common import vp8_tables as T
+    from webp_tpu_torch.encode import device as edev
+    from webp_tpu_torch.encode.quant import SegmentParams, quality_to_quant_index
+    from webp_tpu_torch.ops.enc_params import EncParams, EncTables
+    from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch
+
+    height, width = rgbs[0].shape[:2]
+    n_try = edev.n_try_for(METHOD)
+    names = ("rgb_to_yuv", "upload", "pass1", "stats_d2h_probs", "tables", "pass2", "d2h",
+             "finish")
+    runs = []
+    for _ in range(reps + 1):
+        t = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+
+        planes = edev.rgb_to_planes(rgbs)
+        mark()
+        y, u, v = edev.upload(planes, dev)
+        mark()
+        P = EncParams.from_segment(SegmentParams(quality_to_quant_index(QUALITY)), dev)
+        default = EncTables.from_probs(T.COEFF_PROBS_DEFAULT, dev)
+        totals, ones = edev.encode_analysis_stats_batch(y, u, v, P, default, min(n_try, 3))
+        mark()
+        probs = edev.adapt_probs(totals.cpu().numpy(), ones.cpu().numpy())
+        mark()
+        tables = edev.tables_for(probs, dev)
+        mark()
+        arrays = encode_analysis_batch(y, u, v, P, tables, n_try)
+        mark()
+        host = edev.fetch(arrays)
+        mark()
+        payloads = edev.finish_frames_lossy_batch(host, probs, QUALITY, width, height, PARTITIONS)
+        mark()
+        runs.append([(b - a) * 1000 for a, b in zip(t, t[1:])])
+    ms = {n: statistics.median(r[i] for r in runs[1:]) for i, n in enumerate(names)}
+    nbytes = sum(a.numel() * a.element_size() for a in arrays.values())
+    return ms, nbytes, payloads
+
+
+def encode_phase(dev, card: str) -> dict:
+    """The encode path, counted, checked and timed; name -> kernel record."""
+    import numpy as np
+    import torch
+
+    from webp_tpu_torch import _build, encode_frames_lossy_batch
+    from webp_tpu_torch.common import vp8_tables as T
+    from webp_tpu_torch.decode import device as tdev
+    from webp_tpu_torch.encode import device as edev
+    from webp_tpu_torch.encode import vp8 as tvp8
+    from webp_tpu_torch.encode.contexts import compute_contexts
+    from webp_tpu_torch.encode.quant import SegmentParams, quality_to_quant_index
+    from webp_tpu_torch.io import native
+    from webp_tpu_torch.ops.enc_params import EncParams, EncTables
+    from webp_tpu_torch.ops.enc_tables import enc_tables, enc_tables_plain
+    from webp_tpu_torch.ops.encode_wavefront import (encode_analysis_batch,
+                                                     encode_analysis_batch_plain)
+    from webp_tpu_torch.ops.token_stats import token_stats, token_stats_plain
+
+    mbw, mbh = (WIDTH + 15) // 16, (HEIGHT + 15) // 16
+
+    # 1. Inputs: two distinct frames tiled into a batch of 8, and the plain
+    #    CPU encode of the distinct frames.
+    t0 = time.perf_counter()
+    distinct, rgbs = encode_inputs(WIDTH, HEIGHT)
+    ref = encode_reference(distinct)
+    n_i4, n_i16, n_chroma = mode_counts(ref[True][0])
+    if n_i4 == 0 or n_i16 == 0 or n_chroma < 3:
+        raise AssertionError(f"expected I4 and I16 MBs and 3+ chroma modes, got {n_i4} / "
+                             f"{n_i16} / {n_chroma}")
+    print(f"encode inputs + plain CPU encode (both flows): {time.perf_counter() - t0:.1f} s; "
+          f"{n_i4} I4 and {n_i16} I16 MBs, {n_chroma} chroma modes; payloads "
+          f"{[len(p) for p in ref[True][1]]} bytes (two-pass), "
+          f"{[len(p) for p in ref[False][1]]} bytes (one-pass)", flush=True)
+
+    # 2. The main path, counted: two-pass, then one-pass.
+    launches = {name: 0 for name, _, _ in ENCODE_KERNELS}
+    payloads = {}
+    for two_pass, expect in ((True, (2, 1, 1)), (False, (1, 0, 0))):
+        _build.reset_launches()
+        got = encode_frames_lossy_batch(rgbs, QUALITY, METHOD, two_pass,
+                                        num_partitions=PARTITIONS, device=dev)
+        torch.cuda.synchronize()
+        counts = tuple(_build.LAUNCHES[name] for name in launches)
+        if counts != expect:
+            raise AssertionError(f"two_pass={two_pass} launched {counts}, expected {expect}")
+        for name, n in zip(launches, counts):
+            launches[name] += n
+        for i, p in enumerate(got):
+            if p != ref[two_pass][1][i % len(distinct)]:
+                raise AssertionError(f"image {i} (two_pass={two_pass}) differs from the plain "
+                                     "CPU encode")
+        payloads[two_pass] = got
+    print(f"main path: byte-equal to the plain CPU encode on 2 x {BATCH} images (two-pass and "
+          f"one-pass, Q{QUALITY} m{METHOD}, {PARTITIONS} partitions); launches {launches}",
+          flush=True)
+
+    # 3. Each kernel against its plain twin, on the main path's card inputs.
+    y, u, v = edev.upload(edev.rgb_to_planes(rgbs), dev)
+    P = EncParams.from_segment(SegmentParams(quality_to_quant_index(QUALITY)), dev)
+    default = EncTables.from_probs(T.COEFF_PROBS_DEFAULT, dev)
+
+    def enc_err(tbl, n_try):
+        got = encode_analysis_batch(y, u, v, P, tbl, n_try)
+        want = encode_analysis_batch_plain(y, u, v, P, tbl, n_try)
+        return got, max(max_abs_err(got[k], want[k]) for k in got)
+
+    pass1, err_enc = enc_err(default, 3)
+    stat_args = (pass1["luma_mode"], pass1["y2_levels"], pass1["y_levels"], pass1["uv_levels"],
+                 edev.skip_flags(pass1), mbw, mbh)
+    stats = token_stats(*stat_args)
+    err = {"token_stats": max(max_abs_err(a, b) for a, b in zip(stats, token_stats_plain(*stat_args)))}
+    for i, a in enumerate(edev.fetch(pass1)):  # the host C++ statistics of the token stream
+        ctx = compute_contexts(a["luma_mode"], a["y2_levels"], a["y_levels"], a["uv_levels"],
+                               mbw, mbh)
+        levels, meta = tvp8.token_stream(a, ctx, tvp8.skip_flags(a), mbw)
+        for got, host in zip(stats, native.vp8_token_stats(levels, meta)):
+            err["token_stats"] = max(err["token_stats"],
+                                     max_abs_err(got[i], torch.from_numpy(host).to(dev)))
+    probs = torch.from_numpy(edev.adapt_probs(stats[0].cpu().numpy(),
+                                              stats[1].cpu().numpy())).to(dev)
+    tables = enc_tables(probs)
+    tables_p = enc_tables_plain(probs)
+    err["enc_tables"] = max(max_abs_err(getattr(tables, f), getattr(tables_p, f))
+                            for f in EncTables.FIELDS)
+    err["enc"] = max(err_enc, enc_err(tables, 3)[1], enc_err(default, 0)[1],
+                     enc_err(tables, 0)[1])
+    torch.cuda.synchronize()
+    bad = {k: e for k, e in err.items() if e != 0}
+    if bad:
+        raise AssertionError(f"kernels differ from their plain twins: {bad}")
+    print(f"encode kernels vs plain twins (bit-exact, tolerance 0; K5 with default and "
+          f"per-image tables at n_try 0 and 3, K6 also vs the host C++ statistics): {err}",
+          flush=True)
+
+    # 4. Round trip: the card's payloads through the decode kernels.
+    decoded = tdev.dispatch_decode_batch(payloads[True], out="rgb", device=dev).cpu().numpy()
+    want_rgb, _ = cpu_reference(ref[True][1])
+    psnr = []
+    for i in range(BATCH):
+        if not (decoded[i] == want_rgb[i % len(distinct)]).all():
+            raise AssertionError(f"image {i}: the card's decode of the card's payload differs "
+                                 "from the plain CPU decode")
+    for img, src in zip(decoded, distinct):
+        mse = np.mean((img.astype(np.float64) - src) ** 2)
+        psnr.append(10 * np.log10(255 ** 2 / mse))
+    print(f"round trip: the card's payloads decode through K1-K4 bit-exact with the plain CPU "
+          f"decode; PSNR vs source {[round(float(x), 4) for x in psnr]} dB", flush=True)
+
+    # 5. Timings, kernel beside plain twin, at the main path's shapes.
+    ms = {
+        "enc": time_ms(lambda: encode_analysis_batch(y, u, v, P, tables, 3), 10),
+        "token_stats": time_ms(lambda: token_stats(*stat_args), 20),
+        "enc_tables": time_ms(lambda: enc_tables(probs), 20),
+    }
+    plain_ms = {
+        "enc": time_ms(lambda: encode_analysis_batch_plain(y, u, v, P, tables, 3), 1),
+        "token_stats": time_ms(lambda: token_stats_plain(*stat_args), 3),
+        "enc_tables": time_ms(lambda: enc_tables_plain(probs), 5),
+    }
+    p1_ms = time_ms(lambda: encode_analysis_batch(y, u, v, P, default, 3), 10)
+    p1_plain_ms = time_ms(lambda: encode_analysis_batch_plain(y, u, v, P, default, 3), 1)
+    print(f"enc pass 1 (default tables, n_try 3): {p1_ms:.4f} ms kernel, {p1_plain_ms:.4f} ms "
+          f"plain (batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
+    for name, _, _ in ENCODE_KERNELS:
+        what = " pass 2 (per-image tables, n_try 3)" if name == "enc" else ""
+        print(f"{name}{what}: {ms[name]:.4f} ms kernel, {plain_ms[name]:.4f} ms plain "
+              f"(batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
+    stage_ms, nbytes, staged = encode_stages(rgbs, dev)
+    if staged != payloads[True]:
+        raise AssertionError("the staged encode differs from the main path")
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        encode_frames_lossy_batch(rgbs, QUALITY, METHOD, num_partitions=PARTITIONS, device=dev)
+    e2e_ms = (time.perf_counter() - t0) * 1000 / reps
+    split = ", ".join(f"{k} {v / BATCH:.4f}" for k, v in stage_ms.items())
+    print(f"encode_frames_lossy_batch stages (host clock, ms/img): {split} ({card})", flush=True)
+    pass2 = encode_analysis_batch(y, u, v, P, tables, edev.n_try_for(METHOD))
+    copy_ms = time_ms(lambda: [a.cpu() for a in pass2.values()], 10)
+    print(f"pass-2 d2h: {nbytes // BATCH} bytes/img; the copy alone {copy_ms / BATCH:.4f} ms/img "
+          f"(CUDA events), with the host's per-image int32 arrays {stage_ms['d2h'] / BATCH:.4f} "
+          f"ms/img ({card})", flush=True)
+    print(f"encode_frames_lossy_batch (two-pass, host clock): {e2e_ms / BATCH:.4f} ms/img "
+          f"({card})", flush=True)
+    return {name: {"launches": launches[name], "max_abs_err": err[name], "ms": ms[name],
+                   "plain_ms": plain_ms[name]} for name, _, _ in ENCODE_KERNELS}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    _import_paths()
+    from webp_tpu_torch import _build
+    from webp_tpu_torch.io import native
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    # Build the host library and the kernels from the checkout.
+    t0 = time.perf_counter()
+    native.load()
+    _build.load()
+    print(f"build + load: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
+    print(f"card: {card}", flush=True)
+
+    records = {**decode_phase(dev, card), **encode_phase(dev, card)}
+
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "webp_tpu"))
     if leaked:
         raise AssertionError(f"the smoke run imported {leaked}")
 
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": err[name],
-         "ms": ms[name], "plain_ms": plain_ms[name]}
-        for name, source, replaces in KERNELS
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces, **records[name]}
+        for name, source, replaces in DECODE_KERNELS + ENCODE_KERNELS
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -5,24 +5,36 @@ file imports no jax, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Inputs are small host-encoded mixed frames (I4 and I16 MBs, a size that is
-not a whole number of MBs) and seeded random keyframes (`random_vp8.py`:
-both loop filter kinds, escapes, several partitions).  Tolerance:
-bit-exact (integer arithmetic).
+Decode inputs are small host-encoded mixed frames (I4 and I16 MBs, a size
+that is not a whole number of MBs) and seeded random keyframes
+(`random_vp8.py`: both loop filter kinds, escapes, several partitions).
+Encode inputs are seeded synthetic frames (`synthetic_rgb.py`), seeded
+level arrays and seeded token probabilities; the encode kernels' twins run
+on CPU copies of the same inputs.  Tolerance: bit-exact (integer
+arithmetic).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import webp_tpu_torch
 from webp_tpu_torch import _build
+from webp_tpu_torch.common import vp8_tables as T
 from webp_tpu_torch.decode import device as tdev
+from webp_tpu_torch.encode import device as edev
+from webp_tpu_torch.encode.quant import SegmentParams, quality_to_quant_index
+from webp_tpu_torch.ops.enc_params import EncParams, EncTables
+from webp_tpu_torch.ops.enc_tables import enc_tables, enc_tables_plain
+from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch, encode_analysis_batch_plain
+from webp_tpu_torch.ops.token_stats import token_stats, token_stats_plain
 from webp_tpu_torch.ops import residual
 from webp_tpu_torch.ops.loopfilter import loop_filter_, loop_filter_plain_
 from webp_tpu_torch.ops.wavefront import recon_, recon_plain_
 from webp_tpu_torch.ops.yuv import fancy_yuv420_to_rgb, fancy_yuv420_to_rgb_plain
 
 from random_vp8 import random_keyframe
+from synthetic_rgb import synthetic_frame
 from torch_fixtures import encode_frame, force_escapes, mixed_payloads, scalar_decode
 
 pytestmark = pytest.mark.cuda
@@ -131,7 +143,8 @@ def test_slice_on_card_matches_scalar(cuda, payloads, out):
     _build.reset_launches()
     got = tdev.dispatch_decode_batch(payloads, out=out, device=cuda).cpu()
     assert _build.LAUNCHES == {"residual": 1, "recon": 1, "loopfilter": 1,
-                               "yuv2rgb": int(out == "rgb")}
+                               "yuv2rgb": int(out == "rgb"),
+                               "enc": 0, "token_stats": 0, "enc_tables": 0}
     for i, p in enumerate(payloads):
         np.testing.assert_array_equal(got[i].numpy(), scalar_decode(p)[0 if out == "rgb" else 1])
 
@@ -168,3 +181,86 @@ def test_wrappers_reject_bad_layouts(cuda):
         fancy_yuv420_to_rgb(y.transpose(1, 2), u, v, 8, 8)
     with pytest.raises(ValueError):
         fancy_yuv420_to_rgb(y, u.to(torch.int32), v, 8, 8)
+
+
+# ---- encode: K5 enc, K6 token_stats, K7 enc_tables -----------------------
+
+
+def _random_probs(seed: int, batch: int) -> np.ndarray:
+    return np.random.RandomState(seed).randint(1, 256, (batch, 4, 8, 3, 11)).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def enc_planes():
+    return edev.rgb_to_planes([synthetic_frame(W, H, s) for s in (1, 2)])
+
+
+@pytest.mark.parametrize("tables", ["default", "random"])
+@pytest.mark.parametrize("n_try", [0, 3])
+def test_enc_kernel_matches_plain(cuda, enc_planes, tables, n_try):
+    probs = T.COEFF_PROBS_DEFAULT if tables == "default" else _random_probs(9, 2)
+    P = EncParams.from_segment(SegmentParams(quality_to_quant_index(75)))
+    want = encode_analysis_batch_plain(*edev.upload(enc_planes, "cpu"), P,
+                                       EncTables.from_probs(probs), n_try)
+    before = _build.LAUNCHES["enc"]
+    got = encode_analysis_batch(*edev.upload(enc_planes, cuda),
+                                EncParams.from_segment(SegmentParams(quality_to_quant_index(75)),
+                                                       cuda),
+                                EncTables.from_probs(probs, cuda), n_try)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["enc"] == before + 1
+    for k, w in want.items():
+        assert torch.equal(got[k].cpu(), w), k
+
+
+def test_token_stats_kernel_matches_plain(cuda):
+    rng = np.random.RandomState(11)
+    B, mbw, mbh = 3, 5, 4
+    nmb = mbw * mbh
+    mags = rng.choice([0, 0, 0, 0, 1, 1, 2, 3, 5, 9, 40, 66, 67, 68, 300, 2047, 2100],
+                      size=(B, nmb, 25, 16))
+    lv = (mags * rng.choice([-1, 1], size=mags.shape)).astype(np.int16)
+    lv[rng.rand(B, nmb) < 0.2] = 0
+    lm = rng.choice([0, 1, 2, 3, 4], size=(B, nmb)).astype(np.uint8)
+    arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in (lm, lv[:, :, 0], lv[:, :, 1:17],
+                                                                   lv[:, :, 17:])]
+    arrays[1][torch.from_numpy(lm == 4)] = 0
+    skipped = edev.skip_flags(dict(y2_levels=arrays[1], y_levels=arrays[2], uv_levels=arrays[3]))
+    want = token_stats_plain(*arrays, skipped, mbw, mbh)
+    before = _build.LAUNCHES["token_stats"]
+    got = token_stats(*(a.to(cuda) for a in arrays), skipped.to(cuda), mbw, mbh)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["token_stats"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_enc_tables_kernel_matches_plain(cuda):
+    probs = torch.from_numpy(_random_probs(5, 3))
+    want = enc_tables_plain(probs)
+    before = _build.LAUNCHES["enc_tables"]
+    got = enc_tables(probs.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["enc_tables"] == before + 1
+    for f in EncTables.FIELDS:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("method,two_pass", [(1, True), (3, True), (3, False)])
+def test_encode_slice_on_card_matches_cpu(cuda, method, two_pass):
+    rgbs = [synthetic_frame(W, H, s) for s in (3, 4)]
+    want = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, method, two_pass,
+                                                    num_partitions=8, device="cpu")
+    _build.reset_launches()
+    got = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, method, two_pass,
+                                                   num_partitions=8, device=cuda)
+    assert (_build.LAUNCHES["enc"], _build.LAUNCHES["token_stats"],
+            _build.LAUNCHES["enc_tables"]) == ((2, 1, 1) if two_pass else (1, 0, 0))
+    assert got == want
+
+
+def test_encode_more_mb_rows_than_wavefront_warps(cuda):
+    """40 MB rows: each of the block's 32 warps walks several rows per step."""
+    rgbs = [synthetic_frame(40, 630, 6)]
+    want = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 3, device="cpu")
+    assert webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 3, device=cuda) == want

@@ -143,10 +143,11 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|webp_tpu)(?:[.\s]|$)", re.M)
 
 
 def test_package_imports_no_jax_module():
-    """No module of the port, nor `chip_smoke.py` or the stream writer it
+    """No module of the port, nor `chip_smoke.py` or the input generators it
     uses, imports jax or the JAX package `webp_tpu`."""
     paths = sorted((REPO / "webp_tpu_torch").rglob("*.py"))
-    paths += [REPO / "chip_smoke.py", REPO / "tests" / "random_vp8.py"]
+    paths += [REPO / "chip_smoke.py", REPO / "tests" / "random_vp8.py",
+              REPO / "tests" / "synthetic_rgb.py"]
     for path in paths:
         found = _IMPORT.findall(path.read_text())
         assert not found, (path, found)

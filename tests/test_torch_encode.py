@@ -1,0 +1,190 @@
+"""The encode slice on the CPU: `webp_tpu_torch.encode_frames_lossy_batch`
+against the JAX package's `analyze_frames_lossy_batch` +
+`finish_frames_lossy_batch` (run on the CPU as its own tests run it) at
+method 3, two-pass on and off, 1 and 8 coefficient partitions, on seeded
+synthetic 72x40 frames (partial MBs; `test_torch_encode_m1.py` has method
+1).  Also: the RGB->YUV420 conversion, the mixed-geometry entry point, the
+refusals of what is not ported (method 4+, segments), the payloads'
+round trip through the decoders, and the encode path in a process where
+neither jax nor the JAX package can be imported.  Tolerance: byte-equal
+payloads, bit-exact planes.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from webp_tpu.encode import vp8 as jvp8
+from webp_tpu.ops import yuv as jyuv
+from webp_tpu_torch.encode import device as edev
+
+import webp_tpu_torch
+from synthetic_rgb import synthetic_frame
+from torch_fixtures import scalar_decode
+
+REPO = Path(__file__).resolve().parent.parent
+W, H = 72, 40
+QUALITY = 75
+
+
+@pytest.fixture(scope="module")
+def rgbs():
+    return [synthetic_frame(W, H, s) for s in (1, 2)]
+
+
+@pytest.fixture(scope="module")
+def jax_fetched(rgbs):
+    """(method, two_pass) -> (planes, fetched) of the JAX package's analysis."""
+    cache = {}
+
+    def get(method, two_pass):
+        if (method, two_pass) not in cache:
+            planes = [jyuv.rgb_to_yuv420(r) for r in rgbs]
+            fetched = jvp8.analyze_frames_lossy_batch(
+                planes, QUALITY, method, (W + 15) // 16, (H + 15) // 16, two_pass, False)()
+            cache[(method, two_pass)] = planes, fetched
+        return cache[(method, two_pass)]
+
+    return get
+
+
+def jax_encode(jax_fetched, method, two_pass, nparts):
+    planes, fetched = jax_fetched(method, two_pass)
+    return jvp8.finish_frames_lossy_batch(planes, fetched, QUALITY, method, W, H, False, nparts)
+
+
+@pytest.mark.parametrize("nparts", [1, 8])
+@pytest.mark.parametrize("two_pass", [True, False], ids=["two_pass", "one_pass"])
+def test_encode_matches_jax_method3(rgbs, jax_fetched, two_pass, nparts):
+    got = webp_tpu_torch.encode_frames_lossy_batch(rgbs, QUALITY, 3, two_pass,
+                                                   num_partitions=nparts, device="cpu")
+    want = jax_encode(jax_fetched, 3, two_pass, nparts)
+    assert got == want
+
+
+@pytest.mark.parametrize("width,height,channels", [(72, 40, 3), (33, 17, 4), (1, 1, 3)])
+def test_rgb_to_planes_matches_jax_package(width, height, channels):
+    rng = np.random.RandomState(width)
+    rgbs = [rng.randint(0, 256, (height, width, channels)).astype(np.uint8) for _ in range(2)]
+    got = edev.rgb_to_planes(rgbs)
+    for i, r in enumerate(rgbs):
+        for g, w in zip(got, jyuv.rgb_to_yuv420_numpy(r)):
+            np.testing.assert_array_equal(g[i], w)
+
+
+def test_mixed_geometries(rgbs, jax_fetched):
+    other = [synthetic_frame(40, 24, 7)]
+    got = webp_tpu_torch.encode_frames_lossy_batch_mixed(
+        [rgbs[0], other[0], rgbs[1]], QUALITY, 3, device="cpu")
+    want = jax_encode(jax_fetched, 3, True, 1)
+    assert [got[0], got[2]] == want
+    assert got[1] == webp_tpu_torch.encode_frames_lossy_batch(other, QUALITY, 3, device="cpu")[0]
+
+
+@pytest.mark.parametrize("method", [4, 5, 6])
+def test_trellis_methods_are_not_ported(rgbs, method):
+    with pytest.raises(NotImplementedError, match="trellis"):
+        webp_tpu_torch.encode_frames_lossy_batch(rgbs, QUALITY, method, device="cpu")
+    with pytest.raises(NotImplementedError, match="trellis"):
+        webp_tpu_torch.encode_frames_lossy_batch_mixed(rgbs, QUALITY, method, device="cpu")
+
+
+def test_segments_are_not_ported(rgbs):
+    with pytest.raises(NotImplementedError, match="analyze_alphas_batch"):
+        webp_tpu_torch.encode_frames_lossy_batch(rgbs, QUALITY, 3, segments=True, device="cpu")
+
+
+def test_bad_arguments_raise(rgbs):
+    with pytest.raises(ValueError):
+        webp_tpu_torch.encode_frames_lossy_batch(rgbs, QUALITY, 3, num_partitions=3, device="cpu")
+    with pytest.raises(ValueError):
+        webp_tpu_torch.encode_frames_lossy_batch([rgbs[0], synthetic_frame(40, 24, 7)],
+                                                 QUALITY, 3, device="cpu")
+
+
+def test_payloads_round_trip_through_the_decoders(rgbs):
+    """The port's decode of the port's payloads is the scalar decoder's, and
+    close to the source."""
+    payloads = webp_tpu_torch.encode_frames_lossy_batch(rgbs, QUALITY, 3, num_partitions=8,
+                                                        device="cpu")
+    decoded = webp_tpu_torch.decode_vp8_batch_device(payloads, device="cpu")
+    for rgb, p, d in zip(rgbs, payloads, decoded):
+        np.testing.assert_array_equal(d, scalar_decode(p)[0])
+        mse = np.mean((d.astype(np.float64) - rgb) ** 2)
+        assert 10 * np.log10(255 ** 2 / mse) > 25
+
+
+def test_encode_runs_without_jax(tmp_path, rgbs):
+    """With jax and the JAX package unimportable, the port encodes; the
+    payloads equal those of this process."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["webp_tpu"] = None
+        sys.path[:0] = [{str(REPO)!r}, {str(REPO / "tests")!r}]
+        import webp_tpu_torch
+        from synthetic_rgb import synthetic_frame
+        rgbs = [synthetic_frame({W}, {H}, s) for s in (1, 2)]
+        out = webp_tpu_torch.encode_frames_lossy_batch(rgbs, {QUALITY}, 3, num_partitions=8,
+                                                       device="cpu")
+        for i, p in enumerate(out):
+            open(f"p{{i}}.bin", "wb").write(p)
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "webp_tpu")]
+        assert all(sys.modules[m] is None for m in bad), bad
+        print("NOJAX_OK")
+        """
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          cwd=tmp_path, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout
+    want = webp_tpu_torch.encode_frames_lossy_batch(rgbs, QUALITY, 3, num_partitions=8,
+                                                    device="cpu")
+    assert [(tmp_path / f"p{i}.bin").read_bytes() for i in range(2)] == want
+
+
+def test_chip_smoke_encode_phases_on_cpu_without_jax(tmp_path):
+    """chip_smoke's encode inputs and reference, at a small size, with jax
+    and the JAX package unimportable; the reference equals the port's
+    public encode."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["webp_tpu"] = None
+        sys.path.insert(0, {str(REPO)!r})
+        import chip_smoke
+        distinct, batch = chip_smoke.encode_inputs(96, 64)
+        assert len(batch) == chip_smoke.BATCH and batch[2] is distinct[0]
+        ref = chip_smoke.encode_reference(distinct)
+        print("MODES", *chip_smoke.mode_counts(ref[True][0]))
+        for two_pass, (_, payloads) in ref.items():
+            for i, p in enumerate(payloads):
+                open(f"p{{int(two_pass)}}{{i}}.bin", "wb").write(p)
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "webp_tpu")]
+        assert all(sys.modules[m] is None for m in bad), bad
+        """
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                          cwd=tmp_path, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n_i4, n_i16, n_chroma = map(int, proc.stdout.split("MODES")[1].split())
+    assert n_i4 + n_i16 == 2 * 24 and n_chroma >= 1
+    import chip_smoke
+
+    distinct = [synthetic_frame(96, 64, s) for s in chip_smoke.ENC_SEEDS]
+    for two_pass in (True, False):
+        want = webp_tpu_torch.encode_frames_lossy_batch(distinct, QUALITY, 3, two_pass,
+                                                        num_partitions=8, device="cpu")
+        got = [(tmp_path / f"p{int(two_pass)}{i}.bin").read_bytes() for i in range(2)]
+        assert got == want

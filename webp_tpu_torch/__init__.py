@@ -1,9 +1,10 @@
-"""webp_tpu_torch: the batched lossy VP8 decode of `webp_tpu`, ported to
-PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
+"""webp_tpu_torch: the batched lossy VP8 decode and encode of `webp_tpu`,
+ported to PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
 
-The host side is the repo's C++ entropy pass (`native/vp8_entropy.cpp`,
-built with g++ and bound in `io/native.py`) and the VP8 spec tables
-(`common/vp8_tables.py`).  The package imports neither jax nor the JAX
+The host side is the repo's C++ entropy coders (`native/vp8_entropy.cpp`,
+built with g++ and bound in `io/native.py`), the VP8 spec and encoder
+tables (`common/vp8_tables.py`, `encode/tables.py`) and the encode's
+frame writer (`encode/vp8.py`).  The package imports neither jax nor the JAX
 package `webp_tpu`.  Every entry point takes an explicit `device`:
 "cuda" runs the kernels of `csrc/` (built with nvcc at first use), "cpu"
 runs their plain torch twins.
@@ -19,6 +20,7 @@ from .decode.device import (
     to_device_batch,
     yuv_packed_to_rgb,
 )
+from .encode.device import encode_frames_lossy_batch, encode_frames_lossy_batch_mixed
 
 __all__ = [
     "decode_core",
@@ -26,6 +28,8 @@ __all__ = [
     "decode_vp8_batch_device_mixed",
     "decode_vp8_frame_device",
     "dispatch_decode_batch",
+    "encode_frames_lossy_batch",
+    "encode_frames_lossy_batch_mixed",
     "parse_levels_batch",
     "to_device_batch",
     "yuv_packed_to_rgb",

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels under `csrc/`.
 
-The sources are compiled by `nvcc` for Hopper (`sm_90a`) into one shared
-library with a plain C interface at first use, into `build/` beside the
-package, and loaded with ctypes.  Every kernel entry point takes its device
+At first use the sources are compiled by `nvcc` for Hopper (`sm_90a`), one
+process per source, all started together, linked into one shared library
+with a plain C interface in `build/` beside the package, and loaded with
+ctypes.  Every kernel entry point takes its device
 pointers (`tensor.data_ptr()`) and the current CUDA stream as `void*`,
 launches without synchronising, and returns the `cudaGetLastError()` of the
 launch; `launch` raises on a non-zero status and counts the launch.
@@ -25,7 +26,7 @@ BUILD_DIR = _PKG.parent / "build"
 LIB_PATH = BUILD_DIR / "libwebp_tpu_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -62,11 +63,33 @@ _SIGNATURES = {
         _P,                  # rgb out [B, height, width, 3]
         _P,
     ],
+    "webp_enc": [
+        _P, _L, _P, _L, _P, _L,   # source y, u, v planes (+ batch strides)
+        _P, _P,              # params, constant tables
+        _P, _L, _P, _L, _P, _L,   # cls, eob, init cost tables (+ batch strides)
+        _I, _I, _I, _I,      # mbw, mbh, batch, n_try
+        _P, _P, _P, _P, _P, _P,   # luma_mode, chroma_mode, bpred, y, y2, uv levels out
+        _P, _P,              # reconstruction and diffusion-error scratch
+        _P,
+    ],
+    "webp_token_stats": [
+        _P, _L, _P, _L,      # luma_mode, skipped (+ batch strides)
+        _P, _P, _P,          # y2, y, uv levels
+        _I, _I, _I,          # mbw, mbh, batch
+        _P,                  # (totals, ones) out
+        _P,
+    ],
+    "webp_enc_tables": [
+        _P, _P, _I,          # probs, constant tables, batch
+        _P, _P, _P, _P,      # pos, cls, eob, init costs out
+        _P,
+    ],
 }
 
 # Kernel name -> launches since the last reset_launches().  Each wrapper
 # counts here, and only when its kernel was launched.
-LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "yuv2rgb": 0}
+LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "yuv2rgb": 0,
+            "enc": 0, "token_stats": 0, "enc_tables": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -89,14 +112,32 @@ def _nvcc() -> str:
 
 
 def _build() -> None:
-    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
+    tag = f"tmp{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):  # one nvcc per source, all at once
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = []
+    for proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {proc.args[-1]} failed ({proc.returncode}):\n{err}")
+    try:
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        tmp = LIB_PATH.with_suffix(f".{tag}.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 def load():
@@ -167,6 +208,36 @@ def plane(t, batch: int, rows: int, cols: int):
         raise ValueError(f"plane must be uint8 {(batch, rows, cols)}, got {t.dtype} {tuple(t.shape)}")
     if t.stride(2) != 1 or t.stride(1) != cols:
         raise ValueError("plane rows must be packed")
+    return t.data_ptr(), t.stride(0)
+
+
+_constants = {}
+
+
+def device_constant(name: str, values, device):
+    """A read-only int32 copy of the host table `values` on `device`, made once."""
+    import numpy as np
+    import torch
+
+    key = (name, str(device))
+    with _lock:
+        t = _constants.get(key)
+        if t is None:
+            t = torch.from_numpy(np.ascontiguousarray(values, np.int32).reshape(-1)).to(device)
+            _constants[key] = t
+    return t
+
+
+def table(t, batch: int, shape):
+    """(pointer, batch stride) of an int32 per-image table [B, *shape]: each
+    image's table contiguous, the batch stride 0 for one table shared by all."""
+    import torch
+
+    if t.dtype != torch.int32 or tuple(t.shape) != (batch, *shape):
+        raise ValueError(f"table must be int32 {(batch, *shape)}, got {t.dtype} {tuple(t.shape)}")
+    inner = t[0]
+    if not inner.is_contiguous():
+        raise ValueError("each image's table must be contiguous")
     return t.data_ptr(), t.stride(0)
 
 

@@ -21,149 +21,6 @@
 
 namespace {
 
-// Pixel of a plane with VP8's frame borders: the row above the frame is
-// 127 (its corner included), the column left of it 129.
-__device__ __forceinline__ int pix(const uint8_t* p, int stride, int row, int col) {
-    if (row < 0) return 127;
-    if (col < 0) return 129;
-    return p[row * stride + col];
-}
-
-__device__ __forceinline__ int avg2(int a, int b) { return (a + b + 1) >> 1; }
-__device__ __forceinline__ int avg3(int a, int b, int c) { return (a + 2 * b + c + 2) >> 2; }
-
-// The ten 4x4 B-mode predictors (RFC 6386 12.3, webp_tpu/ops/predict.py
-// predict_b).  e[0..3] = left pixels bottom-up (L3 L2 L1 L0), e[4] = the
-// top-left corner, e[5..12] = the eight pixels above (A0..A7, A4..A7 being
-// above-right).  out[r*4 + c].
-__device__ void predict_b4(int mode, const int* e, int* out) {
-    const int L0 = e[3], L1 = e[2], L2 = e[1], L3 = e[0], P = e[4];
-    const int* A = e + 5;
-    switch (mode) {
-    case 0: {  // B_DC
-        int v = 4;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) v += A[i] + e[3 - i];
-#pragma unroll
-        for (int i = 0; i < 16; ++i) out[i] = v >> 3;
-        break;
-    }
-    case 1:  // B_TM
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) out[r * 4 + c] = clip255(e[3 - r] + A[c] - P);
-        break;
-    case 2: {  // B_VE
-        const int row[4] = {avg3(P, A[0], A[1]), avg3(A[0], A[1], A[2]),
-                            avg3(A[1], A[2], A[3]), avg3(A[2], A[3], A[4])};
-#pragma unroll
-        for (int i = 0; i < 16; ++i) out[i] = row[i & 3];
-        break;
-    }
-    case 3: {  // B_HE
-        const int col[4] = {avg3(P, L0, L1), avg3(L0, L1, L2), avg3(L1, L2, L3), avg3(L2, L3, L3)};
-#pragma unroll
-        for (int i = 0; i < 16; ++i) out[i] = col[i >> 2];
-        break;
-    }
-    case 4: {  // B_LD
-        int avgs[7];
-#pragma unroll
-        for (int i = 0; i < 7; ++i) avgs[i] = avg3(A[i], A[i + 1], A[i + 2 < 7 ? i + 2 : 7]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) out[r * 4 + c] = avgs[r + c];
-        break;
-    }
-    case 5: {  // B_RD
-        int avgs[7];
-#pragma unroll
-        for (int i = 0; i < 7; ++i) avgs[i] = avg3(e[i], e[i + 1], e[i + 2]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) out[r * 4 + c] = avgs[3 - r + c];
-        break;
-    }
-    case 6:  // B_VR
-        out[12] = avg3(e[1], e[2], e[3]);
-        out[8] = avg3(e[2], e[3], e[4]);
-        out[13] = out[4] = avg3(e[3], e[4], e[5]);
-        out[9] = out[0] = avg2(e[4], e[5]);
-        out[14] = out[5] = avg3(e[4], e[5], e[6]);
-        out[10] = out[1] = avg2(e[5], e[6]);
-        out[15] = out[6] = avg3(e[5], e[6], e[7]);
-        out[11] = out[2] = avg2(e[6], e[7]);
-        out[7] = avg3(e[6], e[7], e[8]);
-        out[3] = avg2(e[7], e[8]);
-        break;
-    case 7:  // B_VL
-        out[0] = avg2(A[0], A[1]);
-        out[4] = avg3(A[0], A[1], A[2]);
-        out[8] = out[1] = avg2(A[1], A[2]);
-        out[5] = out[12] = avg3(A[1], A[2], A[3]);
-        out[9] = out[2] = avg2(A[2], A[3]);
-        out[13] = out[6] = avg3(A[2], A[3], A[4]);
-        out[10] = out[3] = avg2(A[3], A[4]);
-        out[14] = out[7] = avg3(A[3], A[4], A[5]);
-        out[11] = avg3(A[4], A[5], A[6]);
-        out[15] = avg3(A[5], A[6], A[7]);
-        break;
-    case 8:  // B_HD
-        out[12] = avg2(e[0], e[1]);
-        out[13] = avg3(e[0], e[1], e[2]);
-        out[8] = out[14] = avg2(e[1], e[2]);
-        out[9] = out[15] = avg3(e[1], e[2], e[3]);
-        out[10] = out[4] = avg2(e[2], e[3]);
-        out[11] = out[5] = avg3(e[2], e[3], e[4]);
-        out[6] = out[0] = avg2(e[3], e[4]);
-        out[7] = out[1] = avg3(e[3], e[4], e[5]);
-        out[2] = avg3(e[4], e[5], e[6]);
-        out[3] = avg3(e[5], e[6], e[7]);
-        break;
-    default:  // 9: B_HU
-        out[0] = avg2(L0, L1);
-        out[1] = avg3(L0, L1, L2);
-        out[2] = out[4] = avg2(L1, L2);
-        out[3] = out[5] = avg3(L1, L2, L3);
-        out[6] = out[8] = avg2(L2, L3);
-        out[7] = out[9] = avg3(L2, L3, L3);
-        out[10] = out[11] = L3;
-        out[12] = out[13] = out[14] = out[15] = L3;
-        break;
-    }
-}
-
-// Whole-block DC/V/H/TM prediction of pixel (r, c) of an n x n block whose
-// top-left pixel is (row0, col0); `dc` is precomputed by the caller.
-__device__ __forceinline__ int predict_whole(int mode, const uint8_t* p, int stride,
-                                             int row0, int col0, int r, int c, int dc) {
-    switch (mode) {
-    case 0: return dc;
-    case 1: return pix(p, stride, row0 - 1, col0 + c);
-    case 2: return pix(p, stride, row0 + r, col0 - 1);
-    default:
-        return clip255(pix(p, stride, row0 + r, col0 - 1) + pix(p, stride, row0 - 1, col0 + c)
-                       - pix(p, stride, row0 - 1, col0 - 1));
-    }
-}
-
-// DC of an n x n block: the rounded mean of the neighbours that exist, 128
-// at the frame's top-left MB.
-__device__ int whole_dc(const uint8_t* p, int stride, int row0, int col0, int n, int log2n) {
-    const bool above = row0 > 0, left = col0 > 0;
-    if (!above && !left) return 128;
-    int total = 0;
-    for (int i = 0; i < n; ++i) {
-        if (above) total += p[(row0 - 1) * stride + col0 + i];
-        if (left) total += p[(row0 + i) * stride + col0 - 1];
-    }
-    const int shf = log2n - 1 + above + left;
-    return (total + (1 << (shf - 1))) >> shf;
-}
-
 __device__ void recon_mb(int lane, int x, int y, int mbw, const int32_t* __restrict__ rs,
                          int lm, const uint8_t* __restrict__ modes, int cm,
                          uint8_t* Y, uint8_t* U, uint8_t* V) {

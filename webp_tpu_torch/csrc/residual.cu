@@ -21,62 +21,6 @@ namespace {
 
 constexpr int kSlots = 400;
 constexpr int kThreads = 64;
-constexpr int kC1 = 20091;
-constexpr int kC2 = 35468;
-
-// Exact (a * c) >> 16 (arithmetic shift, i.e. floor), formed in 64 bits.
-__device__ __forceinline__ int mul16(int a, int c) {
-    return static_cast<int>((static_cast<long long>(a) * c) >> 16);
-}
-
-// RFC 6386 14.3 inverse DCT of one block, in place.
-__device__ void idct4x4(int* b) {
-    int t[16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // columns: rows r0..r3 of column i
-        const int r0 = b[i], r1 = b[4 + i], r2 = b[8 + i], r3 = b[12 + i];
-        const int a1 = r0 + r2, b1 = r0 - r2;
-        const int c1 = mul16(r1, kC2) - (r3 + mul16(r3, kC1));
-        const int d1 = (r1 + mul16(r1, kC1)) + mul16(r3, kC2);
-        t[i] = a1 + d1;
-        t[4 + i] = b1 + c1;
-        t[8 + i] = b1 - c1;
-        t[12 + i] = a1 - d1;
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {  // rows
-        const int c0 = t[4 * r], c1 = t[4 * r + 1], c2 = t[4 * r + 2], c3 = t[4 * r + 3];
-        const int a1 = c0 + c2, b1 = c0 - c2;
-        const int cc = mul16(c1, kC2) - (c3 + mul16(c3, kC1));
-        const int dd = (c1 + mul16(c1, kC1)) + mul16(c3, kC2);
-        b[4 * r] = (a1 + dd + 4) >> 3;
-        b[4 * r + 1] = (b1 + cc + 4) >> 3;
-        b[4 * r + 2] = (b1 - cc + 4) >> 3;
-        b[4 * r + 3] = (a1 - dd + 4) >> 3;
-    }
-}
-
-// Inverse WHT of the Y2 block `in` -> 16 Y DCs `out`.
-__device__ void iwht4x4(const int* in, int* out) {
-    int t[16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int r0 = in[i], r1 = in[4 + i], r2 = in[8 + i], r3 = in[12 + i];
-        t[i] = (r0 + r3) + (r1 + r2);
-        t[4 + i] = (r1 - r2) + (r0 - r3);
-        t[8 + i] = (r0 + r3) - (r1 + r2);
-        t[12 + i] = (r0 - r3) - (r1 - r2);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-        const int c0 = t[4 * r], c1 = t[4 * r + 1], c2 = t[4 * r + 2], c3 = t[4 * r + 3];
-        const int a1 = c0 + c3, b1 = c1 + c2, c1n = c1 - c2, d1 = c0 - c3;
-        out[4 * r] = (a1 + b1 + 3) >> 3;
-        out[4 * r + 1] = (c1n + d1 + 3) >> 3;
-        out[4 * r + 2] = (a1 - b1 + 3) >> 3;
-        out[4 * r + 3] = (d1 - c1n + 3) >> 3;
-    }
-}
 
 __global__ void __launch_bounds__(kThreads) residual_kernel(
     const uint8_t* __restrict__ bitmap, const int8_t* __restrict__ vals, int cap,

@@ -1,0 +1,141 @@
+"""Host finisher of the batched lossy encode: from one image's per-MB
+decisions and levels to its VP8 payload.
+
+The segments-off part of `webp_tpu/encode/vp8.py`'s `Vp8Encoder.encode_yuv`
+(:140-212) and `_write_bitstream_arrays` (:885-1076), with `token_stream`
+(:1142) and the skip flags of `derive_skip_and_contexts` (:1176): skip flags
+and token contexts, the skip probability, the token-probability adaptation
+(`probs` from the card's pass-1 statistics in the two-pass flow, else the
+host C++ `vp8_token_stats` over the final levels), the frame header, the MB
+headers (C++ `vp8_mbheader_encode`) and the coefficient partitions (C++
+`vp8_token_encode`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..common import vp8_tables as T
+from ..io import native
+from .boolenc import BoolEncoder
+from .contexts import compute_contexts
+from .costs import ProbaStats
+from .quant import SegmentParams, compute_filter_level, quality_to_quant_index
+
+PARTITIONS = (1, 2, 4, 8)
+MAX_FIRST_PARTITION = 1 << 19  # the frame tag's 19-bit first-partition size
+
+
+def skip_flags(arrays) -> np.ndarray:
+    """[nmb] bool: the MB carries no nonzero level."""
+    return ((arrays["y_levels"] == 0).all(axis=(1, 2))
+            & (arrays["uv_levels"] == 0).all(axis=(1, 2))
+            & (arrays["y2_levels"] == 0).all(axis=1))
+
+
+def token_stream(arrays, ctx, skipped, mbw: int):
+    """(levels [N, 16], meta [N, 4]) of the coded blocks in bitstream order;
+    meta rows are (plane, first, ctx, MB row)."""
+    nmb = len(skipped)
+    has_y2 = ctx["has_y2"]
+    all_levels = np.concatenate(
+        [arrays["y2_levels"][:, None, :], arrays["y_levels"], arrays["uv_levels"]], axis=1,
+    )  # [nmb, 25, 16]
+    plane = np.zeros((nmb, 25), np.int32)
+    plane[:, 0] = 1
+    plane[:, 1:17] = np.where(has_y2, 0, 3)[:, None]
+    plane[:, 17:] = 2
+    first = np.zeros((nmb, 25), np.int32)
+    first[:, 1:17] = np.where(has_y2, 1, 0)[:, None]
+    ctxs = np.concatenate([ctx["y2_ctx"][:, None], ctx["y_ctx"], ctx["uv_ctx"]], axis=1)
+    valid = np.ones((nmb, 25), bool)
+    valid[:, 0] = has_y2
+    valid &= ~skipped[:, None]
+
+    sel = valid.reshape(-1)
+    mby = np.repeat(np.arange(nmb, dtype=np.int32) // mbw, 25)
+    levels = all_levels.reshape(-1, 16)[sel]
+    meta = np.zeros((len(levels), 4), np.int32)
+    meta[:, 0] = plane.reshape(-1)[sel]
+    meta[:, 1] = first.reshape(-1)[sel]
+    meta[:, 2] = ctxs.reshape(-1)[sel]
+    meta[:, 3] = mby[sel]
+    return levels, meta
+
+
+def _frame_header(enc: BoolEncoder, seg: SegmentParams, num_partitions: int,
+                  new_probs: np.ndarray, skip_prob: int) -> None:
+    """Keyframe header fields up to the MB headers (segments off)."""
+    enc.write_literal(1, 0)  # color space
+    enc.write_literal(1, 0)  # pixel type (clamping)
+    enc.write_flag(False)    # segmentation off
+    enc.write_flag(False)    # filter type: normal
+    enc.write_literal(6, compute_filter_level(seg.quant_index))
+    enc.write_literal(3, 0)  # sharpness
+    enc.write_flag(False)    # no loop filter adjustments
+    enc.write_literal(2, num_partitions.bit_length() - 1)
+    enc.write_literal(7, seg.quant_index)
+    for _ in range(3):       # ydc, y2dc, y2ac deltas
+        enc.write_flag(False)
+    enc.write_optional_signed(4, seg.uv_dc_delta)
+    enc.write_optional_signed(4, seg.uv_ac_delta)
+    enc.write_literal(1, 0)  # refresh entropy probs
+    old, upd = T.COEFF_PROBS_DEFAULT, T.COEFF_UPDATE_PROBS
+    for t in range(4):
+        for b in range(8):
+            for c in range(3):
+                for p in range(11):
+                    if new_probs[t, b, c, p] != old[t, b, c, p]:
+                        enc.write_bool(1, int(upd[t, b, c, p]))
+                        enc.write_literal(8, int(new_probs[t, b, c, p]))
+                    else:
+                        enc.write_bool(0, int(upd[t, b, c, p]))
+    enc.write_literal(1, 1)  # mb_no_skip_coeff
+    enc.write_literal(8, skip_prob)
+
+
+def finish_frame(arrays, probs, quality: int, width: int, height: int,
+                 num_partitions: int = 1) -> bytes:
+    """VP8 payload of one image from its analysis arrays (luma_mode,
+    chroma_mode [nmb], bpred [nmb, 16], y_levels [nmb, 16, 16], y2_levels
+    [nmb, 16], uv_levels [nmb, 8, 16]).  `probs` [4, 8, 3, 11] are the token
+    probabilities adapted from pass 1 (two-pass flow), or None to adapt them
+    here from these arrays' own token statistics."""
+    if num_partitions not in PARTITIONS:
+        raise ValueError(f"num_partitions must be one of {PARTITIONS}, got {num_partitions}")
+    mbw, mbh = (width + 15) // 16, (height + 15) // 16
+    seg = SegmentParams(quality_to_quant_index(quality))
+    skipped = skip_flags(arrays)
+    ctx = compute_contexts(arrays["luma_mode"], arrays["y2_levels"], arrays["y_levels"],
+                           arrays["uv_levels"], mbw, mbh)
+    levels, meta = token_stream(arrays, ctx, skipped, mbw)
+    if probs is None:
+        probs = ProbaStats(*native.vp8_token_stats(levels, meta)).updated_probs(
+            T.COEFF_PROBS_DEFAULT)
+
+    total = len(skipped)
+    non_skip = int(total - skipped.sum())
+    skip_prob = min(max((255 * non_skip + total // 2) // total, 1), 254)
+
+    enc = BoolEncoder()
+    _frame_header(enc, seg, num_partitions, probs, skip_prob)
+    header = native.vp8_mbheader_encode(enc, arrays["luma_mode"], arrays["bpred"],
+                                        arrays["chroma_mode"], skipped, mbw, skip_prob)
+    if len(header) >= MAX_FIRST_PARTITION:
+        raise ValueError("partition 0 overflow (header > 512 KiB)")
+
+    # MB row r goes to coefficient partition r % num_partitions.
+    parts = []
+    for p in range(num_partitions):
+        psel = (meta[:, 3] % num_partitions) == p
+        parts.append(native.vp8_token_encode(levels[psel], meta[psel], probs))
+
+    out = bytearray()
+    tag = (len(header) << 5) | (1 << 4)  # show_frame, version 0, keyframe
+    out += bytes([tag & 0xFF, (tag >> 8) & 0xFF, (tag >> 16) & 0xFF])
+    out += b"\x9d\x01\x2a"
+    out += bytes([width & 0xFF, (width >> 8) & 0x3F, height & 0xFF, (height >> 8) & 0x3F])
+    out += header
+    out += b"".join(len(pb).to_bytes(3, "little") for pb in parts[:-1])
+    out += b"".join(parts)
+    return bytes(out)

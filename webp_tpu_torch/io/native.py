@@ -1,10 +1,12 @@
-"""ctypes bindings for the host half of the decode: the C++ entropy pass.
+"""ctypes bindings for the host halves of the codec: the C++ entropy passes.
 
-The boolean arithmetic decoder is the codec's serial tail and runs on the
-host.  Its source is the repo's `native/vp8_entropy.cpp`; this module builds
-it with g++ at first use into `build/` beside the package (its own copy, so
-that it never shares a library file with another process's build) and binds
-the three entry points the decode needs.
+The boolean arithmetic coders are the codec's serial tail and run on the
+host.  Their source is the repo's `native/vp8_entropy.cpp`; this module
+builds it with g++ at first use into `build/` beside the package (its own
+copy, so that it never shares a library file with another process's build)
+and binds the entry points the decode needs (frame parse, levels-mode
+entropy decode, fancy YUV->RGB) and those the encode needs (RGB->YUV420,
+token statistics, token and MB-header coding).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ _lock = threading.Lock()
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i16p = ctypes.POINTER(ctypes.c_int16)
 _i32p = ctypes.POINTER(ctypes.c_int32)
+_i64p = ctypes.POINTER(ctypes.c_int64)
 
 _DEFAULT_PROBS = np.ascontiguousarray(T.COEFF_PROBS_DEFAULT, dtype=np.uint8)
 _UPDATE_PROBS = np.ascontiguousarray(T.COEFF_UPDATE_PROBS, dtype=np.uint8)
@@ -68,6 +71,19 @@ def load():
         lib.yuv420_to_rgb_fancy.restype = ctypes.c_int
         lib.yuv420_to_rgb_fancy.argtypes = [
             _u8p, ctypes.c_int, _u8p, _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, _u8p,
+        ]
+        lib.rgb_to_yuv420.restype = ctypes.c_int
+        lib.rgb_to_yuv420.argtypes = [_u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                      _u8p, _u8p, _u8p]
+        lib.vp8_token_stats.restype = ctypes.c_int
+        lib.vp8_token_stats.argtypes = [_i32p, _i32p, ctypes.c_int, _i64p, _i64p]
+        lib.vp8_token_encode.restype = ctypes.c_int
+        lib.vp8_token_encode.argtypes = [_i32p, _i32p, ctypes.c_int, _u8p, _u8p, ctypes.c_int]
+        lib.vp8_mbheader_encode.restype = ctypes.c_int
+        lib.vp8_mbheader_encode.argtypes = [
+            _u8p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+            _i32p, _i32p, _i32p, _i32p, _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, _u8p, _u8p, _u8p, ctypes.c_int,
         ]
         _lib = lib
         return lib
@@ -127,3 +143,76 @@ def yuv420_to_rgb_fancy(ybuf: np.ndarray, ubuf: np.ndarray, vbuf: np.ndarray,
     if rc != 0:
         raise ValueError(f"yuv420_to_rgb_fancy failed: {rc}")
     return rgb
+
+
+def rgb_to_yuv420(rgb: np.ndarray):
+    """BT.601 fixed-point RGB->YUV420 with 2x2 chroma averaging and
+    edge-replicated padding to whole MBs: rgb [h, w, 3|4] uint8 ->
+    (y [mbh*16, mbw*16], u, v [mbh*8, mbw*8]) uint8."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] not in (3, 4):
+        raise ValueError(f"rgb must be [h, w, 3|4] uint8, got {rgb.shape}")
+    h, w, ch = rgb.shape
+    mbw, mbh = (w + 15) // 16, (h + 15) // 16
+    y = np.empty((mbh * 16, mbw * 16), np.uint8)
+    u = np.empty((mbh * 8, mbw * 8), np.uint8)
+    v = np.empty((mbh * 8, mbw * 8), np.uint8)
+    rc = load().rgb_to_yuv420(_p(rgb, ctypes.c_uint8), h, w, ch, _p(y, ctypes.c_uint8),
+                              _p(u, ctypes.c_uint8), _p(v, ctypes.c_uint8))
+    if rc != 0:
+        raise ValueError(f"rgb_to_yuv420 failed: {rc}")
+    return y, u, v
+
+
+def vp8_token_stats(levels: np.ndarray, meta: np.ndarray):
+    """Token statistics of [N, 16] zigzag level blocks with [N, 4] (plane,
+    first, ctx, _) rows: (totals, ones) [4, 8, 3, 11] int64."""
+    levels = np.ascontiguousarray(levels, np.int32)
+    meta = np.ascontiguousarray(meta, np.int32)
+    totals = np.zeros((4, 8, 3, 11), np.int64)
+    ones = np.zeros((4, 8, 3, 11), np.int64)
+    load().vp8_token_stats(_p(levels, ctypes.c_int32), _p(meta, ctypes.c_int32), len(levels),
+                           _p(totals, ctypes.c_int64), _p(ones, ctypes.c_int64))
+    return totals, ones
+
+
+def vp8_token_encode(levels: np.ndarray, meta: np.ndarray, probs: np.ndarray) -> bytes:
+    """One boolean-coded coefficient partition of [N, 16] level blocks with
+    [N, 4] (plane, first, ctx, _) rows, under token probabilities [4, 8, 3, 11]."""
+    levels = np.ascontiguousarray(levels, np.int32)
+    meta = np.ascontiguousarray(meta, np.int32)
+    probs = np.ascontiguousarray(probs, np.uint8)
+    cap = max(levels.size * 8, 4096)
+    out = np.zeros(cap, np.uint8)
+    n = load().vp8_token_encode(_p(levels, ctypes.c_int32), _p(meta, ctypes.c_int32),
+                                len(levels), _p(probs, ctypes.c_uint8), _p(out, ctypes.c_uint8), cap)
+    if n < 0:
+        raise ValueError("vp8_token_encode overflow")
+    return out[:n].tobytes()
+
+
+def vp8_mbheader_encode(enc, luma_mode, bpred, chroma_mode, skipped, mbw: int,
+                        skip_prob: int) -> bytes:
+    """Continue the frame header's `BoolEncoder` `enc` with every MB header
+    (segments off), flush, and return the first partition's bytes."""
+    state = np.frombuffer(bytes(enc.out), np.uint8)
+    nmb = len(luma_mode)
+    cap = len(state) + nmb * 16 + 4096
+    out = np.zeros(cap, np.uint8)
+    luma_mode, bpred, chroma_mode = (np.ascontiguousarray(a, np.int32)
+                                     for a in (luma_mode, bpred, chroma_mode))
+    segment_ids = np.zeros(nmb, np.int32)
+    skipped = np.ascontiguousarray(skipped, np.uint8)
+    seg_probs = np.full(3, 255, np.uint8)
+    state_p = state if len(state) else np.zeros(1, np.uint8)
+    n = load().vp8_mbheader_encode(
+        _p(state_p, ctypes.c_uint8), len(state), ctypes.c_uint32(enc.bottom),
+        ctypes.c_uint32(enc.range), enc.bit_num,
+        _p(luma_mode, ctypes.c_int32), _p(bpred, ctypes.c_int32),
+        _p(chroma_mode, ctypes.c_int32), _p(segment_ids, ctypes.c_int32),
+        _p(skipped, ctypes.c_uint8), nmb, mbw, skip_prob, 0, _p(seg_probs, ctypes.c_uint8),
+        _p(_BPRED_PROBS, ctypes.c_uint8), _p(out, ctypes.c_uint8), cap,
+    )
+    if n < 0:
+        raise ValueError(f"vp8_mbheader_encode failed: {n}")
+    return out[:n].tobytes()

@@ -1,0 +1,408 @@
+"""Kernel K5: the encoder's full-RD mode decision with reconstruction in the
+loop, over the MB grid in wavefront order.
+
+Replaces `webp_tpu/ops/encode_wavefront2.py:803` `enc_step` (with
+`_i16_search_v2` :362, `_i4_search_v2` :585, `_uv_search_v2` :696 and
+`_chroma_diffusion_v2` :735), driven by `encode_analysis_batch_v2` (:955),
+for methods 0-3 with segments off (no trellis, one segment).  Per MB:
+  - I16: the four whole-block modes, DCT + Y2 WHT, quantization, rate
+    (`ops/enc_costs.py`), spectral and pixel distortion, flat-source
+    penalty; the best by RD score at lambda_i16, rescored at lambda_mode;
+  - I4 (n_try > 0): the 16 subblocks in order, each trying DC and the
+    n_try - 1 B modes of least prediction SSE, with the running-score early
+    exit against the I16 score and the 64-bit/MB header budget;
+  - UV: the four modes with the flatness penalty, then chroma DC error
+    diffusion and the final quantization.
+Outputs per MB: luma_mode (4 = B-predicted), chroma_mode, bpred [16],
+y_levels [16, 16], y2_levels [16], uv_levels [8, 16] (zigzag levels).
+
+`encode_analysis_batch` launches the CUDA kernel (`csrc/enc.cu`) for CUDA
+tensors and runs the plain torch twin `encode_analysis_batch_plain` for CPU
+ones.  The twin walks the anti-diagonals t = x + 2y in Python, vectorised
+over the diagonal's MBs and the batch ([n, B] lanes), and reads neighbours
+back from the reconstruction it writes, as the kernel does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from .enc_costs import residual_costs
+from .enc_params import BIG, CONSTS_NP, IZZ, ZZ, EncParams, EncTables, rd_score32
+from .transform import dct4x4, idct4x4, iwht4x4, quantize_zz, wht4x4
+from .wavefront import predict_b_all
+
+_ZZ = torch.from_numpy(ZZ)
+_IZZ = torch.from_numpy(IZZ)
+
+
+def _const(name: str, dev) -> torch.Tensor:
+    c = _build.device_constant("enc_consts", CONSTS_NP, dev)
+    lo, hi = {"fixed_i4": (2048, 3048), "fixed_i16": (3048, 3052), "fixed_uv": (3052, 3056),
+              "weight_y": (3056, 3072)}[name]
+    return c[lo:hi]
+
+
+OUT_FIELDS = ("luma_mode", "chroma_mode", "bpred", "y_levels", "y2_levels", "uv_levels")
+
+
+def _quant(blocks_raster, iq, bias):
+    return quantize_zz(blocks_raster[..., _ZZ.to(blocks_raster.device)], iq, bias)
+
+
+def _dequant(levels, q):
+    return (levels * q)[..., _IZZ.to(levels.device)]
+
+
+def _blocks(mb, n: int):
+    """[..., 4n, 4n] spatial <-> [..., n*n, 16] raster 4x4 blocks."""
+    s = mb.shape[:-2]
+    return mb.reshape(*s, n, 4, n, 4).transpose(-3, -2).reshape(*s, n * n, 16)
+
+
+def _spatial(blk, n: int):
+    s = blk.shape[:-2]
+    return blk.reshape(*s, n, n, 4, 4).transpose(-3, -2).reshape(*s, 4 * n, 4 * n)
+
+
+def _t_transform(blocks4, w):
+    """Weighted Hadamard energy of [..., 4, 4] blocks -> [...]."""
+    b = blocks4.to(torch.int32)
+    e0, e1, e2, e3 = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    a0, a1, a2, a3 = e0 + e2, e1 + e3, e1 - e3, e0 - e2
+    t = torch.stack([a0 + a1, a3 + a2, a3 - a2, a0 - a1], dim=-1)
+    c0, c1, c2, c3 = t[..., 0, :], t[..., 1, :], t[..., 2, :], t[..., 3, :]
+    a0, a1, a2, a3 = c0 + c2, c1 + c3, c1 - c3, c0 - c2
+    out = torch.stack([a0 + a1, a3 + a2, a3 - a2, a0 - a1], dim=-2)
+    return (out.abs() * w.reshape(4, 4)).sum((-1, -2), dtype=torch.int32)
+
+
+def _spectral(tlambda: int, td):
+    return (tlambda * td + 128) >> 8 if tlambda > 0 else torch.zeros_like(td)
+
+
+def _whole_pred_all4(a, left, tl, has_above, has_left, size: int):
+    """DC/V/H/TM predictions, a/left [n, B, (2,) size], tl [n, B(, 2)],
+    has_* [n, 1(, 1)] -> [n, B, (2,) 4, size, size]."""
+    ha, hl = has_above.to(torch.int32), has_left.to(torch.int32)
+    shf = (2 if size == 8 else 3) + ha + hl
+    total = left.sum(-1, dtype=torch.int32) * hl + a.sum(-1, dtype=torch.int32) * ha
+    dc = torch.where((ha + hl) > 0, (total + (1 << (shf - 1))) >> shf, 128)
+    shape = a.shape[:-1] + (size, size)
+    dc_blk = dc[..., None, None].expand(shape)
+    v_blk = a[..., None, :].expand(shape)
+    h_blk = left[..., :, None].expand(shape)
+    tm_blk = (left[..., :, None] + a[..., None, :] - tl[..., None, None]).clamp(0, 255)
+    return torch.stack([dc_blk, v_blk, h_blk, tm_blk], dim=-3)
+
+
+def _allowed(has_above, has_left, shape):
+    ha, hl = has_above.expand(shape), has_left.expand(shape)
+    return torch.stack([torch.ones_like(ha), ha, hl, ha & hl], dim=-1)
+
+
+def _pick(x, k):
+    """x [n, B, M, ...], k [n, B] -> x[:, :, k]."""
+    idx = k.long().reshape(*k.shape, 1, *([1] * (x.ndim - 3)))
+    idx = idx.expand(*k.shape, 1, *x.shape[3:])
+    return torch.gather(x, 2, idx)[:, :, 0]
+
+
+def _i16_search(a16, left16, tl, src, has_above, has_left, P, tbl):
+    """src [n, B, 16, 16] -> (mode [n, B], score at lambda_mode, y2 levels
+    [n, B, 16], y levels [n, B, 16, 16], rec [n, B, 16, 16])."""
+    n, B = src.shape[:2]
+    pred4 = _whole_pred_all4(a16, left16, tl, has_above, has_left, 16)
+    dct = dct4x4(_blocks(src[:, :, None] - pred4, 4))          # [n, B, 4, 16, 16]
+    y2_lv = _quant(wht4x4(dct[..., 0]), P.y2_iq, P.y2_bias)   # [n, B, 4, 16]
+    y_lv = _quant(dct, P.y1_iq, P.y1_bias)
+    y_lv[..., 0] = 0
+    cost = (residual_costs(y2_lv, 1, 0, 0, tbl)
+            + residual_costs(y_lv, 0, 1, 0, tbl).sum(-1, dtype=torch.int32))
+
+    blk = _dequant(y_lv, P.y1_q)
+    blk[..., 0] = iwht4x4(_dequant(y2_lv, P.y2_q))
+    rec = (pred4 + _spatial(idct4x4(blk), 4)).clamp(0, 255)
+    d = ((rec - src[:, :, None]) ** 2).sum((-1, -2), dtype=torch.int32)
+    w = _const("weight_y", src.device)
+    tsrc = _t_transform(_blocks(src, 4).reshape(n, B, 16, 4, 4), w)
+    trec = _t_transform(_blocks(rec, 4).reshape(n, B, 4, 16, 4, 4), w)
+    sd = _spectral(P.tlambda, ((trec - tsrc[:, :, None]).abs() >> 5).sum(-1, dtype=torch.int32))
+
+    is_flat = (src == src[..., 0:1, 0:1]).all(-1).all(-1)
+    flat_pen = is_flat[..., None] & ((y_lv[..., 1:] != 0).sum((-1, -2)) <= 0)
+    d = torch.where(flat_pen, d * 2, d)
+    sd = torch.where(flat_pen, sd * 2, sd)
+
+    rate = _const("fixed_i16", src.device) + cost
+    scores = torch.where(_allowed(has_above, has_left, (n, B)),
+                         rd_score32(rate, d + sd, P.lambda_i16), BIG)
+    best = scores.argmin(-1)
+    final = rd_score32(_pick(rate, best), _pick(d + sd, best), P.lambda_mode)
+    return best, final, _pick(y2_lv, best), _pick(y_lv, best), _pick(rec, best)
+
+
+def _i4_search(a16, tr4, tl, left16, src, tb, lb, i16_score, n_try: int, P, tbl):
+    """The 16 subblocks in order over [n, B] lanes.  tb/lb [n, B, 4] are the
+    neighbour B-mode contexts.  Returns (ok [n, B], modes [n, B, 16], levels
+    [n, B, 16, 16], rec [n, B, 16, 16], tb, lb)."""
+    n, B = src.shape[:2]
+    dev = src.device
+    w, fixed_i4 = _const("weight_y", dev), _const("fixed_i4", dev)
+    src_blocks = _blocks(src, 4)
+    tsrc_all = _t_transform(src_blocks.reshape(n, B, 16, 4, 4), w)
+    # Bordered workspace: row 0 = [tl | above | above-right], column 0 = left;
+    # column-3 subblocks of rows 4/8/12 reuse the MB's above-right pixels.
+    ws = torch.zeros((n, B, 17, 21), dtype=torch.int32, device=dev)
+    ws[..., 0, :] = torch.cat([tl[..., None], a16, tr4], dim=-1)
+    ws[..., 1:, 0] = left16
+    for rr in (4, 8, 12):
+        ws[..., rr, 17:21] = tr4
+    tb, lb = tb.clone(), lb.clone()
+    tnz = torch.zeros((n, B, 4), dtype=torch.int32, device=dev)
+    lnz = torch.zeros((n, B, 4), dtype=torch.int32, device=dev)
+    rate = torch.full((n, B), 211, dtype=torch.int32, device=dev)  # BMODE initial penalty
+    disto = torch.zeros((n, B), dtype=torch.int32, device=dev)
+    tmc = torch.zeros((n, B), dtype=torch.int32, device=dev)
+    ok = torch.ones((n, B), dtype=torch.bool, device=dev)
+    modes, levels = [], []
+    for i in range(16):
+        sby, sbx = i // 4, i % 4
+        src4 = src_blocks[:, :, i]
+        p = ws[..., sby * 4 : sby * 4 + 5, sbx * 4 : sbx * 4 + 9]
+        e = torch.cat([p[..., [4, 3, 2, 1], 0], p[..., 0, 0:9]], dim=-1)  # L3..L0, tl, A0..A7
+        preds = predict_b_all(e)                                   # [n, B, 10, 16]
+        sse = ((preds - src4[:, :, None]) ** 2).sum(-1, dtype=torch.int32)
+        # DC is always candidate 0; then the least-SSE of modes 1..9, ties
+        # to the lower mode.
+        kmode = [torch.zeros((n, B), dtype=torch.int64, device=dev)] if n_try < 10 else []
+        cur = sse.clone()
+        if n_try < 10:
+            cur[..., 0] = BIG
+        for _ in range(n_try - len(kmode)):
+            m = cur.argmin(-1)
+            kmode.append(m)
+            cur.scatter_(-1, m[..., None], BIG)
+        kmode = torch.stack(kmode, dim=-1)                        # [n, B, K]
+        cand = torch.gather(preds, 2, kmode[..., None].expand(n, B, n_try, 16))
+
+        lv = _quant(dct4x4(src4[:, :, None] - cand), P.y1_iq, P.y1_bias)
+        ctx0 = (tnz[..., sbx] if sby > 0 else 0) + (lnz[..., sby] if sbx > 0 else 0)
+        ctx0 = torch.as_tensor(ctx0, dtype=torch.int32, device=dev).expand(n, B)
+        cc = residual_costs(lv, 3, 0, ctx0[..., None], tbl)
+        rec = (cand + idct4x4(_dequant(lv, P.y1_q))).clamp(0, 255)
+        d = ((rec - src4[:, :, None]) ** 2).sum(-1, dtype=torch.int32)
+        trec = _t_transform(rec.reshape(n, B, n_try, 4, 4), w)
+        sd = _spectral(P.tlambda, (trec - tsrc_all[:, :, i, None]).abs() >> 5)
+        mc = fixed_i4[((tb[..., sbx] * 10 + lb[..., sby]) * 10)[..., None].long() + kmode]
+
+        rates = cc + mc
+        k = rd_score32(rates, d + sd, P.lambda_i4).argmin(-1)
+        m = _pick(kmode[..., None], k)[..., 0]
+        lv_k = _pick(lv, k)
+        ws[..., sby * 4 + 1 : sby * 4 + 5, sbx * 4 + 1 : sbx * 4 + 5] = _pick(rec, k).reshape(n, B, 4, 4)
+        tb[..., sbx] = m
+        lb[..., sby] = m
+        has = (lv_k != 0).any(-1).to(torch.int32)
+        tnz[..., sbx] = has
+        lnz[..., sby] = has
+        rate = rate + _pick(rates[..., None], k)[..., 0]
+        disto = disto + _pick((d + sd)[..., None], k)[..., 0]
+        tmc = tmc + _pick(mc[..., None], k)[..., 0]
+        ok = ok & (rd_score32(rate, disto, P.lambda_mode) < i16_score)
+        ok = ok & (tmc <= 256 * 16 * 16 // 4)
+        modes.append(m.to(torch.int32))
+        levels.append(lv_k)
+    return ok, torch.stack(modes, -1), torch.stack(levels, 2), ws[..., 1:, 1:17], tb, lb
+
+
+def _uv_search(a8, left8, tlc, src_c, has_above, has_left, P, tbl):
+    """U and V on a channel axis: a8/left8 [n, B, 2, 8], tlc [n, B, 2],
+    src_c [n, B, 2, 8, 8] -> (mode [n, B], dct [n, B, 2, 4, 16], pred
+    [n, B, 2, 8, 8]) of the best mode."""
+    n, B = src_c.shape[:2]
+    pred4 = _whole_pred_all4(a8, left8, tlc, has_above[..., None], has_left[..., None], 8)
+    dct = dct4x4(_blocks(src_c[:, :, :, None] - pred4, 2))     # [n, B, 2, 4m, 4b, 16]
+    lv = _quant(dct, P.uv_iq, P.uv_bias)
+    rec = (pred4 + _spatial(idct4x4(_dequant(lv, P.uv_q)), 2)).clamp(0, 255)
+    d = ((rec - src_c[:, :, :, None]) ** 2).sum((-1, -2), dtype=torch.int32).sum(-2, dtype=torch.int32)
+    lv_m = lv.transpose(2, 3)                                     # [n, B, 4m, 2, 4b, 16]
+    rate = _const("fixed_uv", src_c.device) + residual_costs(lv_m, 2, 0, 0, tbl).sum((-1, -2), dtype=torch.int32)
+    flat = (lv_m[..., 1:] != 0).sum((-1, -2, -3)) <= 2
+    not_dc = torch.arange(4, device=src_c.device) != 0
+    rate = torch.where(not_dc & flat, rate + 140 * 8, rate)
+    scores = torch.where(_allowed(has_above, has_left, (n, B)),
+                         rd_score32(rate, d, P.lambda_uv), BIG)
+    best = scores.argmin(-1)
+    return best, _pick(dct.transpose(2, 3), best), _pick(pred4.transpose(2, 3), best)
+
+
+def _chroma_diffusion(dct, pred, P, top_err, left_err):
+    """Chroma DC error diffusion (C1 = 7, C2 = 8) over [n, B, 2] lanes, then
+    the final quantization: dct [n, B, 2, 4, 16], pred [n, B, 2, 8, 8],
+    errors [n, B, 2, 2] -> (levels [n, B, 2, 4, 16], rec, new_top, new_left)."""
+    q, iq, bias = (int(getattr(P, f)[0]) for f in ("uv_q", "uv_iq", "uv_bias"))
+    dc = dct[..., 0]
+
+    def diffuse(dcv, t_err, l_err):
+        d2 = dcv + ((7 * t_err + 8 * l_err) >> 3)
+        a = d2.abs()
+        # QuantizeSingle: the coefficient becomes its reconstruction level * q.
+        qv = ((a * iq + bias) >> 17) * q
+        dcq = torch.where(d2 < 0, -qv, qv)
+        err = torch.where(d2 < 0, -(a - qv), a - qv)
+        return dcq, (err >> 1).clamp(-127, 127)
+
+    te, le = top_err, left_err
+    dc0, e0 = diffuse(dc[..., 0], te[..., 0], le[..., 0])
+    dc1, e1 = diffuse(dc[..., 1], te[..., 1], e0)
+    dc2, e2 = diffuse(dc[..., 2], e0, le[..., 1])
+    dc3, e3 = diffuse(dc[..., 3], e1, e2)
+    nl1 = (3 * e3) >> 2
+    dct = dct.clone()
+    dct[..., 0] = torch.stack([dc0, dc1, dc2, dc3], dim=-1)
+    lv = _quant(dct, P.uv_iq, P.uv_bias)
+    rec = (pred + _spatial(idct4x4(_dequant(lv, P.uv_q)), 2)).clamp(0, 255)
+    return lv, rec, torch.stack([e2, e3 - nl1], -1), torch.stack([e1, nl1], -1)
+
+
+def _bordered(p: torch.Tensor) -> torch.Tensor:
+    """int32 copy [B, H+1, W+1] with the frame border: row 0 is the row above
+    the frame (127, its corner included), column 0 the column left of it (129)."""
+    B, H, W = p.shape
+    w = torch.full((B, H + 1, W + 1), 129, dtype=torch.int32, device=p.device)
+    w[:, 0, :] = 127
+    return w
+
+
+def encode_analysis_batch_plain(y, u, v, P: EncParams, tbl: EncTables, n_try: int):
+    """Torch twin of the K5 kernel (any device)."""
+    B, H, W = y.shape
+    dev = y.device
+    mbh, mbw = H // 16, W // 16
+    nmb = mbw * mbh
+    tbl = tbl.expand(B)
+    src_y, src_u, src_v = (p.to(torch.int32) for p in (y, u, v))
+    Yw, Uw, Vw = _bordered(y), _bordered(u), _bordered(v)
+    out = {k: torch.zeros((B, nmb, *s), dtype=torch.int32, device=dev) for k, s in (
+        ("luma_mode", ()), ("chroma_mode", ()), ("bpred", (16,)), ("y_levels", (16, 16)),
+        ("y2_levels", (16,)), ("uv_levels", (8, 16)))}
+    ctx_top = torch.zeros((B, nmb, 4), dtype=torch.int32, device=dev)  # B-mode contexts below
+    ctx_left = torch.zeros((B, nmb, 4), dtype=torch.int32, device=dev)  # ... and right of an MB
+    err_top = torch.zeros((B, nmb, 2, 2), dtype=torch.int32, device=dev)  # chroma DC diffusion
+    err_left = torch.zeros((B, nmb, 2, 2), dtype=torch.int32, device=dev)
+    k16, k8, k4 = (torch.arange(k, device=dev) for k in (16, 8, 4))
+    # DC/V/H/TM -> B_DC/B_VE/B_HE/B_TM
+    bmode_of = torch.tensor([0, 2, 3, 1], dtype=torch.int32, device=dev)
+    for t in range(mbw + 2 * (mbh - 1)):
+        R = torch.tensor([r for r in range(mbh) if 0 <= t - 2 * r < mbw], device=dev)
+        X = t - 2 * R
+        M = R * mbw + X
+        n = len(R)
+        has_above, has_left = (R > 0)[:, None], (X > 0)[:, None]
+
+        def lanes(a):  # [B, n, ...] -> [n, B, ...]
+            return a.transpose(0, 1)
+
+        top, col = (R * 16)[:, None], (X * 16)[:, None]
+        a16 = lanes(Yw[:, top, 1 + col + k16])
+        tr4 = lanes(Yw[:, top, 1 + (col + 16 + k4).clamp(max=W - 1)])  # rightmost MB repeats a[15]
+        tl = lanes(Yw[:, R * 16, X * 16])
+        left16 = lanes(Yw[:, 1 + top + k16, col])
+        src = lanes(src_y[:, top[:, :, None] + k16[:, None], col[:, :, None] + k16])
+        tb0 = torch.where(has_above[..., None], lanes(ctx_top[:, M - mbw]), 0)
+        lb0 = torch.where(has_left[..., None], lanes(ctx_left[:, M - 1]), 0)
+        tde = torch.where(has_above[..., None, None], lanes(err_top[:, M - mbw]), 0)
+        lde = torch.where(has_left[..., None, None], lanes(err_left[:, M - 1]), 0)
+
+        i16_mode, i16_score, i16_y2, i16_y, i16_rec = _i16_search(
+            a16, left16, tl, src, has_above, has_left, P, tbl)
+        if n_try > 0:
+            use_i4, i4_modes, i4_levels, i4_rec, tb4, lb4 = _i4_search(
+                a16, tr4, tl, left16, src, tb0, lb0, i16_score, n_try, P, tbl)
+        else:
+            use_i4 = torch.zeros((n, B), dtype=torch.bool, device=dev)
+            i4_modes = torch.zeros((n, B, 16), dtype=torch.int32, device=dev)
+            i4_levels = i4_rec = torch.zeros((n, B, 16, 16), dtype=torch.int32, device=dev)
+            tb4, lb4 = tb0, lb0
+        luma_rec = torch.where(use_i4[..., None, None], i4_rec, i16_rec)
+        bmode = bmode_of[i16_mode]
+        i16_bpred = torch.zeros((n, B, 16), dtype=torch.int32, device=dev)
+        i16_bpred[..., 12:] = bmode[..., None]
+        u4 = use_i4[..., None]
+
+        ctop, ccol = (R * 8)[:, None], (X * 8)[:, None]
+        cplanes = (Uw, Vw)
+        a8 = torch.stack([lanes(c[:, ctop, 1 + ccol + k8]) for c in cplanes], 2)
+        tlc = torch.stack([lanes(c[:, R * 8, X * 8]) for c in cplanes], 2)
+        left8 = torch.stack([lanes(c[:, 1 + ctop + k8, ccol]) for c in cplanes], 2)
+        src_c = torch.stack([lanes(s[:, ctop[:, :, None] + k8[:, None], ccol[:, :, None] + k8])
+                             for s in (src_u, src_v)], 2)
+        uv_mode, uv_dct, uv_pred = _uv_search(a8, left8, tlc, src_c, has_above, has_left, P, tbl)
+        uv_lv, uv_rec, new_tde, new_lde = _chroma_diffusion(uv_dct, uv_pred, P, tde, lde)
+
+        def store(dst, val):  # [n, B, ...] -> dst[:, M]
+            dst[:, M] = val.transpose(0, 1).to(dst.dtype)
+
+        store(out["luma_mode"], torch.where(use_i4, 4, i16_mode))
+        store(out["chroma_mode"], uv_mode)
+        store(out["bpred"], torch.where(u4, i4_modes, i16_bpred))
+        store(out["y_levels"], torch.where(u4[..., None], i4_levels, i16_y))
+        store(out["y2_levels"], torch.where(u4, 0, i16_y2))
+        store(out["uv_levels"], uv_lv.reshape(n, B, 8, 16))
+        store(ctx_top, torch.where(u4, tb4, bmode[..., None]))
+        store(ctx_left, torch.where(u4, lb4, bmode[..., None]))
+        store(err_top, new_tde)
+        store(err_left, new_lde)
+        Yw[:, 1 + top[:, :, None] + k16[:, None], 1 + col[:, :, None] + k16] = lanes(luma_rec)
+        for j, c in enumerate(cplanes):
+            c[:, 1 + ctop[:, :, None] + k8[:, None], 1 + ccol[:, :, None] + k8] = lanes(uv_rec[:, :, j])
+    return {k: out[k].to(torch.uint8 if k in ("luma_mode", "chroma_mode", "bpred") else torch.int16)
+            for k in OUT_FIELDS}
+
+
+def encode_analysis_batch(y, u, v, P: EncParams, tbl: EncTables, n_try: int):
+    """Per-MB decisions and levels of a batch of padded YUV420 planes
+    y [B, mbh*16, mbw*16], u/v [B, mbh*8, mbw*8] uint8, with the segment's
+    parameters `P` and per-image (or shared) tables `tbl`, trying `n_try`
+    B modes per subblock (0: I16 only).  Returns a dict of luma_mode,
+    chroma_mode [B, nmb] and bpred [B, nmb, 16] uint8, y_levels
+    [B, nmb, 16, 16], y2_levels [B, nmb, 16] and uv_levels [B, nmb, 8, 16]
+    int16, on the planes' device."""
+    if not 0 <= n_try <= 10:
+        raise ValueError(f"n_try must be in 0..10, got {n_try}")
+    dev = _build.same_device(y, u, v, tbl.cls_cost, tbl.eob_cost, tbl.init_cost)
+    if dev.type == "cpu":
+        return encode_analysis_batch_plain(y, u, v, P, tbl, n_try)
+    return _enc_kernel(y, u, v, P, tbl, n_try)
+
+
+def _enc_kernel(y, u, v, P: EncParams, tbl: EncTables, n_try: int):
+    dev = y.device
+    B, H, W = y.shape
+    mbh, mbw = H // 16, W // 16
+    nmb = mbw * mbh
+    tbl = tbl.expand(B)
+    out = {k: torch.empty((B, nmb, *shape), dtype=dtype, device=dev) for k, shape, dtype in (
+        ("luma_mode", (), torch.uint8), ("chroma_mode", (), torch.uint8),
+        ("bpred", (16,), torch.uint8), ("y_levels", (16, 16), torch.int16),
+        ("y2_levels", (16,), torch.int16), ("uv_levels", (8, 16), torch.int16))}
+    recon = torch.empty((B, H * W * 3 // 2), dtype=torch.uint8, device=dev)
+    errs = torch.empty((B, nmb, 8), dtype=torch.int32, device=dev)
+    params = P.packed(dev)
+    consts = _build.device_constant("enc_consts", CONSTS_NP, dev)
+    _build.launch(
+        "enc", "webp_enc", dev,
+        *_build.plane(y, B, H, W), *_build.plane(u, B, H // 2, W // 2),
+        *_build.plane(v, B, H // 2, W // 2),
+        _build.dense(params, torch.int32, (params.numel(),)),
+        _build.dense(consts, torch.int32, (consts.numel(),)),
+        *_build.table(tbl.cls_cost, B, (4, 16, 3, 11)),
+        *_build.table(tbl.eob_cost, B, (4, 16, 3)),
+        *_build.table(tbl.init_cost, B, (4, 16, 3)),
+        mbw, mbh, B, n_try,
+        *(out[k].data_ptr() for k in OUT_FIELDS),
+        recon.data_ptr(), errs.data_ptr(),
+    )
+    return out

@@ -1,7 +1,10 @@
-"""Decode-side 4x4 inverse transforms on int32 tensors (RFC 6386 section 14.3).
+"""4x4 transforms on int32 tensors: the decode's inverse ones (RFC 6386
+section 14.3) and the encode's forward DCT/WHT (libwebp rounding) with the
+biased zigzag quantizer.
 
-Plain torch twins of `webp_tpu/ops/jax_ops.py` `idct4x4` / `iwht4x4`; the
-CUDA kernel in `csrc/residual.cu` computes the same integer arithmetic.
+Plain torch twins of `webp_tpu/ops/jax_ops.py` `idct4x4` / `iwht4x4` /
+`dct4x4` / `wht4x4` / `quantize_zz`; the CUDA kernels in `csrc/residual.cu`
+and `csrc/enc.cu` compute the same integer arithmetic.
 """
 
 from __future__ import annotations
@@ -57,3 +60,50 @@ def iwht4x4(blocks: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return out.reshape(blocks.shape)
+
+
+def dct4x4(blocks: torch.Tensor) -> torch.Tensor:
+    """Forward DCT of [..., 16] row-major residual blocks -> int32 [..., 16]."""
+    blk = blocks.to(torch.int32).reshape(*blocks.shape[:-1], 4, 4)
+    e0, e1, e2, e3 = blk[..., 0], blk[..., 1], blk[..., 2], blk[..., 3]
+    a = (e0 + e3) * 8
+    b = (e1 + e2) * 8
+    c = (e1 - e2) * 8
+    d = (e0 - e3) * 8
+    t = torch.stack([a + b, (c * 2217 + d * 5352 + 14500) >> 12, a - b,
+                     (d * 2217 - c * 5352 + 7500) >> 12], dim=-1)
+    c0, c1_, c2_, c3 = t[..., 0, :], t[..., 1, :], t[..., 2, :], t[..., 3, :]
+    a = c0 + c3
+    b = c1_ + c2_
+    c = c1_ - c2_
+    d = c0 - c3
+    out = torch.stack([
+        (a + b + 7) >> 4,
+        ((c * 2217 + d * 5352 + 12000) >> 16) + (d != 0).to(torch.int32),
+        (a - b + 7) >> 4,
+        (d * 2217 - c * 5352 + 51000) >> 16,
+    ], dim=-2)
+    return out.reshape(blocks.shape)
+
+
+def wht4x4(blocks: torch.Tensor) -> torch.Tensor:
+    """Forward Walsh-Hadamard transform of the 16 luma DCs, [..., 16] -> int32."""
+    b = blocks.to(torch.int32).reshape(*blocks.shape[:-1], 4, 4)
+    e0, e1, e2, e3 = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    t = torch.stack([(e0 + e3) + (e1 + e2), (e1 - e2) + (e0 - e3),
+                     (e0 + e3) - (e1 + e2), (e0 - e3) - (e1 - e2)], dim=-1)
+    c0, c1_, c2_, c3 = t[..., 0, :], t[..., 1, :], t[..., 2, :], t[..., 3, :]
+    vals = [(c0 + c3) + (c1_ + c2_), (c1_ - c2_) + (c0 - c3),
+            (c0 + c3) - (c1_ + c2_), (c0 - c3) - (c1_ - c2_)]
+    # Halve, rounding positive values up and negative ones toward zero.
+    out = torch.stack([torch.where(v >= 0, (v + (v > 0).to(torch.int32)) >> 1, -((-v) >> 1))
+                       for v in vals], dim=-2)
+    return out.reshape(blocks.shape)
+
+
+def quantize_zz(blocks_zz: torch.Tensor, iq, bias) -> torch.Tensor:
+    """Biased quantization (QFIX 17) of zigzag-ordered coefficients [..., 16]:
+    sign(c) * min((|c| * iq + bias) >> 17, 2047), int32."""
+    c = blocks_zz.to(torch.int32)
+    level = torch.clamp_max((c.abs() * iq + bias) >> 17, 2047)
+    return torch.where(c < 0, -level, level)
