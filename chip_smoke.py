@@ -19,20 +19,27 @@ YUV->RGB conversion of the YUV output.  K1 residual, K2 recon, K3 loop
 filter (both kinds) and K4 yuv2rgb are each held bit-exact to their plain
 twins on the same card inputs.
 
-Encode.  Two distinct seeded synthetic frames (`tests/synthetic_rgb.py`,
-asserted to give I4 and I16 MBs and at least three chroma modes) tiled to
-a batch of 8 go through `encode_frames_lossy_batch` at Q75, method 3, 8
-partitions, two-pass and one-pass.  The payloads must be byte-equal to the
-port's plain encode of the distinct frames on the CPU (which the tests
-hold byte-equal to the JAX package).  K5 enc (default and per-image
-tables, n_try 0 and 3), K6 token_stats (also against the host C++ token
-statistics) and K7 enc_tables are each held bit-exact to their plain
-twins on the main path's card inputs; the payloads decode through K1-K4
-bit-exact with the plain CPU decode.
+Encode, twice: method 3 with segments off, then the flagship, method 4
+(trellis) with segments on.  Two distinct seeded synthetic frames
+(`tests/synthetic_rgb.py`, asserted to give I4 and I16 MBs; for the
+flagship also segmentation with the update map and at least two segment
+ids on each) tiled to a batch of 8 go through `encode_frames_lossy_batch`
+at Q75, 8 partitions, two-pass and one-pass.  The payloads must be
+byte-equal to the port's plain encode of the distinct frames on the CPU
+(which the tests hold byte-equal to the JAX package; two worker processes
+make it while the card works).  K8 analysis (the flagship's segment
+alphas), K5 enc (pass 2 with per-image tables; for the flagship with
+trellis and segment ids, and pass 1 too, the kernel's other instance, with
+the default tables and segment ids), K6 token_stats (also against the host
+C++ token statistics) and K7
+enc_tables are each held bit-exact to their plain twins on the main
+path's card inputs; the payloads decode through K1-K4 bit-exact with the
+plain CPU decode.
 
 Prints the card's name and power limit, per-kernel timings (CUDA events;
-kernel beside plain twin), the encode's per-stage host-clock split, one
-JSON line of kernel records and, last, {"ok": true, "device": {...}}.
+kernel beside plain twin and the kernel's bound), the encodes' per-stage
+host-clock split, one JSON line of kernel records and, last,
+{"ok": true, "device": {...}}.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails.  Imports neither jax nor the JAX package; needs no network.
 """
@@ -40,6 +47,7 @@ phase fails.  Imports neither jax nor the JAX package; needs no network.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
@@ -52,8 +60,18 @@ BATCH = 8
 SEEDS = {False: (101, 202), True: (303, 404)}  # simple filter -> distinct frames
 ESCAPES = 32  # |level| > 127 per frame
 
-QUALITY, METHOD, PARTITIONS = 75, 3, 8
+QUALITY, PARTITIONS = 75, 8
 ENC_SEEDS = (11, 12)
+# The encode phases: (method, segments).  The flagship is bench.py's encode.
+ENCODES = ((3, False), (4, True))
+
+# The card's peaks for the kernels' bounds (NVIDIA H100 SXM): HBM bytes/s
+# (data sheet), and INT32 operations/s outside the tensor cores, which is
+# where all the kernels' work runs: 64 INT32 lanes per SM x 132 SMs x the
+# 1.98 GHz boost clock (the data sheet's 67 TFLOP/s float32 is 128 FP32
+# lanes per SM counting an FMA as two).
+PEAK_BYTES = 3.35e12
+PEAK_INT_OPS = 64 * 132 * 1.98e9
 
 DECODE_KERNELS = [
     # name, source, replaced TPU kernel (file:line)
@@ -63,7 +81,9 @@ DECODE_KERNELS = [
     ("yuv2rgb", "webp_tpu_torch/csrc/yuv2rgb.cu", "webp_tpu/ops/jax_ops.py:189"),
 ]
 ENCODE_KERNELS = [
-    ("enc", "webp_tpu_torch/csrc/enc.cu", "webp_tpu/ops/encode_wavefront2.py:803"),
+    ("analysis", "webp_tpu_torch/csrc/analysis.cu", "webp_tpu/ops/analysis2.py:128"),
+    ("enc", "webp_tpu_torch/csrc/enc.cu",
+     "webp_tpu/ops/encode_wavefront2.py:803 + webp_tpu/ops/trellis2.py:110,325"),
     ("token_stats", "webp_tpu_torch/csrc/token_stats.cu", "webp_tpu/ops/token_stats.py:183"),
     ("enc_tables", "webp_tpu_torch/csrc/enc_tables.cu",
      "webp_tpu/ops/encode_wavefront2.py:1405"),
@@ -104,8 +124,8 @@ def cpu_reference(payloads):
 
 
 def time_ms(fn, reps: int, setup=None):
-    """Median device time of fn() over `reps` runs, in ms (CUDA events);
-    setup() runs before each run, outside the timed span."""
+    """Median device time of fn() over `reps` runs after a warm-up, in ms
+    (CUDA events); setup() runs before each run, outside the timed span."""
     import torch
 
     times = []
@@ -121,6 +141,70 @@ def time_ms(fn, reps: int, setup=None):
         if rep:  # the first run warms up
             times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def timed(fn):
+    """(fn(), its device time in ms by CUDA events): one run, no warm-up."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_moved: int, ops: float) -> dict:
+    """The least time the card could take: bytes moved (each input read
+    once, each output written once) at the HBM rate, or the operations at
+    the INT32 rate, whichever is longer."""
+    by_bytes, by_ops = nbytes_moved / PEAK_BYTES * 1e3, ops / PEAK_INT_OPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops
+            else "operations"}
+
+
+# Integer operations the kernels do, counted from their loops (per 4x4
+# block: a forward or inverse transform ~96, a quantization ~48, a rate
+# ~64, prediction + residual + reconstruction + SSE ~96, the weighted
+# Hadamard distortion of source and reconstruction ~128).
+OPS_BLOCK_RD = 96 + 48 + 64 + 96 + 96 + 128  # transform, quantize, rate, inverse, distortion
+OPS_TRELLIS_NODE = 40                          # one (position, level) node of the DP
+
+
+def enc_ops(n_mb: int, n_i4: int, n_try: int, trellis: bool) -> float:
+    """K5's operations over n_mb MBs of which n_i4 chose I4."""
+    i16 = 4 * 16 * OPS_BLOCK_RD + 4 * (2 * 96 + 48 + 64)   # 4 modes x 16 blocks, Y2
+    i4 = 16 * (10 * 48 + n_try * OPS_BLOCK_RD) if n_try else 0  # 10 predictions, n_try tried
+    uv = 4 * 8 * OPS_BLOCK_RD
+    ops = n_mb * (i16 + i4 + uv)
+    if trellis:  # I16: 16 blocks x 3 entry contexts; I4: 16 subblocks again
+        ops += (n_mb - n_i4) * 16 * 3 * 32 * OPS_TRELLIS_NODE
+        ops += n_i4 * 16 * (32 * OPS_TRELLIS_NODE + OPS_BLOCK_RD)
+    return ops
+
+
+def ptxas_report() -> list:
+    """K5's (both instances) and K8's registers, shared memory and spills,
+    from the build's ptxas report."""
+    from webp_tpu_torch import _build
+
+    names = {"enc_kernelILb0E": "enc<no trellis>", "enc_kernelILb1E": "enc<trellis>",
+             "analysis_kernel": "analysis"}
+    if not _build.PTXAS_REPORT.exists():  # a library built before the report was kept
+        return []
+    out, name = [], None
+    for line in _build.PTXAS_REPORT.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = next((v for k, v in names.items() if k in line), None)
+        elif name and ("spill" in line or "registers" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def max_abs_err(got, want) -> int:
@@ -251,8 +335,8 @@ def decode_phase(dev, card: str) -> dict:
     }
     plain_ms = {
         "residual": time_ms(lambda: residual.residuals_sparse_plain(*k1_args), 5),
-        "recon": time_ms(lambda: recon_plain_(*target_p, *recon_args), 2),
-        "loopfilter": time_ms(lambda: loop_filter_plain_(*work, *lf_args, simple), 2, fresh),
+        "recon": time_ms(lambda: recon_plain_(*target_p, *recon_args), 1),
+        "loopfilter": time_ms(lambda: loop_filter_plain_(*work, *lf_args, simple), 1, fresh),
         "yuv2rgb": time_ms(lambda: fancy_yuv420_to_rgb_plain(*filtered, width, height), 5),
     }
     for name, _, _ in DECODE_KERNELS:
@@ -272,7 +356,7 @@ def decode_phase(dev, card: str) -> dict:
         return fancy_yuv420_to_rgb_plain(*p, width, height)
 
     core_ms = time_ms(lambda: tdev.decode_core(d, "rgb"), 20)
-    core_plain_ms = time_ms(plain_core, 2)
+    core_plain_ms = time_ms(plain_core, 1)
     t0 = time.perf_counter()
     reps = 5
     for _ in range(reps):
@@ -284,8 +368,21 @@ def decode_phase(dev, card: str) -> dict:
     print(f"dispatch_decode_batch (host parse + upload + kernels, host clock): "
           f"{e2e_ms / BATCH:.4f} ms/img ({card})", flush=True)
 
+    # Bounds: the bytes of each kernel's inputs and outputs, and its
+    # operations (K1: dequant + inverse transform per block; K2: prediction,
+    # add and clip per pixel; K3: ~20 per pixel over its edge filters; K4:
+    # upsampling and conversion per output pixel).  No single PyTorch call
+    # computes any of the four.
+    pixels = BATCH * nmb * 384
+    bounds = {
+        "residual": bound(nbytes(*k1_args, res, do_sub), BATCH * nmb * 25 * (16 + 96)),
+        "recon": bound(nbytes(*recon_args, *rec), pixels * 8),
+        "loopfilter": bound(2 * nbytes(*rec) + nbytes(*lf_args), pixels * 20),
+        "yuv2rgb": bound(nbytes(*filtered, out), BATCH * width * height * 25),
+    }
     return {name: {"launches": launches[name], "max_abs_err": err[name], "ms": ms[name],
-                   "plain_ms": plain_ms[name]} for name, _, _ in DECODE_KERNELS}
+                   "plain_ms": plain_ms[name], **bounds[name], "library_ms": None}
+            for name, _, _ in DECODE_KERNELS}
 
 
 def encode_inputs(width: int, height: int):
@@ -297,9 +394,9 @@ def encode_inputs(width: int, height: int):
     return distinct, [distinct[i % len(distinct)] for i in range(BATCH)]
 
 
-def encode_reference(distinct):
+def encode_reference(distinct, method: int, segments: bool):
     """The port's plain encode of the distinct frames on the CPU, for both
-    flows: two_pass -> (per-image arrays, payloads)."""
+    flows: two_pass -> (per-image arrays, payloads, segmentations)."""
     _import_paths()
     from webp_tpu_torch.encode import device as edev
 
@@ -307,11 +404,26 @@ def encode_reference(distinct):
     planes = edev.rgb_to_planes(distinct)
     out = {}
     for two_pass in (True, False):
-        arrays, probs = edev.analyze_frames_lossy_batch(planes, QUALITY, METHOD, two_pass,
-                                                        device="cpu")
-        out[two_pass] = arrays, edev.finish_frames_lossy_batch(arrays, probs, QUALITY, width,
-                                                               height, PARTITIONS)
+        arrays, probs, segs = edev.analyze_frames_lossy_batch(planes, QUALITY, method, two_pass,
+                                                              segments, device="cpu")
+        out[two_pass] = arrays, edev.finish_frames_lossy_batch(
+            arrays, probs, QUALITY, width, height, PARTITIONS, segs), segs
     return out
+
+
+def reference_worker() -> None:
+    """Initialises a worker process of the plain CPU encodes."""
+    import torch
+
+    _import_paths()
+    torch.set_num_threads(2)
+
+
+def reference_job(method: int, segments: bool):
+    """(encode_reference of the full-size frames, its seconds), in a worker."""
+    t0 = time.perf_counter()
+    ref = encode_reference(encode_inputs(WIDTH, HEIGHT)[0], method, segments)
+    return ref, time.perf_counter() - t0
 
 
 def mode_counts(arrays):
@@ -323,7 +435,29 @@ def mode_counts(arrays):
     return int((lm == 4).sum()), int((lm != 4).sum()), len(set(cm.tolist()))
 
 
-def encode_stages(rgbs, dev, reps: int = 3):
+def check_reference(ref, segments: bool) -> str:
+    """Asserts that the reference encode covers the path: I4 and I16 MBs, 3+
+    chroma modes, and with segments on, segmentation with the update map and
+    2+ segment ids on every frame.  Returns a summary."""
+    n_i4, n_i16, n_chroma = mode_counts(ref[True][0])
+    if n_i4 == 0 or n_i16 == 0 or n_chroma < 3:
+        raise AssertionError(f"expected I4 and I16 MBs and 3+ chroma modes, got {n_i4} / "
+                             f"{n_i16} / {n_chroma}")
+    summary = f"{n_i4} I4 and {n_i16} I16 MBs, {n_chroma} chroma modes"
+    if segments:
+        for two_pass, (_, _, segs) in ref.items():
+            for s in segs:
+                used = len(set(s.segment_map.tolist()))
+                if not (s.enabled and s.update_map and used >= 2):
+                    raise AssertionError(f"two_pass={two_pass}: segmentation {s.enabled}, update "
+                                         f"map {s.update_map}, {used} segment ids")
+        segs = ref[True][2]
+        summary += (f"; segment ids used {[len(set(s.segment_map.tolist())) for s in segs]}, "
+                    f"quant deltas {[[x.quantizer_level for x in s.segments] for s in segs]}")
+    return summary
+
+
+def encode_stages(rgbs, dev, method: int, segments: bool, reps: int = 3):
     """Host-clock ms per stage of the two-pass encode (a synchronise ends
     each), the median of `reps` runs after a warm-up; also the bytes of the
     pass-2 arrays fetched and the payloads."""
@@ -331,14 +465,13 @@ def encode_stages(rgbs, dev, reps: int = 3):
 
     from webp_tpu_torch.common import vp8_tables as T
     from webp_tpu_torch.encode import device as edev
-    from webp_tpu_torch.encode.quant import SegmentParams, quality_to_quant_index
-    from webp_tpu_torch.ops.enc_params import EncParams, EncTables
+    from webp_tpu_torch.ops.enc_params import EncTables
     from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch
 
     height, width = rgbs[0].shape[:2]
-    n_try = edev.n_try_for(METHOD)
-    names = ("rgb_to_yuv", "upload", "pass1", "stats_d2h_probs", "tables", "pass2", "d2h",
-             "finish")
+    n_try = edev.n_try_for(method)
+    names = ("rgb_to_yuv", "upload", "segment", "pass1", "stats_d2h_probs", "tables", "pass2",
+             "d2h", "finish")
     runs = []
     for _ in range(reps + 1):
         t = [time.perf_counter()]
@@ -351,28 +484,31 @@ def encode_stages(rgbs, dev, reps: int = 3):
         mark()
         y, u, v = edev.upload(planes, dev)
         mark()
-        P = EncParams.from_segment(SegmentParams(quality_to_quant_index(QUALITY)), dev)
+        segs = edev.segment(y, u, v, QUALITY) if segments else None
+        P, sid = edev.params_for(segs, QUALITY, dev)
+        mark()
         default = EncTables.from_probs(T.COEFF_PROBS_DEFAULT, dev)
-        totals, ones = edev.encode_analysis_stats_batch(y, u, v, P, default, min(n_try, 3))
+        totals, ones = edev.encode_analysis_stats_batch(y, u, v, P, default, min(n_try, 3), sid)
         mark()
         probs = edev.adapt_probs(totals.cpu().numpy(), ones.cpu().numpy())
         mark()
         tables = edev.tables_for(probs, dev)
         mark()
-        arrays = encode_analysis_batch(y, u, v, P, tables, n_try)
+        arrays = encode_analysis_batch(y, u, v, P, tables, n_try, method >= 4, sid)
         mark()
         host = edev.fetch(arrays)
         mark()
-        payloads = edev.finish_frames_lossy_batch(host, probs, QUALITY, width, height, PARTITIONS)
+        payloads = edev.finish_frames_lossy_batch(host, probs, QUALITY, width, height, PARTITIONS,
+                                                  segs)
         mark()
         runs.append([(b - a) * 1000 for a, b in zip(t, t[1:])])
     ms = {n: statistics.median(r[i] for r in runs[1:]) for i, n in enumerate(names)}
-    nbytes = sum(a.numel() * a.element_size() for a in arrays.values())
-    return ms, nbytes, payloads
+    return ms, nbytes(*arrays.values()), payloads
 
 
-def encode_phase(dev, card: str) -> dict:
-    """The encode path, counted, checked and timed; name -> kernel record."""
+def encode_phase(dev, card: str, method: int, segments: bool, pending) -> dict:
+    """One encode path, counted, checked and timed; name -> kernel record.
+    `pending` is the worker's `reference_job(method, segments)`."""
     import numpy as np
     import torch
 
@@ -382,67 +518,78 @@ def encode_phase(dev, card: str) -> dict:
     from webp_tpu_torch.encode import device as edev
     from webp_tpu_torch.encode import vp8 as tvp8
     from webp_tpu_torch.encode.contexts import compute_contexts
-    from webp_tpu_torch.encode.quant import SegmentParams, quality_to_quant_index
     from webp_tpu_torch.io import native
-    from webp_tpu_torch.ops.enc_params import EncParams, EncTables
+    from webp_tpu_torch.ops.analysis import analyze_alphas_batch, analyze_alphas_batch_plain
+    from webp_tpu_torch.ops.enc_params import EncTables
     from webp_tpu_torch.ops.enc_tables import enc_tables, enc_tables_plain
     from webp_tpu_torch.ops.encode_wavefront import (encode_analysis_batch,
                                                      encode_analysis_batch_plain)
     from webp_tpu_torch.ops.token_stats import token_stats, token_stats_plain
 
     mbw, mbh = (WIDTH + 15) // 16, (HEIGHT + 15) // 16
+    nmb = mbw * mbh
+    name = f"Q{QUALITY} m{method}, segments {'on' if segments else 'off'}, {PARTITIONS} partitions"
+    n_try, trellis = edev.n_try_for(method), method >= 4
+    kernels = [k for k, _, _ in ENCODE_KERNELS if segments or k != "analysis"]
 
     # 1. Inputs: two distinct frames tiled into a batch of 8, and the plain
-    #    CPU encode of the distinct frames.
-    t0 = time.perf_counter()
+    #    CPU encode of the distinct frames (from the worker).
     distinct, rgbs = encode_inputs(WIDTH, HEIGHT)
-    ref = encode_reference(distinct)
-    n_i4, n_i16, n_chroma = mode_counts(ref[True][0])
-    if n_i4 == 0 or n_i16 == 0 or n_chroma < 3:
-        raise AssertionError(f"expected I4 and I16 MBs and 3+ chroma modes, got {n_i4} / "
-                             f"{n_i16} / {n_chroma}")
-    print(f"encode inputs + plain CPU encode (both flows): {time.perf_counter() - t0:.1f} s; "
-          f"{n_i4} I4 and {n_i16} I16 MBs, {n_chroma} chroma modes; payloads "
-          f"{[len(p) for p in ref[True][1]]} bytes (two-pass), "
+    t0 = time.perf_counter()
+    ref, ref_s = pending.get()
+    summary = check_reference(ref, segments)
+    print(f"[{name}] plain CPU encode (both flows, worker process): {ref_s:.1f} s, waited "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{summary}; payloads {[len(p) for p in ref[True][1]]} bytes (two-pass), "
           f"{[len(p) for p in ref[False][1]]} bytes (one-pass)", flush=True)
 
     # 2. The main path, counted: two-pass, then one-pass.
-    launches = {name: 0 for name, _, _ in ENCODE_KERNELS}
+    launches = {k: 0 for k in kernels}
     payloads = {}
-    for two_pass, expect in ((True, (2, 1, 1)), (False, (1, 0, 0))):
+    for two_pass, expect in ((True, {"enc": 2, "token_stats": 1, "enc_tables": 1}),
+                             (False, {"enc": 1, "token_stats": 0, "enc_tables": 0})):
+        if segments:
+            expect["analysis"] = 1
         _build.reset_launches()
-        got = encode_frames_lossy_batch(rgbs, QUALITY, METHOD, two_pass,
+        got = encode_frames_lossy_batch(rgbs, QUALITY, method, two_pass, segments,
                                         num_partitions=PARTITIONS, device=dev)
         torch.cuda.synchronize()
-        counts = tuple(_build.LAUNCHES[name] for name in launches)
+        counts = {k: _build.LAUNCHES[k] for k in kernels}
         if counts != expect:
             raise AssertionError(f"two_pass={two_pass} launched {counts}, expected {expect}")
-        for name, n in zip(launches, counts):
-            launches[name] += n
+        for k, n in counts.items():
+            launches[k] += n
         for i, p in enumerate(got):
             if p != ref[two_pass][1][i % len(distinct)]:
                 raise AssertionError(f"image {i} (two_pass={two_pass}) differs from the plain "
                                      "CPU encode")
         payloads[two_pass] = got
-    print(f"main path: byte-equal to the plain CPU encode on 2 x {BATCH} images (two-pass and "
-          f"one-pass, Q{QUALITY} m{METHOD}, {PARTITIONS} partitions); launches {launches}",
-          flush=True)
+    print(f"[{name}] main path: byte-equal to the plain CPU encode on 2 x {BATCH} images "
+          f"(two-pass and one-pass); launches {launches}", flush=True)
 
-    # 3. Each kernel against its plain twin, on the main path's card inputs.
+    # 3. Each kernel against its plain twin, on the main path's card inputs
+    #    (the twins' single runs timed by CUDA events).
     y, u, v = edev.upload(edev.rgb_to_planes(rgbs), dev)
-    P = EncParams.from_segment(SegmentParams(quality_to_quant_index(QUALITY)), dev)
+    err, plain_ms = {}, {}
+    segs = None
+    if segments:
+        alphas = analyze_alphas_batch(y, u, v)
+        alphas_p, plain_ms["analysis"] = timed(lambda: analyze_alphas_batch_plain(y, u, v))
+        err["analysis"] = max(max_abs_err(a, b) for a, b in zip(alphas, alphas_p))
+        segs = edev.segment(y, u, v, QUALITY)
+    P, sid = edev.params_for(segs, QUALITY, dev)
     default = EncTables.from_probs(T.COEFF_PROBS_DEFAULT, dev)
-
-    def enc_err(tbl, n_try):
-        got = encode_analysis_batch(y, u, v, P, tbl, n_try)
-        want = encode_analysis_batch_plain(y, u, v, P, tbl, n_try)
-        return got, max(max_abs_err(got[k], want[k]) for k in got)
-
-    pass1, err_enc = enc_err(default, 3)
+    p1_args = (y, u, v, P, default, min(n_try, 3), False, sid)
+    pass1 = encode_analysis_batch(*p1_args)
+    err["enc"], p1_plain_ms = 0, None
+    if trellis:  # else pass 2's twin below runs the same kernel instance
+        pass1_p, p1_plain_ms = timed(lambda: encode_analysis_batch_plain(*p1_args))
+        err["enc"] = max(max_abs_err(pass1[k], pass1_p[k]) for k in pass1)
     stat_args = (pass1["luma_mode"], pass1["y2_levels"], pass1["y_levels"], pass1["uv_levels"],
                  edev.skip_flags(pass1), mbw, mbh)
     stats = token_stats(*stat_args)
-    err = {"token_stats": max(max_abs_err(a, b) for a, b in zip(stats, token_stats_plain(*stat_args)))}
+    stats_p, plain_ms["token_stats"] = timed(lambda: token_stats_plain(*stat_args))
+    err["token_stats"] = max(max_abs_err(a, b) for a, b in zip(stats, stats_p))
     for i, a in enumerate(edev.fetch(pass1)):  # the host C++ statistics of the token stream
         ctx = compute_contexts(a["luma_mode"], a["y2_levels"], a["y_levels"], a["uv_levels"],
                                mbw, mbh)
@@ -453,17 +600,21 @@ def encode_phase(dev, card: str) -> dict:
     probs = torch.from_numpy(edev.adapt_probs(stats[0].cpu().numpy(),
                                               stats[1].cpu().numpy())).to(dev)
     tables = enc_tables(probs)
-    tables_p = enc_tables_plain(probs)
+    tables_p, plain_ms["enc_tables"] = timed(lambda: enc_tables_plain(probs))
     err["enc_tables"] = max(max_abs_err(getattr(tables, f), getattr(tables_p, f))
                             for f in EncTables.FIELDS)
-    err["enc"] = max(err_enc, enc_err(tables, 3)[1], enc_err(default, 0)[1],
-                     enc_err(tables, 0)[1])
-    torch.cuda.synchronize()
+    p2_args = (y, u, v, P, tables, n_try, trellis, sid)
+    pass2 = encode_analysis_batch(*p2_args)
+    pass2_p, plain_ms["enc"] = timed(lambda: encode_analysis_batch_plain(*p2_args))
+    err["enc"] = max(err["enc"], max(max_abs_err(pass2[k], pass2_p[k]) for k in pass2))
     bad = {k: e for k, e in err.items() if e != 0}
     if bad:
         raise AssertionError(f"kernels differ from their plain twins: {bad}")
-    print(f"encode kernels vs plain twins (bit-exact, tolerance 0; K5 with default and "
-          f"per-image tables at n_try 0 and 3, K6 also vs the host C++ statistics): {err}",
+    pass1_checked = (f"pass 1 at n_try {min(n_try, 3)} with the default tables, "
+                     if trellis else "")
+    print(f"[{name}] kernels vs plain twins (bit-exact, tolerance 0; K5 {pass1_checked}pass 2 "
+          f"at n_try {n_try} with per-image tables{', trellis' if trellis else ''}"
+          f"{', segment ids' if segments else ''}; K6 also vs the host C++ statistics): {err}",
           flush=True)
 
     # 4. Round trip: the card's payloads through the decode kernels.
@@ -477,47 +628,63 @@ def encode_phase(dev, card: str) -> dict:
     for img, src in zip(decoded, distinct):
         mse = np.mean((img.astype(np.float64) - src) ** 2)
         psnr.append(10 * np.log10(255 ** 2 / mse))
-    print(f"round trip: the card's payloads decode through K1-K4 bit-exact with the plain CPU "
-          f"decode; PSNR vs source {[round(float(x), 4) for x in psnr]} dB", flush=True)
+    print(f"[{name}] round trip: the card's payloads decode through K1-K4 bit-exact with the "
+          f"plain CPU decode; PSNR vs source {[round(float(x), 4) for x in psnr]} dB", flush=True)
 
-    # 5. Timings, kernel beside plain twin, at the main path's shapes.
+    # 5. Timings at the main path's shapes, kernel beside plain twin and bound.
     ms = {
-        "enc": time_ms(lambda: encode_analysis_batch(y, u, v, P, tables, 3), 10),
+        "enc": time_ms(lambda: encode_analysis_batch(*p2_args), 10),
         "token_stats": time_ms(lambda: token_stats(*stat_args), 20),
         "enc_tables": time_ms(lambda: enc_tables(probs), 20),
     }
-    plain_ms = {
-        "enc": time_ms(lambda: encode_analysis_batch_plain(y, u, v, P, tables, 3), 1),
-        "token_stats": time_ms(lambda: token_stats_plain(*stat_args), 3),
-        "enc_tables": time_ms(lambda: enc_tables_plain(probs), 5),
+    p1_ms = time_ms(lambda: encode_analysis_batch(*p1_args), 10)
+    planes_in = (y, u, v)
+    n_i4_1 = int((pass1["luma_mode"] == 4).sum())
+    n_i4_2 = int((pass2["luma_mode"] == 4).sum())
+    bounds = {
+        "enc": bound(nbytes(*planes_in, tables.cls_cost, tables.eob_cost, tables.init_cost,
+                            *pass2.values()),
+                     enc_ops(BATCH * nmb, n_i4_2, n_try, trellis)),
+        "token_stats": bound(nbytes(*stat_args[:5], *stats), BATCH * nmb * 25 * 16 * 12),
+        "enc_tables": bound(nbytes(probs, *(getattr(tables, f) for f in EncTables.FIELDS)),
+                            BATCH * 4 * 16 * 3 * (68 + 11 + 2) * 33),
     }
-    p1_ms = time_ms(lambda: encode_analysis_batch(y, u, v, P, default, 3), 10)
-    p1_plain_ms = time_ms(lambda: encode_analysis_batch_plain(y, u, v, P, default, 3), 1)
-    print(f"enc pass 1 (default tables, n_try 3): {p1_ms:.4f} ms kernel, {p1_plain_ms:.4f} ms "
-          f"plain (batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
-    for name, _, _ in ENCODE_KERNELS:
-        what = " pass 2 (per-image tables, n_try 3)" if name == "enc" else ""
-        print(f"{name}{what}: {ms[name]:.4f} ms kernel, {plain_ms[name]:.4f} ms plain "
-              f"(batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
-    stage_ms, nbytes, staged = encode_stages(rgbs, dev)
+    p1_bound = bound(nbytes(*planes_in) + nbytes(*pass1.values()),
+                     enc_ops(BATCH * nmb, n_i4_1, min(n_try, 3), False))
+    if segments:
+        ms["analysis"] = time_ms(lambda: analyze_alphas_batch(y, u, v), 20)
+        bounds["analysis"] = bound(nbytes(*planes_in, *alphas), BATCH * nmb * 48 * 160)
+    shape = f"batch {BATCH} at {WIDTH}x{HEIGHT}; {card}"
+    p1_plain = "not run" if p1_plain_ms is None else f"{p1_plain_ms:.4f} ms"
+    print(f"[{name}] enc pass 1 (default tables, n_try {min(n_try, 3)}): {p1_ms:.4f} ms kernel, "
+          f"{p1_plain} plain, bound {p1_bound['bound_ms']:.4f} ms by "
+          f"{p1_bound['bound_by']} ({shape})", flush=True)
+    for k in kernels:
+        what = (f" pass 2 (per-image tables, n_try {n_try}{', trellis' if trellis else ''})"
+                if k == "enc" else "")
+        print(f"[{name}] {k}{what}: {ms[k]:.4f} ms kernel, {plain_ms[k]:.4f} ms plain, bound "
+              f"{bounds[k]['bound_ms']:.4f} ms by {bounds[k]['bound_by']} ({shape})", flush=True)
+    stage_ms, nb, staged = encode_stages(rgbs, dev, method, segments)
     if staged != payloads[True]:
         raise AssertionError("the staged encode differs from the main path")
     t0 = time.perf_counter()
     reps = 3
     for _ in range(reps):
-        encode_frames_lossy_batch(rgbs, QUALITY, METHOD, num_partitions=PARTITIONS, device=dev)
+        encode_frames_lossy_batch(rgbs, QUALITY, method, True, segments,
+                                  num_partitions=PARTITIONS, device=dev)
     e2e_ms = (time.perf_counter() - t0) * 1000 / reps
-    split = ", ".join(f"{k} {v / BATCH:.4f}" for k, v in stage_ms.items())
-    print(f"encode_frames_lossy_batch stages (host clock, ms/img): {split} ({card})", flush=True)
-    pass2 = encode_analysis_batch(y, u, v, P, tables, edev.n_try_for(METHOD))
+    split = ", ".join(f"{k} {x / BATCH:.4f}" for k, x in stage_ms.items())
+    print(f"[{name}] encode_frames_lossy_batch stages (host clock, ms/img): {split} ({card})",
+          flush=True)
     copy_ms = time_ms(lambda: [a.cpu() for a in pass2.values()], 10)
-    print(f"pass-2 d2h: {nbytes // BATCH} bytes/img; the copy alone {copy_ms / BATCH:.4f} ms/img "
-          f"(CUDA events), with the host's per-image int32 arrays {stage_ms['d2h'] / BATCH:.4f} "
+    print(f"[{name}] pass-2 d2h: {nb // BATCH} bytes/img; the copy alone {copy_ms / BATCH:.4f} "
+          f"ms/img (CUDA events), with the host's per-image int32 arrays "
+          f"{stage_ms['d2h'] / BATCH:.4f} ms/img ({card})", flush=True)
+    print(f"[{name}] encode_frames_lossy_batch (two-pass, host clock): {e2e_ms / BATCH:.4f} "
           f"ms/img ({card})", flush=True)
-    print(f"encode_frames_lossy_batch (two-pass, host clock): {e2e_ms / BATCH:.4f} ms/img "
-          f"({card})", flush=True)
-    return {name: {"launches": launches[name], "max_abs_err": err[name], "ms": ms[name],
-                   "plain_ms": plain_ms[name]} for name, _, _ in ENCODE_KERNELS}
+    # No single PyTorch call computes any of these functions.
+    return {k: {"launches": launches[k], "max_abs_err": err[k], "ms": ms[k],
+                "plain_ms": plain_ms[k], **bounds[k], "library_ms": None} for k in kernels}
 
 
 def main() -> int:
@@ -533,20 +700,36 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    # Build the host library and the kernels from the checkout.
-    t0 = time.perf_counter()
-    native.load()
-    _build.load()
-    print(f"build + load: {time.perf_counter() - t0:.1f} s", flush=True)
+    # The encode phases' plain CPU encodes take minutes of host time: worker
+    # processes make them while the card builds, decodes and encodes; the
+    # pool's exit stops the workers.
+    with multiprocessing.get_context("spawn").Pool(len(ENCODES), reference_worker) as pool:
+        refs = {job: pool.apply_async(reference_job, job) for job in ENCODES}
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
-    print(f"card: {card}", flush=True)
+        # Build the host library and the kernels from the checkout.
+        t0 = time.perf_counter()
+        native.load()
+        _build.load()
+        print(f"build + load: {time.perf_counter() - t0:.1f} s", flush=True)
+        for line in ptxas_report():
+            print(f"ptxas {line}", flush=True)
 
-    records = {**decode_phase(dev, card), **encode_phase(dev, card)}
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
+        print(f"card: {card}", flush=True)
+
+        records = decode_phase(dev, card)
+        for job in ENCODES:
+            # A kernel on both encode paths: launches and errors over both,
+            # the times of the flagship's (the last) path.
+            for k, r in encode_phase(dev, card, *job, refs[job]).items():
+                if k in records:
+                    r["launches"] += records[k]["launches"]
+                    r["max_abs_err"] = max(r["max_abs_err"], records[k]["max_abs_err"])
+                records[k] = r
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "webp_tpu"))
     if leaked:

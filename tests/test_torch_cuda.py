@@ -9,9 +9,9 @@ Decode inputs are small host-encoded mixed frames (I4 and I16 MBs, a size
 that is not a whole number of MBs) and seeded random keyframes
 (`random_vp8.py`: both loop filter kinds, escapes, several partitions).
 Encode inputs are seeded synthetic frames (`synthetic_rgb.py`), seeded
-level arrays and seeded token probabilities; the encode kernels' twins run
-on CPU copies of the same inputs.  Tolerance: bit-exact (integer
-arithmetic).
+level arrays, seeded token probabilities and seeded segment ids; the
+encode kernels' twins run on CPU copies of the same inputs.  Tolerance:
+bit-exact (integer arithmetic).
 """
 
 import numpy as np
@@ -24,6 +24,7 @@ from webp_tpu_torch.common import vp8_tables as T
 from webp_tpu_torch.decode import device as tdev
 from webp_tpu_torch.encode import device as edev
 from webp_tpu_torch.encode.quant import SegmentParams, quality_to_quant_index
+from webp_tpu_torch.ops.analysis import analyze_alphas_batch, analyze_alphas_batch_plain
 from webp_tpu_torch.ops.enc_params import EncParams, EncTables
 from webp_tpu_torch.ops.enc_tables import enc_tables, enc_tables_plain
 from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch, encode_analysis_batch_plain
@@ -144,7 +145,7 @@ def test_slice_on_card_matches_scalar(cuda, payloads, out):
     got = tdev.dispatch_decode_batch(payloads, out=out, device=cuda).cpu()
     assert _build.LAUNCHES == {"residual": 1, "recon": 1, "loopfilter": 1,
                                "yuv2rgb": int(out == "rgb"),
-                               "enc": 0, "token_stats": 0, "enc_tables": 0}
+                               "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0}
     for i, p in enumerate(payloads):
         np.testing.assert_array_equal(got[i].numpy(), scalar_decode(p)[0 if out == "rgb" else 1])
 
@@ -183,7 +184,7 @@ def test_wrappers_reject_bad_layouts(cuda):
         fancy_yuv420_to_rgb(y, u.to(torch.int32), v, 8, 8)
 
 
-# ---- encode: K5 enc, K6 token_stats, K7 enc_tables -----------------------
+# ---- encode: K5 enc, K6 token_stats, K7 enc_tables, K8 analysis -----------
 
 
 def _random_probs(seed: int, batch: int) -> np.ndarray:
@@ -264,3 +265,62 @@ def test_encode_more_mb_rows_than_wavefront_warps(cuda):
     rgbs = [synthetic_frame(40, 630, 6)]
     want = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 3, device="cpu")
     assert webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 3, device=cuda) == want
+
+
+@pytest.mark.parametrize("width,height", [(72, 40), (256, 256), (40, 630)])
+def test_analysis_kernel_matches_plain(cuda, width, height):
+    planes = edev.rgb_to_planes([synthetic_frame(width, height, s) for s in (1, 2, 3)])
+    want = analyze_alphas_batch_plain(*edev.upload(planes, "cpu"))
+    before = _build.LAUNCHES["analysis"]
+    got = analyze_alphas_batch(*edev.upload(planes, cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["analysis"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n_try,trellis,segments", [(3, False, True), (4, True, True),
+                                                     (10, True, False), (0, True, True)])
+def test_enc_kernel_trellis_segments_match_plain(cuda, enc_planes, n_try, trellis, segments):
+    """K5 with per-MB segment parameters (seeded ids, four qualities per
+    image) and the trellis, per-image random tables."""
+    probs = _random_probs(13, 2)
+    if segments:
+        lists = [[SegmentParams(quality_to_quant_index(q)) for q in qs]
+                 for qs in ((30, 50, 75, 90), (20, 60, 80, 95))]
+        sid = torch.from_numpy(np.random.RandomState(7).randint(0, 4, (2, MBW * MBH)).astype(np.uint8))
+    else:
+        lists, sid = [[SegmentParams(quality_to_quant_index(75))] * 4], None
+    want = encode_analysis_batch_plain(*edev.upload(enc_planes, "cpu"), EncParams.from_segments(lists),
+                                       EncTables.from_probs(probs), n_try, trellis, sid)
+    before = _build.LAUNCHES["enc"]
+    got = encode_analysis_batch(*edev.upload(enc_planes, cuda), EncParams.from_segments(lists, cuda),
+                                EncTables.from_probs(probs, cuda), n_try, trellis,
+                                None if sid is None else sid.to(cuda))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["enc"] == before + 1
+    for k, w in want.items():
+        assert torch.equal(got[k].cpu(), w), k
+
+
+@pytest.mark.parametrize("two_pass", [True, False], ids=["two_pass", "one_pass"])
+def test_flagship_slice_on_card_matches_cpu(cuda, two_pass):
+    """Q75 m4 with segments on (256 MBs), 8 partitions: K8, K5 (trellis and
+    segment ids), K6, K7 on the card, byte-equal to the plain CPU encode."""
+    rgbs = [synthetic_frame(256, 256, s) for s in (11, 12)]
+    want = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 4, two_pass, True,
+                                                    num_partitions=8, device="cpu")
+    _build.reset_launches()
+    got = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 4, two_pass, True,
+                                                   num_partitions=8, device=cuda)
+    assert (_build.LAUNCHES["analysis"], _build.LAUNCHES["enc"], _build.LAUNCHES["token_stats"],
+            _build.LAUNCHES["enc_tables"]) == ((1, 2, 1, 1) if two_pass else (1, 1, 0, 0))
+    assert got == want
+
+
+def test_trellis_more_mb_rows_than_wavefront_warps(cuda):
+    """40 MB rows at method 4: the trellis's cross-MB nnz contexts pass
+    between warps that each walk several rows per step."""
+    rgbs = [synthetic_frame(40, 630, 6)]
+    want = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 4, device="cpu")
+    assert webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 4, device=cuda) == want

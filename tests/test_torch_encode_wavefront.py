@@ -4,7 +4,10 @@ against `residual_costs_par` for every token type, first position and
 context; `encode_analysis_batch` against `encode_analysis_batch_v2` on
 seeded synthetic 72x40 frames (partial MBs), a batch of 2, n_try 0 and 3,
 with the default tables and with per-image tables of seeded random
-probabilities.  Tolerance: bit-exact (integer arithmetic)."""
+probabilities; and with seeded random segment ids over four segments of
+different qualities per image (`EncParamsSegs`), at n_try 3 without the
+trellis (pass 1) and at n_try 4 and 10 with it (pass 2 of methods 4-6).
+Tolerance: bit-exact (integer arithmetic)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 from webp_tpu.encode import costs as JC
 from webp_tpu.encode.quant import SegmentParams as JSegmentParams
 from webp_tpu.ops.encode_wavefront import EncParams as JEncParams
+from webp_tpu.ops.encode_wavefront import EncParamsSegs as JEncParamsSegs
 from webp_tpu.ops.encode_wavefront import EncTables as JEncTables
 from webp_tpu.ops.encode_wavefront import _rd_score32
 from webp_tpu.ops.encode_wavefront2 import encode_analysis_batch_v2, residual_costs_par
@@ -70,7 +74,8 @@ def test_rd_score_matches_jax():
     disto = rng.randint(0, 1 << 24, 4096).astype(np.int32)
     for lam in (1, 3, 187, 4107, 172800):
         want = np.asarray(_rd_score32(jnp.asarray(rate), jnp.asarray(disto), lam))
-        got = rd_score32(torch.from_numpy(rate), torch.from_numpy(disto), lam)
+        got = rd_score32(torch.from_numpy(rate), torch.from_numpy(disto),
+                         torch.tensor(lam, dtype=torch.int32))
         np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -104,3 +109,28 @@ def test_encode_analysis_matches_jax(planes, params, n_try, tables):
             np.testing.assert_array_equal(g, np.asarray(w)[i], err_msg=k)
     if n_try == 0:
         assert not (got["luma_mode"] == 4).any()
+
+
+SEG_QUALITIES = ((30, 50, 75, 90), (20, 60, 80, 95))
+
+
+@pytest.mark.parametrize("n_try,trellis", [(3, False), (4, True), (10, True)],
+                         ids=["pass1", "trellis_m4", "trellis_m6"])
+def test_encode_analysis_segments_trellis_match_jax(planes, n_try, trellis):
+    """Per-MB segment parameters (seeded ids, four qualities per image) with
+    and without the trellis, per-image random tables."""
+    qis = [[quality_to_quant_index(q) for q in qs] for qs in SEG_QUALITIES]
+    P = EncParams.from_segments([[SegmentParams(qi) for qi in row] for row in qis])
+    sid = np.random.RandomState(5).randint(0, 4, (2, MBW * MBH)).astype(np.uint8)
+    probs = _random_probs(37, 2)
+    got = encode_analysis_batch(*edev.upload(planes, "cpu"), P, EncTables.from_probs(probs),
+                                n_try, trellis, torch.from_numpy(sid))
+    jp = [jnp.asarray(p) for p in planes]
+    for i in range(2):
+        JP = JEncParamsSegs.from_segments([[JSegmentParams(qi) for qi in qis[i]]])
+        jt = JEncTables.from_level_costs(JC.LevelCosts(probs[i]))
+        want = encode_analysis_batch_v2(*(p[i:i + 1] for p in jp), JP, jt, MBW, MBH, n_try,
+                                        trellis, jnp.asarray(sid[i:i + 1]))
+        for k, w in want.items():
+            np.testing.assert_array_equal(got[k][i].numpy(), np.asarray(w)[0], err_msg=k)
+    assert (got["luma_mode"] == 4).any() and (got["luma_mode"] != 4).any()

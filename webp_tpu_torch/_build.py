@@ -24,6 +24,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 LIB_PATH = BUILD_DIR / "libwebp_tpu_torch_kernels.so"
+PTXAS_REPORT = BUILD_DIR / "ptxas.txt"  # each kernel's registers, shared memory and spills
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -65,11 +66,18 @@ _SIGNATURES = {
     ],
     "webp_enc": [
         _P, _L, _P, _L, _P, _L,   # source y, u, v planes (+ batch strides)
-        _P, _P,              # params, constant tables
+        _P, _L, _P, _L,      # segment params, MB segment ids or null (+ batch strides)
+        _P,                  # constant tables
         _P, _L, _P, _L, _P, _L,   # cls, eob, init cost tables (+ batch strides)
-        _I, _I, _I, _I,      # mbw, mbh, batch, n_try
+        _I, _I, _I, _I, _I,  # mbw, mbh, batch, n_try, do_trellis
         _P, _P, _P, _P, _P, _P,   # luma_mode, chroma_mode, bpred, y, y2, uv levels out
-        _P, _P,              # reconstruction and diffusion-error scratch
+        _P, _P, _P,          # reconstruction, diffusion-error and nnz-mask scratch
+        _P,
+    ],
+    "webp_analysis": [
+        _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides)
+        _I, _I, _I,          # mbw, mbh, batch
+        _P, _P,              # alpha out [B, nmb] int32, chroma-alpha sums [B] int64 (zeroed)
         _P,
     ],
     "webp_token_stats": [
@@ -89,7 +97,7 @@ _SIGNATURES = {
 # Kernel name -> launches since the last reset_launches().  Each wrapper
 # counts here, and only when its kernel was launched.
 LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "yuv2rgb": 0,
-            "enc": 0, "token_stats": 0, "enc_tables": 0}
+            "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -119,11 +127,13 @@ def _build() -> None:
     for src in sorted(CSRC.glob("*.cu")):  # one nvcc per source, all at once
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
         objs.append(obj)
-        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+                                       str(src)],
                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    errors = []
+    errors, reports = [], []
     for proc in procs:
         _, err = proc.communicate()
+        reports.append(err)
         if proc.returncode != 0:
             errors.append(f"nvcc {proc.args[-1]} failed ({proc.returncode}):\n{err}")
     try:
@@ -135,6 +145,7 @@ def _build() -> None:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, LIB_PATH)
+        PTXAS_REPORT.write_text("".join(reports))
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)

@@ -1,10 +1,12 @@
 // Kernel K5: the encoder's full-RD mode decision with reconstruction in the
-// loop (methods 0-3, one segment).
+// loop, with the trellis (methods 4-6) and per-MB segment parameters.
 //
-// Replaces webp_tpu/ops/encode_wavefront2.py:803 enc_step (its
-// do_trellis=False, sid=None branches, with _i16_search_v2 :362,
-// _i4_search_v2 :585, _uv_search_v2 :696, _chroma_diffusion_v2 :735 and
-// the rate model residual_costs_par :186), driven over the MB grid by
+// Replaces webp_tpu/ops/encode_wavefront2.py:803 enc_step (with
+// _i16_search_v2 :362, _i4_search_v2 :585, _uv_search_v2 :696,
+// _chroma_diffusion_v2 :735, the rate model residual_costs_par :186, the
+// trellis passes _i16_trellis_v2 :418 and _i4_trellis_v2 :467 over
+// webp_tpu/ops/trellis2.py:110 trellis_par and :325 trellis_spec3, and the
+// segment select _lane_params :292), driven over the MB grid by
 // encode_analysis_batch_v2 :955.  The JAX step rates levels with one-hot
 // matmuls, picks candidates with one-hot einsums and carries borders in
 // ring buffers, all TPU workarounds; here rates are table lookups from
@@ -23,8 +25,21 @@
 // subblock; UV runs its 4 modes x 2 planes x 4 blocks on the 32 lanes.
 // Ties between scores go to the lowest mode (or candidate rank), as in the
 // JAX kernel's argmin.
+//
+// Segments: the block keeps its image's four parameter sets in shared
+// memory and each MB reads the set of its segment id.  Trellis (a
+// template branch, so the kTrellis = false kernel has no trellis code):
+// the decision stays the non-trellis search's; only the chosen luma path
+// is quantized again.  I16 runs the DP of block b on lane b under all
+// three entry contexts, then every lane resolves the real contexts block by
+// block in raster order from the 3-bit nnz masks (shuffles); I4 re-runs
+// the 16 subblocks on one lane with the modes fixed, each predicted from
+// the trellis reconstruction.  The reconstruction follows the trellis, and
+// each MB leaves the nnz of its final levels as a 16-bit mask for the
+// entry contexts of the MBs below and to the right.
 
 #include "common.cuh"
+#include "trellis.cuh"
 
 namespace {
 
@@ -32,13 +47,15 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBig = 1 << 30;       // score of a disallowed mode
 constexpr int kMaxWarps = 32;
 
-// EncParams.packed(): y1/y2/uv (iq, bias, q) vectors in zigzag order, then
-// the lambdas.
+// EncParams.packed(), per segment: y1/y2/uv (iq, bias, q) vectors and the
+// y1 sharpening in zigzag order, then the lambdas.
 enum {
     P_Y1_IQ = 0, P_Y1_BIAS = 16, P_Y1_Q = 32, P_Y2_IQ = 48, P_Y2_BIAS = 64, P_Y2_Q = 80,
-    P_UV_IQ = 96, P_UV_BIAS = 112, P_UV_Q = 128,
-    P_LAMBDA_I16 = 144, P_LAMBDA_I4, P_LAMBDA_UV, P_LAMBDA_MODE, P_TLAMBDA, P_COUNT
+    P_UV_IQ = 96, P_UV_BIAS = 112, P_UV_Q = 128, P_Y1_SHARPEN = 144,
+    P_LAMBDA_I16 = 160, P_LAMBDA_I4, P_LAMBDA_UV, P_LAMBDA_MODE, P_TLAMBDA,
+    P_LAMBDA_TRELLIS_I16, P_LAMBDA_TRELLIS_I4, P_COUNT
 };
+constexpr int kSegments = 4;
 // ops/enc_params.py CONSTS_NP: level fixed costs, I4/I16/UV mode costs, TDisto weights.
 enum { C_FIXED = 0, C_FIXED_I4 = 2048, C_FIXED_I16 = 3048, C_FIXED_UV = 3052,
        C_WEIGHT_Y = 3056, C_COUNT = 3072 };
@@ -49,7 +66,7 @@ __constant__ int kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14
 __constant__ int kBmodeOfI16[4] = {0, 2, 3, 1};  // DC/V/H/TM -> B_DC/B_VE/B_HE/B_TM
 
 struct Tables {            // per image, in shared memory
-    int params[P_COUNT];
+    int params[kSegments][P_COUNT];
     uint16_t fixed[2048];  // sign + extra-bits cost per level
     uint16_t fixed_i4[1000];
     int fixed_i16[4], fixed_uv[4], weight_y[16];
@@ -217,6 +234,7 @@ __device__ __forceinline__ int warp_argmin(int v, int lane) {
 
 struct Mb {
     int b, m, x, y, mbw, nmb;
+    const int* P;                 // the parameters of the MB's segment
     const uint8_t *sy, *su, *sv;  // source planes of the image
     uint8_t *ry, *ru, *rv;        // reconstruction planes of the image
 };
@@ -237,7 +255,7 @@ __device__ void i16_pred_src(const Mb& mb, int mode, int blk, int dc, int* pred,
 // mode's reconstructed DCs in ws.y2; returns the best mode and writes its
 // score at lambda_mode to *score.
 __device__ int i16_search(const Mb& mb, int lane, const Tables& T, WarpWs& ws, int* score) {
-    const int* P = T.params;
+    const int* P = mb.P;
     const int W = mb.mbw * 16, y0 = mb.y * 16, x0 = mb.x * 16;
     const int dc = whole_dc(mb.ry, W, y0, x0, 16, 4);
     const int blk = lane & 15;
@@ -331,19 +349,56 @@ __device__ int i16_search(const Mb& mb, int lane, const Tables& T, WarpWs& ws, i
 }
 
 // Writes the I16 decision of mode `best` (levels, modes, reconstruction).
-__device__ void i16_commit(const Mb& mb, int lane, int best, const Tables& T, WarpWs& ws,
-                           uint8_t* bpred, int16_t* ylv, int16_t* y2lv) {
-    const int* P = T.params;
+// With kTrellis, the 16 blocks' levels come from the trellis with the
+// entry contexts of their top and left neighbours (top_nz: the nnz of the
+// MB above's bottom row, bit x; left_nz: of the left MB's right column, bit
+// y); returns the nnz mask of the levels from position 1 (bit 4y + x).
+template <bool kTrellis>
+__device__ unsigned i16_commit(const Mb& mb, int lane, int best, const Tables& T, WarpWs& ws,
+                               unsigned top_nz, unsigned left_nz, uint8_t* bpred, int16_t* ylv,
+                               int16_t* y2lv) {
+    const int* P = mb.P;
     const int W = mb.mbw * 16, y0 = mb.y * 16, x0 = mb.x * 16;
+    int pred[16], src[16], coef[16], lv[16];
     if (lane < 16) {
         const int dc = whole_dc(mb.ry, W, y0, x0, 16, 4);
-        int pred[16], src[16], coef[16], lv[16];
         i16_pred_src(mb, best, lane, dc, pred, src);
 #pragma unroll
         for (int k = 0; k < 16; ++k) src[k] -= pred[k];
         fdct4x4(src, coef);
+    }
+    unsigned nz_mask = 0;
+    if (kTrellis) {
+        TrellisBlock tb;
+        TrellisPath path[3];
+        unsigned nz3 = 0;  // bit c: the block has a nonzero level under entry context c
+        if (lane < 16) {
+            int czz[16];
+#pragma unroll
+            for (int z = 0; z < 16; ++z) czz[z] = coef[kZigzag[z]];
+            trellis_prepare(czz, P + P_Y1_Q, P + P_Y1_SHARPEN, 1, tb);
+            for (int c = 0; c < 3; ++c) {
+                path[c] = trellis_dp(tb, P + P_Y1_Q, P + P_Y1_IQ, P[P_LAMBDA_TRELLIS_I16], 1, c,
+                                     T.cls, T.eob, T.init, T.fixed);
+                nz3 |= static_cast<unsigned>(path[c].best_n >= 0) << c;
+            }
+        }
+        int my_ctx = 0;
+        for (int bi = 0; bi < 16; ++bi) {  // the real contexts, in raster order
+            const unsigned m3 = __shfl_sync(kFull, nz3, bi);
+            const int bx = bi & 3, by = bi >> 2;
+            const unsigned top = by == 0 ? top_nz >> bx : nz_mask >> (bi - 4);
+            const unsigned left = bx == 0 ? left_nz >> by : nz_mask >> (bi - 1);
+            const int ctx = static_cast<int>((top & 1) + (left & 1));
+            nz_mask |= ((m3 >> ctx) & 1) << bi;
+            if (lane == bi) my_ctx = ctx;
+        }
+        if (lane < 16) trellis_unwind(tb, path[my_ctx], P + P_Y1_IQ, 1, lv);
+    } else if (lane < 16) {
         quant_block(coef, P, P_Y1_IQ, P_Y1_BIAS, lv);
         lv[0] = 0;
+    }
+    if (lane < 16) {
 #pragma unroll
         for (int z = 0; z < 16; ++z) ylv[lane * 16 + z] = static_cast<int16_t>(lv[z]);
         dequant_block(lv, P, P_Y1_Q, coef);
@@ -357,6 +412,64 @@ __device__ void i16_commit(const Mb& mb, int lane, int best, const Tables& T, Wa
         y2lv[lane] = ws.y2lv[best][lane];
         bpred[lane] = lane >= 12 ? kBmodeOfI16[best] : 0;
     }
+    return nz_mask;
+}
+
+// The 13 edge pixels of I4 subblock (R0 / 4, C0 / 4) from the workspace:
+// left column bottom-up, the corner, the eight above.
+__device__ __forceinline__ void i4_edges(const WarpWs& ws, int R0, int C0, int* e) {
+    e[0] = ws.ws[R0 + 4][C0];
+    e[1] = ws.ws[R0 + 3][C0];
+    e[2] = ws.ws[R0 + 2][C0];
+    e[3] = ws.ws[R0 + 1][C0];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) e[4 + k] = ws.ws[R0][C0 + k];
+}
+
+// The I4 trellis: the 16 subblocks again, on lane 0, with the modes the
+// search chose, each predicted from the trellis reconstruction in ws.ws
+// (whose borders the search left in place) and trellis-quantized with the
+// entry context of its top and left neighbours (across the MB edge from
+// top_nz / left_nz).  Returns the nnz mask of the levels (bit i).
+__device__ unsigned i4_trellis(const Mb& mb, int lane, const Tables& T, WarpWs& ws,
+                               unsigned top_nz, unsigned left_nz, const uint8_t* modes,
+                               int16_t* ylv) {
+    const int* P = mb.P;
+    const int W = mb.mbw * 16, y0 = mb.y * 16, x0 = mb.x * 16;
+    unsigned nz_mask = 0;
+    if (lane == 0) {
+        for (int i = 0; i < 16; ++i) {
+            const int sby = i >> 2, sbx = i & 3, R0 = sby * 4, C0 = sbx * 4;
+            int e[13], res[16], pred[16], coef[16], lv[16];
+            i4_edges(ws, R0, C0, e);
+            predict_b4(modes[i], e, pred);
+#pragma unroll
+            for (int k = 0; k < 16; ++k)
+                res[k] = mb.sy[(y0 + R0 + (k >> 2)) * W + x0 + C0 + (k & 3)] - pred[k];
+            fdct4x4(res, coef);
+#pragma unroll
+            for (int z = 0; z < 16; ++z) res[z] = coef[kZigzag[z]];
+            TrellisBlock tb;
+            trellis_prepare(res, P + P_Y1_Q, P + P_Y1_SHARPEN, 0, tb);
+            const unsigned top = sby == 0 ? top_nz >> sbx : nz_mask >> (i - 4);
+            const unsigned left = sbx == 0 ? left_nz >> sby : nz_mask >> (i - 1);
+            const TrellisPath path =
+                trellis_dp(tb, P + P_Y1_Q, P + P_Y1_IQ, P[P_LAMBDA_TRELLIS_I4], 0,
+                           static_cast<int>((top & 1) + (left & 1)), T.cls + 3 * 16 * 3 * 11,
+                           T.eob + 3 * 16 * 3, T.init + 3 * 16 * 3, T.fixed);
+            trellis_unwind(tb, path, P + P_Y1_IQ, 0, lv);
+            nz_mask |= static_cast<unsigned>(path.best_n >= 0) << i;
+#pragma unroll
+            for (int z = 0; z < 16; ++z) ylv[i * 16 + z] = static_cast<int16_t>(lv[z]);
+            dequant_block(lv, P, P_Y1_Q, coef);
+            idct4x4(coef);
+#pragma unroll
+            for (int q = 0; q < 16; ++q)
+                ws.ws[R0 + 1 + (q >> 2)][C0 + 1 + (q & 3)] =
+                    static_cast<uint8_t>(clip255(pred[q] + coef[q]));
+        }
+    }
+    return __shfl_sync(kFull, nz_mask, 0);
 }
 
 // The I4 search over the 16 subblocks.  Writes each subblock's chosen
@@ -365,7 +478,7 @@ __device__ void i16_commit(const Mb& mb, int lane, int best, const Tables& T, Wa
 __device__ bool i4_search(const Mb& mb, int lane, int n_try, int i16_score, const Tables& T,
                           WarpWs& ws, const uint8_t* lmode, const uint8_t* bpred_all,
                           uint8_t* bpred, int16_t* ylv) {
-    const int* P = T.params;
+    const int* P = mb.P;
     const int W = mb.mbw * 16, y0 = mb.y * 16, x0 = mb.x * 16;
     // Bordered workspace: row 0 = [tl | 16 above | 4 above-right], column
     // 0 = left; column-3 subblocks of rows 4/8/12 reuse the MB's above-right.
@@ -403,12 +516,7 @@ __device__ bool i4_search(const Mb& mb, int lane, int n_try, int i16_score, cons
     for (int i = 0; i < 16; ++i) {
         const int sby = i >> 2, sbx = i & 3, R0 = sby * 4, C0 = sbx * 4;
         int e[13], src[16];
-        e[0] = ws.ws[R0 + 4][C0];
-        e[1] = ws.ws[R0 + 3][C0];
-        e[2] = ws.ws[R0 + 2][C0];
-        e[3] = ws.ws[R0 + 1][C0];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) e[4 + k] = ws.ws[R0][C0 + k];
+        i4_edges(ws, R0, C0, e);
 #pragma unroll
         for (int k = 0; k < 16; ++k) src[k] = mb.sy[(y0 + R0 + (k >> 2)) * W + x0 + C0 + (k & 3)];
         int pred[16];
@@ -500,7 +608,7 @@ __device__ int diffuse_dc(int& dc, int t_err, int l_err, int q, int iq, int bias
 // reconstruction.  Lane = mode * 8 + plane * 4 + block.  Returns the mode.
 __device__ int uv_search(const Mb& mb, int lane, const Tables& T, WarpWs& ws, int* errs,
                          int16_t* uvlv) {
-    const int* P = T.params;
+    const int* P = mb.P;
     const int CW = mb.mbw * 8, cy0 = mb.y * 8, cx0 = mb.x * 8;
     const int mode = lane >> 3, ch = (lane >> 2) & 1, blk = lane & 3;
     const int br = (blk >> 1) * 4, bc = (blk & 1) * 4;
@@ -582,18 +690,21 @@ __device__ int uv_search(const Mb& mb, int lane, const Tables& T, WarpWs& ws, in
     return best;
 }
 
+template <bool kTrellis>
 __global__ void __launch_bounds__(1024) enc_kernel(
     const uint8_t* __restrict__ y, long long y_bs, const uint8_t* __restrict__ u, long long u_bs,
     const uint8_t* __restrict__ v, long long v_bs, const int* __restrict__ params,
+    long long params_bs, const uint8_t* __restrict__ sid, long long sid_bs,
     const int* __restrict__ consts, const int* __restrict__ cls, long long cls_bs,
     const int* __restrict__ eob, long long eob_bs, const int* __restrict__ init, long long init_bs,
     int mbw, int mbh, int n_try, uint8_t* lmode, uint8_t* cmode, uint8_t* bpred,
-    int16_t* ylv, int16_t* y2lv, int16_t* uvlv, uint8_t* recon, int* errs) {
+    int16_t* ylv, int16_t* y2lv, int16_t* uvlv, uint8_t* recon, int* errs, int* nnz) {
     __shared__ Tables T;
     __shared__ WarpWs wss[kMaxWarps];
     const int b = blockIdx.x;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-    for (int k = threadIdx.x; k < P_COUNT; k += blockDim.x) T.params[k] = params[k];
+    for (int k = threadIdx.x; k < kSegments * P_COUNT; k += blockDim.x)
+        (&T.params[0][0])[k] = params[b * params_bs + k];
     for (int k = threadIdx.x; k < 2048; k += blockDim.x) T.fixed[k] = consts[C_FIXED + k];
     for (int k = threadIdx.x; k < 1000; k += blockDim.x) T.fixed_i4[k] = consts[C_FIXED_I4 + k];
     for (int k = threadIdx.x; k < 4; k += blockDim.x) {
@@ -630,7 +741,18 @@ __global__ void __launch_bounds__(1024) enc_kernel(
             mb.x = x;
             mb.y = r;
             mb.m = r * mbw + x;
+            mb.P = T.params[sid ? sid[b * sid_bs + mb.m] & 3 : 0];
             const long long m = img + mb.m;
+            // Trellis entry contexts across the MB edge: the nnz of the MB
+            // above's bottom row (bit x) and of the left MB's right column (bit y).
+            unsigned top_nz = 0, left_nz = 0;
+            if (kTrellis) {
+                if (r > 0) top_nz = (static_cast<unsigned>(nnz[m - mbw]) >> 12) & 15;
+                if (x > 0) {
+                    const unsigned l = static_cast<unsigned>(nnz[m - 1]);
+                    left_nz = ((l >> 3) & 1) | ((l >> 6) & 2) | ((l >> 9) & 4) | ((l >> 12) & 8);
+                }
+            }
             int i16_score;
             const int best16 = i16_search(mb, lane, T, ws, &i16_score);
             bool use_i4 = false;
@@ -639,6 +761,12 @@ __global__ void __launch_bounds__(1024) enc_kernel(
                                    bpred + m * 16, ylv + m * 256);
             }
             if (use_i4) {
+                if (kTrellis) {
+                    const unsigned nz = i4_trellis(mb, lane, T, ws, top_nz, left_nz,
+                                                   bpred + m * 16, ylv + m * 256);
+                    if (lane == 0) nnz[m] = static_cast<int>(nz);
+                    __syncwarp();
+                }
                 if (lane < 16) {
                     const int W_ = mbw * 16;
                     for (int k = 0; k < 16; ++k)
@@ -647,7 +775,10 @@ __global__ void __launch_bounds__(1024) enc_kernel(
                 }
                 if (lane == 0) lmode[m] = 4;
             } else {
-                i16_commit(mb, lane, best16, T, ws, bpred + m * 16, ylv + m * 256, y2lv + m * 16);
+                const unsigned nz = i16_commit<kTrellis>(mb, lane, best16, T, ws, top_nz, left_nz,
+                                                         bpred + m * 16, ylv + m * 256,
+                                                         y2lv + m * 16);
+                if (kTrellis && lane == 0) nnz[m] = static_cast<int>(nz);
                 if (lane == 0) lmode[m] = static_cast<uint8_t>(best16);
             }
             const int uv = uv_search(mb, lane, T, ws, errs, uvlv + m * 128);
@@ -661,19 +792,22 @@ __global__ void __launch_bounds__(1024) enc_kernel(
 }  // namespace
 
 WEBP_API int webp_enc(const void* y, long long y_bs, const void* u, long long u_bs, const void* v,
-                      long long v_bs, const void* params, const void* consts, const void* cls,
-                      long long cls_bs, const void* eob, long long eob_bs, const void* init,
-                      long long init_bs, int mbw, int mbh, int batch, int n_try, void* lmode,
+                      long long v_bs, const void* params, long long params_bs, const void* sid,
+                      long long sid_bs, const void* consts, const void* cls, long long cls_bs,
+                      const void* eob, long long eob_bs, const void* init, long long init_bs,
+                      int mbw, int mbh, int batch, int n_try, int do_trellis, void* lmode,
                       void* cmode, void* bpred, void* ylv, void* y2lv, void* uvlv, void* recon,
-                      void* errs, void* stream) {
+                      void* errs, void* nnz, void* stream) {
     if (mbw <= 0 || mbh <= 0 || batch <= 0) return 0;
-    enc_kernel<<<batch, wavefront_threads(mbh), 0, static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = do_trellis ? enc_kernel<true> : enc_kernel<false>;
+    kernel<<<batch, wavefront_threads(mbh), 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(y), y_bs, static_cast<const uint8_t*>(u), u_bs,
-        static_cast<const uint8_t*>(v), v_bs, static_cast<const int*>(params),
-        static_cast<const int*>(consts), static_cast<const int*>(cls), cls_bs,
-        static_cast<const int*>(eob), eob_bs, static_cast<const int*>(init), init_bs, mbw, mbh,
-        n_try, static_cast<uint8_t*>(lmode), static_cast<uint8_t*>(cmode),
-        static_cast<uint8_t*>(bpred), static_cast<int16_t*>(ylv), static_cast<int16_t*>(y2lv),
-        static_cast<int16_t*>(uvlv), static_cast<uint8_t*>(recon), static_cast<int*>(errs));
+        static_cast<const uint8_t*>(v), v_bs, static_cast<const int*>(params), params_bs,
+        static_cast<const uint8_t*>(sid), sid_bs, static_cast<const int*>(consts),
+        static_cast<const int*>(cls), cls_bs, static_cast<const int*>(eob), eob_bs,
+        static_cast<const int*>(init), init_bs, mbw, mbh, n_try, static_cast<uint8_t*>(lmode),
+        static_cast<uint8_t*>(cmode), static_cast<uint8_t*>(bpred), static_cast<int16_t*>(ylv),
+        static_cast<int16_t*>(y2lv), static_cast<int16_t*>(uvlv), static_cast<uint8_t*>(recon),
+        static_cast<int*>(errs), static_cast<int*>(nnz));
     return static_cast<int>(cudaGetLastError());
 }

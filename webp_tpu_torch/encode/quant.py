@@ -1,6 +1,7 @@
 """Quantization parameters of the lossy encode (host): the quality curve,
-biased quantization matrices, per-segment RD lambdas and the loop-filter
-level.  The same arithmetic as `webp_tpu/encode/quant.py`.
+biased quantization matrices (with the y1 trellis sharpening), per-segment
+RD and trellis lambdas and the loop-filter level.  The same arithmetic as
+`webp_tpu/encode/quant.py`.
 """
 
 from __future__ import annotations
@@ -56,21 +57,30 @@ class Matrix:
         self.q = q
         self.iq = (1 << QFIX) // q
         self.bias = bias
+        # Per-frequency boost of the coefficients the trellis quantizes (y1 only).
+        self.sharpen = (ET.VP8_FREQ_SHARPENING.astype(np.int64) * q >> 11 if kind == "y1"
+                        else np.zeros(16, np.int64))
 
 
 class SegmentParams:
-    """Quantizers, matrices and RD lambdas for one segment."""
+    """Quantizers, matrices and RD lambdas for one segment.  `quantizer_level`
+    is the segment's delta to the frame's quant index and `lf_level` its
+    loop-filter strength (set by `analysis.setup_segments_from_alphas`),
+    both written to the segment header."""
 
-    def __init__(self, quant_index: int, quantizer_delta: int = 0, uv_ac_delta: int = 0):
+    def __init__(self, quant_index: int, quantizer_delta: int = 0, uv_ac_delta: int = 0,
+                 uv_dc_delta: int = DQ_UV_DC):
         qi = min(max(quant_index + quantizer_delta, 0), 127)
         self.quant_index = qi
+        self.quantizer_level = quantizer_delta
         self.uv_ac_delta = uv_ac_delta
-        self.uv_dc_delta = DQ_UV_DC
+        self.uv_dc_delta = uv_dc_delta
+        self.lf_level = None
         ydc = int(T.DC_QUANT[qi])
         yac = int(T.AC_QUANT[qi])
         y2dc = int(T.DC_QUANT[qi]) * 2
         y2ac = max(int(T.AC_QUANT[qi]) * 155 // 100, 8)
-        uvdc_i = min(max(qi + self.uv_dc_delta, 0), 127)
+        uvdc_i = min(max(qi + uv_dc_delta, 0), 127)
         uvac_i = min(max(qi + uv_ac_delta, 0), 127)
         # Clamped to 132 to stay consistent with decoder dequantization.
         uvdc = min(int(T.DC_QUANT[uvdc_i]), 132)
@@ -83,6 +93,9 @@ class SegmentParams:
         q_i4 = (ydc + 15 * yac + 8) >> 4
         q_i16 = (y2dc + 15 * y2ac + 8) >> 4
         q_uv = (uvdc + 15 * uvac + 8) >> 4
+        self.lambda_trellis_i4 = max((7 * q_i4 * q_i4) >> 3, 1)
+        self.lambda_trellis_i16 = max((q_i16 * q_i16) >> 2, 1)
+        self.lambda_trellis_uv = max((q_uv * q_uv) << 1, 1)
         self.lambda_i4 = max((3 * q_i4 * q_i4) >> 7, 1)
         self.lambda_i16 = max(3 * q_i16 * q_i16, 1)
         self.lambda_uv = max((3 * q_uv * q_uv) >> 6, 1)

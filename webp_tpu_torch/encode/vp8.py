@@ -1,14 +1,15 @@
 """Host finisher of the batched lossy encode: from one image's per-MB
 decisions and levels to its VP8 payload.
 
-The segments-off part of `webp_tpu/encode/vp8.py`'s `Vp8Encoder.encode_yuv`
-(:140-212) and `_write_bitstream_arrays` (:885-1076), with `token_stream`
-(:1142) and the skip flags of `derive_skip_and_contexts` (:1176): skip flags
-and token contexts, the skip probability, the token-probability adaptation
-(`probs` from the card's pass-1 statistics in the two-pass flow, else the
-host C++ `vp8_token_stats` over the final levels), the frame header, the MB
-headers (C++ `vp8_mbheader_encode`) and the coefficient partitions (C++
-`vp8_token_encode`).
+`webp_tpu/encode/vp8.py`'s `Vp8Encoder.encode_yuv` (:140-212) and
+`_write_bitstream_arrays` (:885-1076), with `token_stream` (:1142) and the
+skip flags of `derive_skip_and_contexts` (:1176): skip flags and token
+contexts, the skip probability, the token-probability adaptation (`probs`
+from the card's pass-1 statistics in the two-pass flow, else the host C++
+`vp8_token_stats` over the final levels), the frame header with the
+segment header (the analysis's `Segmentation`, reused as it is), the MB
+headers with the segment map (C++ `vp8_mbheader_encode`) and the
+coefficient partitions (C++ `vp8_token_encode`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 
 from ..common import vp8_tables as T
 from ..io import native
+from .analysis import Segmentation, segments_off
 from .boolenc import BoolEncoder
 from .contexts import compute_contexts
 from .costs import ProbaStats
@@ -63,22 +65,41 @@ def token_stream(arrays, ctx, skipped, mbw: int):
     return levels, meta
 
 
-def _frame_header(enc: BoolEncoder, seg: SegmentParams, num_partitions: int,
-                  new_probs: np.ndarray, skip_prob: int) -> None:
-    """Keyframe header fields up to the MB headers (segments off)."""
+def _frame_header(enc: BoolEncoder, quant_index: int, segs: Segmentation,
+                  num_partitions: int, new_probs: np.ndarray, skip_prob: int) -> None:
+    """Keyframe header fields up to the MB headers."""
+    filter_level = compute_filter_level(quant_index)
+    if segs.enabled:
+        # Per-segment loop-filter strengths: segment 0's is the base level.
+        seg_lf = [int(s.lf_level) for s in segs.segments]
+        filter_level = seg_lf[0]
     enc.write_literal(1, 0)  # color space
     enc.write_literal(1, 0)  # pixel type (clamping)
-    enc.write_flag(False)    # segmentation off
+    enc.write_flag(segs.enabled)
+    if segs.enabled:
+        enc.write_flag(segs.update_map)
+        enc.write_flag(True)   # update segment feature data
+        enc.write_flag(False)  # delta (not absolute) values
+        for s in segs.segments:
+            enc.write_optional_signed(7, int(s.quantizer_level))
+        for lf in seg_lf:
+            enc.write_optional_signed(6, lf - filter_level)
+        if segs.update_map:
+            for p in segs.tree_probs:
+                enc.write_flag(p != 255)
+                if p != 255:
+                    enc.write_literal(8, p)
     enc.write_flag(False)    # filter type: normal
-    enc.write_literal(6, compute_filter_level(seg.quant_index))
+    enc.write_literal(6, filter_level)
     enc.write_literal(3, 0)  # sharpness
     enc.write_flag(False)    # no loop filter adjustments
     enc.write_literal(2, num_partitions.bit_length() - 1)
-    enc.write_literal(7, seg.quant_index)
+    enc.write_literal(7, quant_index)  # the frame's index; segments ride as deltas
     for _ in range(3):       # ydc, y2dc, y2ac deltas
         enc.write_flag(False)
-    enc.write_optional_signed(4, seg.uv_dc_delta)
-    enc.write_optional_signed(4, seg.uv_ac_delta)
+    lead = segs.segments[0]
+    enc.write_optional_signed(4, lead.uv_dc_delta)
+    enc.write_optional_signed(4, lead.uv_ac_delta)
     enc.write_literal(1, 0)  # refresh entropy probs
     old, upd = T.COEFF_PROBS_DEFAULT, T.COEFF_UPDATE_PROBS
     for t in range(4):
@@ -95,16 +116,19 @@ def _frame_header(enc: BoolEncoder, seg: SegmentParams, num_partitions: int,
 
 
 def finish_frame(arrays, probs, quality: int, width: int, height: int,
-                 num_partitions: int = 1) -> bytes:
+                 num_partitions: int = 1, segs: Segmentation = None) -> bytes:
     """VP8 payload of one image from its analysis arrays (luma_mode,
     chroma_mode [nmb], bpred [nmb, 16], y_levels [nmb, 16, 16], y2_levels
     [nmb, 16], uv_levels [nmb, 8, 16]).  `probs` [4, 8, 3, 11] are the token
     probabilities adapted from pass 1 (two-pass flow), or None to adapt them
-    here from these arrays' own token statistics."""
+    here from these arrays' own token statistics; `segs` the image's
+    segmentation (None: segments off)."""
     if num_partitions not in PARTITIONS:
         raise ValueError(f"num_partitions must be one of {PARTITIONS}, got {num_partitions}")
     mbw, mbh = (width + 15) // 16, (height + 15) // 16
-    seg = SegmentParams(quality_to_quant_index(quality))
+    qi = quality_to_quant_index(quality)
+    if segs is None:
+        segs = segments_off(mbw * mbh, SegmentParams(qi))
     skipped = skip_flags(arrays)
     ctx = compute_contexts(arrays["luma_mode"], arrays["y2_levels"], arrays["y_levels"],
                            arrays["uv_levels"], mbw, mbh)
@@ -118,9 +142,11 @@ def finish_frame(arrays, probs, quality: int, width: int, height: int,
     skip_prob = min(max((255 * non_skip + total // 2) // total, 1), 254)
 
     enc = BoolEncoder()
-    _frame_header(enc, seg, num_partitions, probs, skip_prob)
+    _frame_header(enc, qi, segs, num_partitions, probs, skip_prob)
     header = native.vp8_mbheader_encode(enc, arrays["luma_mode"], arrays["bpred"],
-                                        arrays["chroma_mode"], skipped, mbw, skip_prob)
+                                        arrays["chroma_mode"], skipped, mbw, skip_prob,
+                                        segs.segment_map, segs.enabled and segs.update_map,
+                                        segs.tree_probs)
     if len(header) >= MAX_FIRST_PARTITION:
         raise ValueError("partition 0 overflow (header > 512 KiB)")
 

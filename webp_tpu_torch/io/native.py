@@ -191,26 +191,27 @@ def vp8_token_encode(levels: np.ndarray, meta: np.ndarray, probs: np.ndarray) ->
     return out[:n].tobytes()
 
 
-def vp8_mbheader_encode(enc, luma_mode, bpred, chroma_mode, skipped, mbw: int,
-                        skip_prob: int) -> bytes:
+def vp8_mbheader_encode(enc, luma_mode, bpred, chroma_mode, skipped, mbw: int, skip_prob: int,
+                        segment_ids, write_segments: bool, seg_tree_probs) -> bytes:
     """Continue the frame header's `BoolEncoder` `enc` with every MB header
-    (segments off), flush, and return the first partition's bytes."""
+    (with its segment id under `seg_tree_probs` when `write_segments`, the
+    frame's update-map flag), flush, and return the first partition's bytes."""
     state = np.frombuffer(bytes(enc.out), np.uint8)
     nmb = len(luma_mode)
     cap = len(state) + nmb * 16 + 4096
     out = np.zeros(cap, np.uint8)
-    luma_mode, bpred, chroma_mode = (np.ascontiguousarray(a, np.int32)
-                                     for a in (luma_mode, bpred, chroma_mode))
-    segment_ids = np.zeros(nmb, np.int32)
+    luma_mode, bpred, chroma_mode, segment_ids = (
+        np.ascontiguousarray(a, np.int32) for a in (luma_mode, bpred, chroma_mode, segment_ids))
     skipped = np.ascontiguousarray(skipped, np.uint8)
-    seg_probs = np.full(3, 255, np.uint8)
+    seg_probs = np.ascontiguousarray(seg_tree_probs, np.uint8)
     state_p = state if len(state) else np.zeros(1, np.uint8)
     n = load().vp8_mbheader_encode(
         _p(state_p, ctypes.c_uint8), len(state), ctypes.c_uint32(enc.bottom),
         ctypes.c_uint32(enc.range), enc.bit_num,
         _p(luma_mode, ctypes.c_int32), _p(bpred, ctypes.c_int32),
         _p(chroma_mode, ctypes.c_int32), _p(segment_ids, ctypes.c_int32),
-        _p(skipped, ctypes.c_uint8), nmb, mbw, skip_prob, 0, _p(seg_probs, ctypes.c_uint8),
+        _p(skipped, ctypes.c_uint8), nmb, mbw, skip_prob, int(bool(write_segments)),
+        _p(seg_probs, ctypes.c_uint8),
         _p(_BPRED_PROBS, ctypes.c_uint8), _p(out, ctypes.c_uint8), cap,
     )
     if n < 0:

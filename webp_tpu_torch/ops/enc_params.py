@@ -2,12 +2,13 @@
 lambda set of a segment, and the per-image cost tables.
 
 Counterparts of `webp_tpu/ops/encode_wavefront.py` `_rd_score32` (:23),
-`BIG`, `ZZ`/`IZZ`, `EncParams` (:92) and `EncTables` (:44), as torch
-tensors on an explicit device.  Both are built from numpy: `EncParams.
-from_segment(seg)` from a host `SegmentParams`, `EncTables.from_probs(probs)`
-from token probabilities, so that a test can hand the JAX package and the
-port the same parameters.  On the card, kernel K7 (`ops/enc_tables.py`)
-builds the tables from probabilities instead.
+`BIG`, `ZZ`/`IZZ`, `EncParams` (:92), `EncParamsSegs` (:153) and
+`EncTables` (:44), as torch tensors on an explicit device.  Both are built
+from numpy: `EncParams.from_segments(lists)` from host `SegmentParams` (four
+per image), `EncTables.from_probs(probs)` from token probabilities, so that a
+test can hand the JAX package and the port the same parameters.  On the
+card, kernel K7 (`ops/enc_tables.py`) builds the tables from probabilities
+instead.
 """
 
 from __future__ import annotations
@@ -26,13 +27,14 @@ IZZ = np.argsort(ZZ)
 CLS_REPS = np.array([0, 1, 2, 3, 4, 5, 7, 11, 19, 35, 67])
 
 
-def rd_score32(rate, disto, lam: int):
-    """floor(rate * lam / 256) + disto on int32, by a hi/lo split of rate.
+def rd_score32(rate, disto, lam):
+    """floor(rate * lam / 256) + disto on int32, by a hi/lo split of rate;
+    `lam` int32 broadcastable to `rate` (per lane).
 
     Saturating, exactly as the JAX kernel: hi = min(rate >> 8, 2^30 // lam),
     so a huge rate scores about 2^30 instead of overflowing.
     """
-    hi = (rate >> 8).clamp_max((1 << 30) // max(lam, 1))
+    hi = torch.minimum(rate >> 8, (1 << 30) // lam.clamp_min(1))
     return hi * lam + (((rate & 255) * lam) >> 8) + disto
 
 
@@ -50,30 +52,67 @@ CONSTS_NP = np.concatenate([a.reshape(-1) for _, a in _CONSTS])
 
 
 class EncParams:
-    """Quantizer vectors (zigzag order: DC, then 15 AC) and RD lambdas of one
-    segment: *_iq/*_bias/*_q int32 [16] for y1, y2 and uv; lambda_* ints."""
+    """Quantizer vectors (zigzag order: DC, then 15 AC) and RD and trellis
+    lambdas of the four segments of each image: vectors int32 [B, 4, 16],
+    lambdas int32 [B, 4].  B is 1 for one parameter set shared by a batch.
+    Segments off is the segment-0 set of every image with segment ids 0."""
 
-    VECS = ("y1_iq", "y1_bias", "y1_q", "y2_iq", "y2_bias", "y2_q", "uv_iq", "uv_bias", "uv_q")
-    LAMS = ("lambda_i16", "lambda_i4", "lambda_uv", "lambda_mode", "tlambda")
+    VECS = ("y1_iq", "y1_bias", "y1_q", "y2_iq", "y2_bias", "y2_q", "uv_iq", "uv_bias", "uv_q",
+            "y1_sharpen")
+    LAMS = ("lambda_i16", "lambda_i4", "lambda_uv", "lambda_mode", "tlambda",
+            "lambda_trellis_i16", "lambda_trellis_i4")
+    SIZE = 16 * len(VECS) + len(LAMS)  # int32 per segment in `packed`
 
     @classmethod
     def from_segment(cls, seg, device="cpu") -> "EncParams":
-        p = cls()
-        for name in cls.VECS:
+        """One segment's parameters, shared by every image and MB."""
+        return cls.from_segments([[seg] * 4], device)
+
+    @classmethod
+    def from_segments(cls, segments_lists, device="cpu") -> "EncParams":
+        """Per image, a list of four `SegmentParams`."""
+        def vec(seg, name):
+            if name == "y1_sharpen":
+                return np.asarray(seg.y1.sharpen)[ZZ]
             m, attr = name.split("_")
-            v = np.empty(16, np.int32)
+            v = np.empty(16, np.int64)
             v[:] = getattr(getattr(seg, m), attr)[1]
             v[0] = getattr(getattr(seg, m), attr)[0]
-            setattr(p, name, torch.from_numpy(v).to(device))
+            return v
+
+        p = cls()
+        for name in cls.VECS:
+            a = np.array([[vec(s, name) for s in segs] for segs in segments_lists], np.int32)
+            setattr(p, name, torch.from_numpy(a).to(device))
         for name in cls.LAMS:
-            setattr(p, name, int(getattr(seg, name)))
+            a = np.array([[int(getattr(s, name)) for s in segs] for segs in segments_lists],
+                         np.int32)
+            setattr(p, name, torch.from_numpy(a).to(device))
         return p
 
+    @property
+    def batch(self) -> int:
+        return self.y1_q.shape[0]
+
     def packed(self, device) -> torch.Tensor:
-        """The kernel's view: int32 [9 * 16 + 5] (the vectors, then the lambdas)."""
-        vecs = torch.cat([getattr(self, n).to(device="cpu", dtype=torch.int32) for n in self.VECS])
-        lams = torch.tensor([getattr(self, n) for n in self.LAMS], dtype=torch.int32)
-        return torch.cat([vecs, lams]).to(device)
+        """The kernel's view: int32 [B, 4, SIZE] (per segment the vectors,
+        then the lambdas)."""
+        parts = [getattr(self, n) for n in self.VECS] + [getattr(self, n)[..., None]
+                                                         for n in self.LAMS]
+        return torch.cat([t.to(device=device, dtype=torch.int32) for t in parts], -1).contiguous()
+
+    def lanes(self, sid) -> "EncParams":
+        """Per-lane parameters of MBs with segment ids `sid` [n, B]: vectors
+        [n, B, 16], lambdas [n, B]."""
+        n, B = sid.shape
+        idx = sid.long()
+        p = EncParams()
+        for name in self.VECS + self.LAMS:
+            t = getattr(self, name)                        # [B or 1, 4(, 16)]
+            t = t.expand(B, *t.shape[1:])[None].expand(n, B, *t.shape[1:])
+            sel = idx.reshape(n, B, 1, *([1] * (t.ndim - 3))).expand(n, B, 1, *t.shape[3:])
+            setattr(p, name, torch.gather(t, 2, sel)[:, :, 0])
+        return p
 
 
 class EncTables:

@@ -2,15 +2,23 @@
 loop, over the MB grid in wavefront order.
 
 Replaces `webp_tpu/ops/encode_wavefront2.py:803` `enc_step` (with
-`_i16_search_v2` :362, `_i4_search_v2` :585, `_uv_search_v2` :696 and
-`_chroma_diffusion_v2` :735), driven by `encode_analysis_batch_v2` (:955),
-for methods 0-3 with segments off (no trellis, one segment).  Per MB:
+`_i16_search_v2` :362, `_i4_search_v2` :585, `_uv_search_v2` :696,
+`_chroma_diffusion_v2` :735, `_i16_trellis_v2` :418 and `_i4_trellis_v2`
+:467), driven by `encode_analysis_batch_v2` (:955).  Each MB takes the
+quantizers and lambdas of its segment (`sid`; all 0 with segments off).
+Per MB:
   - I16: the four whole-block modes, DCT + Y2 WHT, quantization, rate
     (`ops/enc_costs.py`), spectral and pixel distortion, flat-source
     penalty; the best by RD score at lambda_i16, rescored at lambda_mode;
   - I4 (n_try > 0): the 16 subblocks in order, each trying DC and the
     n_try - 1 B modes of least prediction SSE, with the running-score early
     exit against the I16 score and the 64-bit/MB header budget;
+  - with `do_trellis` (methods 4-6, pass 2), the chosen luma path is
+    quantized again by the trellis (`ops/trellis.py`): I16's 16 blocks under
+    all three entry contexts, then resolved in raster order; I4's 16
+    subblocks in order with their modes fixed, each predicted from the
+    trellis reconstruction.  Entry contexts cross MBs through the nnz of
+    the neighbours' final levels; the reconstruction follows the trellis;
   - UV: the four modes with the flatness penalty, then chroma DC error
     diffusion and the final quantization.
 Outputs per MB: luma_mode (4 = B-predicted), chroma_mode, bpred [16],
@@ -31,6 +39,7 @@ from .. import _build
 from .enc_costs import residual_costs
 from .enc_params import BIG, CONSTS_NP, IZZ, ZZ, EncParams, EncTables, rd_score32
 from .transform import dct4x4, idct4x4, iwht4x4, quantize_zz, wht4x4
+from .trellis import trellis_par, trellis_spec3
 from .wavefront import predict_b_all
 
 _ZZ = torch.from_numpy(ZZ)
@@ -78,8 +87,20 @@ def _t_transform(blocks4, w):
     return (out.abs() * w.reshape(4, 4)).sum((-1, -2), dtype=torch.int32)
 
 
-def _spectral(tlambda: int, td):
-    return (tlambda * td + 128) >> 8 if tlambda > 0 else torch.zeros_like(td)
+def _ex(v, k: int):
+    """Per-lane [n, B, ...] parameters with k broadcast axes after [n, B]."""
+    return v.reshape(*v.shape[:2], *([1] * k), *v.shape[2:])
+
+
+def _spectral(tlambda, td):
+    return torch.where(tlambda > 0, (tlambda * td + 128) >> 8, 0)
+
+
+def _tables(tbl: EncTables, ctype: int, k: int):
+    """The (cls, eob, init) costs of token type `ctype` for [n, B] lanes with
+    k more block axes: [1, B, 1 x k, 16, ...]."""
+    return tuple(_ex(getattr(tbl, f)[None, :, ctype], k)
+                 for f in ("cls_cost", "eob_cost", "init_cost"))
 
 
 def _whole_pred_all4(a, left, tl, has_above, has_left, size: int):
@@ -110,25 +131,27 @@ def _pick(x, k):
 
 
 def _i16_search(a16, left16, tl, src, has_above, has_left, P, tbl):
-    """src [n, B, 16, 16] -> (mode [n, B], score at lambda_mode, y2 levels
-    [n, B, 16], y levels [n, B, 16, 16], rec [n, B, 16, 16])."""
+    """src [n, B, 16, 16], per-lane P -> (mode [n, B], score at lambda_mode,
+    y2 levels [n, B, 16], y levels [n, B, 16, 16], rec [n, B, 16, 16], and
+    the chosen mode's raster DCT blocks and spatial prediction)."""
     n, B = src.shape[:2]
     pred4 = _whole_pred_all4(a16, left16, tl, has_above, has_left, 16)
     dct = dct4x4(_blocks(src[:, :, None] - pred4, 4))          # [n, B, 4, 16, 16]
-    y2_lv = _quant(wht4x4(dct[..., 0]), P.y2_iq, P.y2_bias)   # [n, B, 4, 16]
-    y_lv = _quant(dct, P.y1_iq, P.y1_bias)
+    y2_lv = _quant(wht4x4(dct[..., 0]), _ex(P.y2_iq, 1), _ex(P.y2_bias, 1))  # [n, B, 4, 16]
+    y_lv = _quant(dct, _ex(P.y1_iq, 2), _ex(P.y1_bias, 2))
     y_lv[..., 0] = 0
     cost = (residual_costs(y2_lv, 1, 0, 0, tbl)
             + residual_costs(y_lv, 0, 1, 0, tbl).sum(-1, dtype=torch.int32))
 
-    blk = _dequant(y_lv, P.y1_q)
-    blk[..., 0] = iwht4x4(_dequant(y2_lv, P.y2_q))
+    blk = _dequant(y_lv, _ex(P.y1_q, 2))
+    blk[..., 0] = iwht4x4(_dequant(y2_lv, _ex(P.y2_q, 1)))
     rec = (pred4 + _spatial(idct4x4(blk), 4)).clamp(0, 255)
     d = ((rec - src[:, :, None]) ** 2).sum((-1, -2), dtype=torch.int32)
     w = _const("weight_y", src.device)
     tsrc = _t_transform(_blocks(src, 4).reshape(n, B, 16, 4, 4), w)
     trec = _t_transform(_blocks(rec, 4).reshape(n, B, 4, 16, 4, 4), w)
-    sd = _spectral(P.tlambda, ((trec - tsrc[:, :, None]).abs() >> 5).sum(-1, dtype=torch.int32))
+    sd = _spectral(_ex(P.tlambda, 1),
+                   ((trec - tsrc[:, :, None]).abs() >> 5).sum(-1, dtype=torch.int32))
 
     is_flat = (src == src[..., 0:1, 0:1]).all(-1).all(-1)
     flat_pen = is_flat[..., None] & ((y_lv[..., 1:] != 0).sum((-1, -2)) <= 0)
@@ -137,10 +160,77 @@ def _i16_search(a16, left16, tl, src, has_above, has_left, P, tbl):
 
     rate = _const("fixed_i16", src.device) + cost
     scores = torch.where(_allowed(has_above, has_left, (n, B)),
-                         rd_score32(rate, d + sd, P.lambda_i16), BIG)
+                         rd_score32(rate, d + sd, _ex(P.lambda_i16, 1)), BIG)
     best = scores.argmin(-1)
     final = rd_score32(_pick(rate, best), _pick(d + sd, best), P.lambda_mode)
-    return best, final, _pick(y2_lv, best), _pick(y_lv, best), _pick(rec, best)
+    return (best, final, _pick(y2_lv, best), _pick(y_lv, best), _pick(rec, best),
+            _pick(dct, best), _pick(pred4, best))
+
+
+def _i4_workspace(a16, tr4, tl, left16):
+    """Bordered I4 workspace [n, B, 17, 21]: row 0 = [tl | above |
+    above-right], column 0 = left; column-3 subblocks of rows 4/8/12 reuse
+    the MB's above-right pixels; the reconstruction fills the rest."""
+    n, B = tl.shape
+    ws = torch.zeros((n, B, 17, 21), dtype=torch.int32, device=tl.device)
+    ws[..., 0, :] = torch.cat([tl[..., None], a16, tr4], dim=-1)
+    ws[..., 1:, 0] = left16
+    for rr in (4, 8, 12):
+        ws[..., rr, 17:21] = tr4
+    return ws
+
+
+def _i4_preds(ws, sby: int, sbx: int):
+    """The ten B-mode predictions [n, B, 10, 16] of subblock (sby, sbx)."""
+    p = ws[..., sby * 4 : sby * 4 + 5, sbx * 4 : sbx * 4 + 9]
+    return predict_b_all(torch.cat([p[..., [4, 3, 2, 1], 0], p[..., 0, 0:9]], dim=-1))
+
+
+def _i16_trellis(dct, y2_lv, pred, top_nz, left_nz, P, tbl):
+    """The 16 Y blocks of the chosen I16 mode (raster DCT blocks dct [n, B,
+    16, 16], spatial prediction pred) quantized by the trellis under all
+    three entry contexts, then resolved block by block in raster order
+    from the neighbours' nnz (top_nz, left_nz [n, B, 4]).  Returns (levels
+    [n, B, 16, 16], rec [n, B, 16, 16])."""
+    lv3, nz3 = trellis_spec3(dct, _ex(P.y1_q, 1), _ex(P.y1_iq, 1), _ex(P.y1_sharpen, 1),
+                             P.lambda_trellis_i16[..., None], 1, *_tables(tbl, 0, 1))
+    levels, nnz = [None] * 16, [None] * 16
+    for bi in range(16):
+        y, x = bi // 4, bi % 4
+        ctx = ((top_nz[..., x] if y == 0 else nnz[bi - 4])
+               + (left_nz[..., y] if x == 0 else nnz[bi - 1])).long()
+        levels[bi] = _pick(lv3[:, :, bi], ctx)
+        nnz[bi] = _pick(nz3[:, :, bi, :, None], ctx)[..., 0].to(torch.int32)
+    y_lv = torch.stack(levels, 2)
+    blk = _dequant(y_lv, _ex(P.y1_q, 1))
+    blk[..., 0] = iwht4x4(_dequant(y2_lv, P.y2_q))
+    return y_lv, (pred + _spatial(idct4x4(blk), 4)).clamp(0, 255)
+
+
+def _i4_trellis(a16, tr4, tl, left16, src, modes, top_nz, left_nz, P, tbl):
+    """The 16 subblocks re-run in order with their modes fixed, each
+    trellis-quantized with the entry context of its top and left neighbours'
+    nnz (top_nz, left_nz [n, B, 4] across the MB edge) and predicted from
+    the trellis reconstruction.  Returns (levels [n, B, 16, 16], rec)."""
+    n, B = src.shape[:2]
+    src_blocks = _blocks(src, 4)
+    ws = _i4_workspace(a16, tr4, tl, left16)
+    nnz = torch.zeros((n, B, 5, 5), dtype=torch.int32, device=src.device)  # with the MB halo
+    nnz[..., 0, 1:] = top_nz
+    nnz[..., 1:, 0] = left_nz
+    tables = _tables(tbl, 3, 0)
+    levels = []
+    for i in range(16):
+        sby, sbx = i // 4, i % 4
+        pred = _pick(_i4_preds(ws, sby, sbx), modes[..., i])
+        ctx = nnz[..., sby, sbx + 1] + nnz[..., sby + 1, sbx]
+        lv, has = trellis_par(dct4x4(src_blocks[:, :, i] - pred), P.y1_q, P.y1_iq, P.y1_sharpen,
+                              P.lambda_trellis_i4, 0, ctx, *tables)
+        rec = (pred + idct4x4(_dequant(lv, P.y1_q))).clamp(0, 255)
+        ws[..., sby * 4 + 1 : sby * 4 + 5, sbx * 4 + 1 : sbx * 4 + 5] = rec.reshape(n, B, 4, 4)
+        nnz[..., sby + 1, sbx + 1] = has.to(torch.int32)
+        levels.append(lv)
+    return torch.stack(levels, 2), ws[..., 1:, 1:17]
 
 
 def _i4_search(a16, tr4, tl, left16, src, tb, lb, i16_score, n_try: int, P, tbl):
@@ -152,13 +242,7 @@ def _i4_search(a16, tr4, tl, left16, src, tb, lb, i16_score, n_try: int, P, tbl)
     w, fixed_i4 = _const("weight_y", dev), _const("fixed_i4", dev)
     src_blocks = _blocks(src, 4)
     tsrc_all = _t_transform(src_blocks.reshape(n, B, 16, 4, 4), w)
-    # Bordered workspace: row 0 = [tl | above | above-right], column 0 = left;
-    # column-3 subblocks of rows 4/8/12 reuse the MB's above-right pixels.
-    ws = torch.zeros((n, B, 17, 21), dtype=torch.int32, device=dev)
-    ws[..., 0, :] = torch.cat([tl[..., None], a16, tr4], dim=-1)
-    ws[..., 1:, 0] = left16
-    for rr in (4, 8, 12):
-        ws[..., rr, 17:21] = tr4
+    ws = _i4_workspace(a16, tr4, tl, left16)
     tb, lb = tb.clone(), lb.clone()
     tnz = torch.zeros((n, B, 4), dtype=torch.int32, device=dev)
     lnz = torch.zeros((n, B, 4), dtype=torch.int32, device=dev)
@@ -170,9 +254,7 @@ def _i4_search(a16, tr4, tl, left16, src, tb, lb, i16_score, n_try: int, P, tbl)
     for i in range(16):
         sby, sbx = i // 4, i % 4
         src4 = src_blocks[:, :, i]
-        p = ws[..., sby * 4 : sby * 4 + 5, sbx * 4 : sbx * 4 + 9]
-        e = torch.cat([p[..., [4, 3, 2, 1], 0], p[..., 0, 0:9]], dim=-1)  # L3..L0, tl, A0..A7
-        preds = predict_b_all(e)                                   # [n, B, 10, 16]
+        preds = _i4_preds(ws, sby, sbx)                            # [n, B, 10, 16]
         sse = ((preds - src4[:, :, None]) ** 2).sum(-1, dtype=torch.int32)
         # DC is always candidate 0; then the least-SSE of modes 1..9, ties
         # to the lower mode.
@@ -187,18 +269,18 @@ def _i4_search(a16, tr4, tl, left16, src, tb, lb, i16_score, n_try: int, P, tbl)
         kmode = torch.stack(kmode, dim=-1)                        # [n, B, K]
         cand = torch.gather(preds, 2, kmode[..., None].expand(n, B, n_try, 16))
 
-        lv = _quant(dct4x4(src4[:, :, None] - cand), P.y1_iq, P.y1_bias)
+        lv = _quant(dct4x4(src4[:, :, None] - cand), _ex(P.y1_iq, 1), _ex(P.y1_bias, 1))
         ctx0 = (tnz[..., sbx] if sby > 0 else 0) + (lnz[..., sby] if sbx > 0 else 0)
         ctx0 = torch.as_tensor(ctx0, dtype=torch.int32, device=dev).expand(n, B)
         cc = residual_costs(lv, 3, 0, ctx0[..., None], tbl)
-        rec = (cand + idct4x4(_dequant(lv, P.y1_q))).clamp(0, 255)
+        rec = (cand + idct4x4(_dequant(lv, _ex(P.y1_q, 1)))).clamp(0, 255)
         d = ((rec - src4[:, :, None]) ** 2).sum(-1, dtype=torch.int32)
         trec = _t_transform(rec.reshape(n, B, n_try, 4, 4), w)
-        sd = _spectral(P.tlambda, (trec - tsrc_all[:, :, i, None]).abs() >> 5)
+        sd = _spectral(_ex(P.tlambda, 1), (trec - tsrc_all[:, :, i, None]).abs() >> 5)
         mc = fixed_i4[((tb[..., sbx] * 10 + lb[..., sby]) * 10)[..., None].long() + kmode]
 
         rates = cc + mc
-        k = rd_score32(rates, d + sd, P.lambda_i4).argmin(-1)
+        k = rd_score32(rates, d + sd, _ex(P.lambda_i4, 1)).argmin(-1)
         m = _pick(kmode[..., None], k)[..., 0]
         lv_k = _pick(lv, k)
         ws[..., sby * 4 + 1 : sby * 4 + 5, sbx * 4 + 1 : sbx * 4 + 5] = _pick(rec, k).reshape(n, B, 4, 4)
@@ -224,8 +306,8 @@ def _uv_search(a8, left8, tlc, src_c, has_above, has_left, P, tbl):
     n, B = src_c.shape[:2]
     pred4 = _whole_pred_all4(a8, left8, tlc, has_above[..., None], has_left[..., None], 8)
     dct = dct4x4(_blocks(src_c[:, :, :, None] - pred4, 2))     # [n, B, 2, 4m, 4b, 16]
-    lv = _quant(dct, P.uv_iq, P.uv_bias)
-    rec = (pred4 + _spatial(idct4x4(_dequant(lv, P.uv_q)), 2)).clamp(0, 255)
+    lv = _quant(dct, _ex(P.uv_iq, 3), _ex(P.uv_bias, 3))
+    rec = (pred4 + _spatial(idct4x4(_dequant(lv, _ex(P.uv_q, 3))), 2)).clamp(0, 255)
     d = ((rec - src_c[:, :, :, None]) ** 2).sum((-1, -2), dtype=torch.int32).sum(-2, dtype=torch.int32)
     lv_m = lv.transpose(2, 3)                                     # [n, B, 4m, 2, 4b, 16]
     rate = _const("fixed_uv", src_c.device) + residual_costs(lv_m, 2, 0, 0, tbl).sum((-1, -2), dtype=torch.int32)
@@ -233,7 +315,7 @@ def _uv_search(a8, left8, tlc, src_c, has_above, has_left, P, tbl):
     not_dc = torch.arange(4, device=src_c.device) != 0
     rate = torch.where(not_dc & flat, rate + 140 * 8, rate)
     scores = torch.where(_allowed(has_above, has_left, (n, B)),
-                         rd_score32(rate, d, P.lambda_uv), BIG)
+                         rd_score32(rate, d, _ex(P.lambda_uv, 1)), BIG)
     best = scores.argmin(-1)
     return best, _pick(dct.transpose(2, 3), best), _pick(pred4.transpose(2, 3), best)
 
@@ -242,7 +324,7 @@ def _chroma_diffusion(dct, pred, P, top_err, left_err):
     """Chroma DC error diffusion (C1 = 7, C2 = 8) over [n, B, 2] lanes, then
     the final quantization: dct [n, B, 2, 4, 16], pred [n, B, 2, 8, 8],
     errors [n, B, 2, 2] -> (levels [n, B, 2, 4, 16], rec, new_top, new_left)."""
-    q, iq, bias = (int(getattr(P, f)[0]) for f in ("uv_q", "uv_iq", "uv_bias"))
+    q, iq, bias = (getattr(P, f)[..., 0, None] for f in ("uv_q", "uv_iq", "uv_bias"))
     dc = dct[..., 0]
 
     def diffuse(dcv, t_err, l_err):
@@ -262,8 +344,8 @@ def _chroma_diffusion(dct, pred, P, top_err, left_err):
     nl1 = (3 * e3) >> 2
     dct = dct.clone()
     dct[..., 0] = torch.stack([dc0, dc1, dc2, dc3], dim=-1)
-    lv = _quant(dct, P.uv_iq, P.uv_bias)
-    rec = (pred + _spatial(idct4x4(_dequant(lv, P.uv_q)), 2)).clamp(0, 255)
+    lv = _quant(dct, _ex(P.uv_iq, 2), _ex(P.uv_bias, 2))
+    rec = (pred + _spatial(idct4x4(_dequant(lv, _ex(P.uv_q, 2))), 2)).clamp(0, 255)
     return lv, rec, torch.stack([e2, e3 - nl1], -1), torch.stack([e1, nl1], -1)
 
 
@@ -276,13 +358,15 @@ def _bordered(p: torch.Tensor) -> torch.Tensor:
     return w
 
 
-def encode_analysis_batch_plain(y, u, v, P: EncParams, tbl: EncTables, n_try: int):
+def encode_analysis_batch_plain(y, u, v, P: EncParams, tbl: EncTables, n_try: int,
+                                do_trellis: bool = False, sid=None):
     """Torch twin of the K5 kernel (any device)."""
     B, H, W = y.shape
     dev = y.device
     mbh, mbw = H // 16, W // 16
     nmb = mbw * mbh
     tbl = tbl.expand(B)
+    sid = torch.zeros((B, nmb), dtype=torch.int32, device=dev) if sid is None else sid
     src_y, src_u, src_v = (p.to(torch.int32) for p in (y, u, v))
     Yw, Uw, Vw = _bordered(y), _bordered(u), _bordered(v)
     out = {k: torch.zeros((B, nmb, *s), dtype=torch.int32, device=dev) for k, s in (
@@ -292,6 +376,8 @@ def encode_analysis_batch_plain(y, u, v, P: EncParams, tbl: EncTables, n_try: in
     ctx_left = torch.zeros((B, nmb, 4), dtype=torch.int32, device=dev)  # ... and right of an MB
     err_top = torch.zeros((B, nmb, 2, 2), dtype=torch.int32, device=dev)  # chroma DC diffusion
     err_left = torch.zeros((B, nmb, 2, 2), dtype=torch.int32, device=dev)
+    nz_bottom = torch.zeros((B, nmb, 4), dtype=torch.int32, device=dev)  # trellis contexts:
+    nz_right = torch.zeros((B, nmb, 4), dtype=torch.int32, device=dev)   # final levels' nnz
     k16, k8, k4 = (torch.arange(k, device=dev) for k in (16, 8, 4))
     # DC/V/H/TM -> B_DC/B_VE/B_HE/B_TM
     bmode_of = torch.tensor([0, 2, 3, 1], dtype=torch.int32, device=dev)
@@ -305,6 +391,7 @@ def encode_analysis_batch_plain(y, u, v, P: EncParams, tbl: EncTables, n_try: in
         def lanes(a):  # [B, n, ...] -> [n, B, ...]
             return a.transpose(0, 1)
 
+        PL = P.lanes(lanes(sid[:, M]))
         top, col = (R * 16)[:, None], (X * 16)[:, None]
         a16 = lanes(Yw[:, top, 1 + col + k16])
         tr4 = lanes(Yw[:, top, 1 + (col + 16 + k4).clamp(max=W - 1)])  # rightmost MB repeats a[15]
@@ -316,21 +403,29 @@ def encode_analysis_batch_plain(y, u, v, P: EncParams, tbl: EncTables, n_try: in
         tde = torch.where(has_above[..., None, None], lanes(err_top[:, M - mbw]), 0)
         lde = torch.where(has_left[..., None, None], lanes(err_left[:, M - 1]), 0)
 
-        i16_mode, i16_score, i16_y2, i16_y, i16_rec = _i16_search(
-            a16, left16, tl, src, has_above, has_left, P, tbl)
+        i16_mode, i16_score, i16_y2, i16_y, i16_rec, i16_dct, i16_pred = _i16_search(
+            a16, left16, tl, src, has_above, has_left, PL, tbl)
         if n_try > 0:
             use_i4, i4_modes, i4_levels, i4_rec, tb4, lb4 = _i4_search(
-                a16, tr4, tl, left16, src, tb0, lb0, i16_score, n_try, P, tbl)
+                a16, tr4, tl, left16, src, tb0, lb0, i16_score, n_try, PL, tbl)
         else:
             use_i4 = torch.zeros((n, B), dtype=torch.bool, device=dev)
             i4_modes = torch.zeros((n, B, 16), dtype=torch.int32, device=dev)
             i4_levels = i4_rec = torch.zeros((n, B, 16, 16), dtype=torch.int32, device=dev)
             tb4, lb4 = tb0, lb0
+        if do_trellis:
+            top_nz = torch.where(has_above[..., None], lanes(nz_bottom[:, M - mbw]), 0)
+            left_nz = torch.where(has_left[..., None], lanes(nz_right[:, M - 1]), 0)
+            i16_y, i16_rec = _i16_trellis(i16_dct, i16_y2, i16_pred, top_nz, left_nz, PL, tbl)
+            if n_try > 0:
+                i4_levels, i4_rec = _i4_trellis(a16, tr4, tl, left16, src, i4_modes, top_nz,
+                                                left_nz, PL, tbl)
         luma_rec = torch.where(use_i4[..., None, None], i4_rec, i16_rec)
         bmode = bmode_of[i16_mode]
         i16_bpred = torch.zeros((n, B, 16), dtype=torch.int32, device=dev)
         i16_bpred[..., 12:] = bmode[..., None]
         u4 = use_i4[..., None]
+        y_levels = torch.where(u4[..., None], i4_levels, i16_y)
 
         ctop, ccol = (R * 8)[:, None], (X * 8)[:, None]
         cplanes = (Uw, Vw)
@@ -339,8 +434,8 @@ def encode_analysis_batch_plain(y, u, v, P: EncParams, tbl: EncTables, n_try: in
         left8 = torch.stack([lanes(c[:, 1 + ctop + k8, ccol]) for c in cplanes], 2)
         src_c = torch.stack([lanes(s[:, ctop[:, :, None] + k8[:, None], ccol[:, :, None] + k8])
                              for s in (src_u, src_v)], 2)
-        uv_mode, uv_dct, uv_pred = _uv_search(a8, left8, tlc, src_c, has_above, has_left, P, tbl)
-        uv_lv, uv_rec, new_tde, new_lde = _chroma_diffusion(uv_dct, uv_pred, P, tde, lde)
+        uv_mode, uv_dct, uv_pred = _uv_search(a8, left8, tlc, src_c, has_above, has_left, PL, tbl)
+        uv_lv, uv_rec, new_tde, new_lde = _chroma_diffusion(uv_dct, uv_pred, PL, tde, lde)
 
         def store(dst, val):  # [n, B, ...] -> dst[:, M]
             dst[:, M] = val.transpose(0, 1).to(dst.dtype)
@@ -348,13 +443,18 @@ def encode_analysis_batch_plain(y, u, v, P: EncParams, tbl: EncTables, n_try: in
         store(out["luma_mode"], torch.where(use_i4, 4, i16_mode))
         store(out["chroma_mode"], uv_mode)
         store(out["bpred"], torch.where(u4, i4_modes, i16_bpred))
-        store(out["y_levels"], torch.where(u4[..., None], i4_levels, i16_y))
+        store(out["y_levels"], y_levels)
         store(out["y2_levels"], torch.where(u4, 0, i16_y2))
         store(out["uv_levels"], uv_lv.reshape(n, B, 8, 16))
         store(ctx_top, torch.where(u4, tb4, bmode[..., None]))
         store(ctx_left, torch.where(u4, lb4, bmode[..., None]))
         store(err_top, new_tde)
         store(err_left, new_lde)
+        if do_trellis:  # nnz per block of the final levels: from position 1 in I16 MBs
+            nz = torch.where(u4, (y_levels != 0).any(-1), (y_levels[..., 1:] != 0).any(-1))
+            nz = nz.to(torch.int32).reshape(n, B, 4, 4)
+            store(nz_bottom, nz[..., 3, :])
+            store(nz_right, nz[..., :, 3])
         Yw[:, 1 + top[:, :, None] + k16[:, None], 1 + col[:, :, None] + k16] = lanes(luma_rec)
         for j, c in enumerate(cplanes):
             c[:, 1 + ctop[:, :, None] + k8[:, None], 1 + ccol[:, :, None] + k8] = lanes(uv_rec[:, :, j])
@@ -362,23 +462,33 @@ def encode_analysis_batch_plain(y, u, v, P: EncParams, tbl: EncTables, n_try: in
             for k in OUT_FIELDS}
 
 
-def encode_analysis_batch(y, u, v, P: EncParams, tbl: EncTables, n_try: int):
+def encode_analysis_batch(y, u, v, P: EncParams, tbl: EncTables, n_try: int,
+                          do_trellis: bool = False, sid=None):
     """Per-MB decisions and levels of a batch of padded YUV420 planes
-    y [B, mbh*16, mbw*16], u/v [B, mbh*8, mbw*8] uint8, with the segment's
-    parameters `P` and per-image (or shared) tables `tbl`, trying `n_try`
-    B modes per subblock (0: I16 only).  Returns a dict of luma_mode,
-    chroma_mode [B, nmb] and bpred [B, nmb, 16] uint8, y_levels
+    y [B, mbh*16, mbw*16], u/v [B, mbh*8, mbw*8] uint8, with the segments'
+    parameters `P` (per image or shared) and per-image (or shared) tables
+    `tbl`, trying `n_try` B modes per subblock (0: I16 only), with the
+    trellis on the chosen luma levels if `do_trellis`, and MB segment ids
+    `sid` [B, nmb] uint8 in 0..3 (None: all 0).  Returns a dict of
+    luma_mode, chroma_mode [B, nmb] and bpred [B, nmb, 16] uint8, y_levels
     [B, nmb, 16, 16], y2_levels [B, nmb, 16] and uv_levels [B, nmb, 8, 16]
     int16, on the planes' device."""
     if not 0 <= n_try <= 10:
         raise ValueError(f"n_try must be in 0..10, got {n_try}")
-    dev = _build.same_device(y, u, v, tbl.cls_cost, tbl.eob_cost, tbl.init_cost)
+    B, H, W = y.shape
+    nmb = (H // 16) * (W // 16)
+    if P.batch not in (1, B):
+        raise ValueError(f"parameters for {P.batch} images, batch {B}")
+    if sid is not None and (sid.dtype != torch.uint8 or tuple(sid.shape) != (B, nmb)):
+        raise ValueError(f"sid must be uint8 {(B, nmb)}, got {sid.dtype} {tuple(sid.shape)}")
+    tensors = (y, u, v, tbl.cls_cost, tbl.eob_cost, tbl.init_cost, P.y1_q)
+    dev = _build.same_device(*tensors, *(() if sid is None else (sid,)))
     if dev.type == "cpu":
-        return encode_analysis_batch_plain(y, u, v, P, tbl, n_try)
-    return _enc_kernel(y, u, v, P, tbl, n_try)
+        return encode_analysis_batch_plain(y, u, v, P, tbl, n_try, do_trellis, sid)
+    return _enc_kernel(y, u, v, P, tbl, n_try, do_trellis, sid)
 
 
-def _enc_kernel(y, u, v, P: EncParams, tbl: EncTables, n_try: int):
+def _enc_kernel(y, u, v, P: EncParams, tbl: EncTables, n_try: int, do_trellis: bool, sid):
     dev = y.device
     B, H, W = y.shape
     mbh, mbw = H // 16, W // 16
@@ -390,19 +500,22 @@ def _enc_kernel(y, u, v, P: EncParams, tbl: EncTables, n_try: int):
         ("y2_levels", (16,), torch.int16), ("uv_levels", (8, 16), torch.int16))}
     recon = torch.empty((B, H * W * 3 // 2), dtype=torch.uint8, device=dev)
     errs = torch.empty((B, nmb, 8), dtype=torch.int32, device=dev)
+    nnz = torch.empty((B, nmb), dtype=torch.int32, device=dev)
     params = P.packed(dev)
+    params = params.expand(B, *params.shape[1:])
     consts = _build.device_constant("enc_consts", CONSTS_NP, dev)
     _build.launch(
         "enc", "webp_enc", dev,
         *_build.plane(y, B, H, W), *_build.plane(u, B, H // 2, W // 2),
         *_build.plane(v, B, H // 2, W // 2),
-        _build.dense(params, torch.int32, (params.numel(),)),
+        *_build.table(params, B, (4, EncParams.SIZE)),
+        *((None, 0) if sid is None else _build.mb_field(sid, B, nmb)),
         _build.dense(consts, torch.int32, (consts.numel(),)),
         *_build.table(tbl.cls_cost, B, (4, 16, 3, 11)),
         *_build.table(tbl.eob_cost, B, (4, 16, 3)),
         *_build.table(tbl.init_cost, B, (4, 16, 3)),
-        mbw, mbh, B, n_try,
+        mbw, mbh, B, n_try, int(do_trellis),
         *(out[k].data_ptr() for k in OUT_FIELDS),
-        recon.data_ptr(), errs.data_ptr(),
+        recon.data_ptr(), errs.data_ptr(), nnz.data_ptr(),
     )
     return out
