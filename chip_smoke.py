@@ -36,9 +36,23 @@ enc_tables are each held bit-exact to their plain twins on the main
 path's card inputs; the payloads decode through K1-K4 bit-exact with the
 plain CPU decode.
 
+Lossless (VP8L) decode.  Two distinct seeded synthetic frames with seeded
+alpha (`tests/synthetic_rgb.py`, `tests/random_vp8l.py`) are written by
+the jax-free stream writer `tests/random_vp8l.py` as two transform
+signatures: [subtract-green, predictor (size_bits 2), colour transform
+(size_bits 3)], and a 12-colour quantisation as [palette, predictor on the
+packed width].  A batch of 8 of each, and a mixed batch of both, go
+through `decode_lossless_batch_device`: every output must equal its source
+and the host C++ full decode (`vp8l_decode`).  K9 subtract_green, K10
+color_transform, K11 color_indexing and K12 predictor are each held
+bit-exact to their plain twins on the phase's own card inputs, the
+inverse transforms stepped in stream order reversed; K11 also on an
+unpacked 200-colour index image, beside one PyTorch indexing call.
+
 Prints the card's name and power limit, per-kernel timings (CUDA events;
 kernel beside plain twin and the kernel's bound), the encodes' per-stage
-host-clock split, one JSON line of kernel records and, last,
+host-clock split, the lossless decode's ms/img beside the host C++
+decode's, one JSON line of kernel records and, last,
 {"ok": true, "device": {...}}.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails.  Imports neither jax nor the JAX package; needs no network.
@@ -65,6 +79,9 @@ ENC_SEEDS = (11, 12)
 # The encode phases: (method, segments).  The flagship is bench.py's encode.
 ENCODES = ((3, False), (4, True))
 
+LOSSLESS_SEEDS = (21, 22)
+LOSSLESS_COLOURS = 12  # the palette signature: two indices to a byte
+
 # The card's peaks for the kernels' bounds (NVIDIA H100 SXM): HBM bytes/s
 # (data sheet), and INT32 operations/s outside the tensor cores, which is
 # where all the kernels' work runs: 64 INT32 lanes per SM x 132 SMs x the
@@ -87,6 +104,12 @@ ENCODE_KERNELS = [
     ("token_stats", "webp_tpu_torch/csrc/token_stats.cu", "webp_tpu/ops/token_stats.py:183"),
     ("enc_tables", "webp_tpu_torch/csrc/enc_tables.cu",
      "webp_tpu/ops/encode_wavefront2.py:1405"),
+]
+LOSSLESS_KERNELS = [
+    ("subtract_green", "webp_tpu_torch/csrc/vp8l.cu", "webp_tpu/ops/vp8l_device.py:45"),
+    ("color_transform", "webp_tpu_torch/csrc/vp8l.cu", "webp_tpu/ops/vp8l_device.py:51"),
+    ("color_indexing", "webp_tpu_torch/csrc/vp8l.cu", "webp_tpu/ops/vp8l_device.py:74"),
+    ("predictor", "webp_tpu_torch/csrc/vp8l.cu", "webp_tpu/ops/vp8l_device.py:159"),
 ]
 
 
@@ -687,6 +710,198 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending) -> dict:
                 "plain_ms": plain_ms[k], **bounds[k], "library_ms": None} for k in kernels}
 
 
+def lossless_inputs(width: int, height: int):
+    """(the two distinct source images, their VP8L streams): a photo as
+    [subtract-green, predictor 2, colour 3], a 12-colour image as [palette,
+    predictor 2 on the packed width]."""
+    _import_paths()
+    from random_vp8l import (PALETTE, SUBTRACT_GREEN, color, predictor, quantize, vp8l_stream,
+                             with_alpha)
+    from synthetic_rgb import synthetic_frame
+
+    photo, flat = (with_alpha(synthetic_frame(width, height, s), s) for s in LOSSLESS_SEEDS)
+    indexed = quantize(flat, LOSSLESS_COLOURS, LOSSLESS_SEEDS[1])
+    streams = [vp8l_stream(photo, 1, (SUBTRACT_GREEN, predictor(2), color(3))),
+               vp8l_stream(indexed, 2, (PALETTE, predictor(2)))]
+    return [photo, indexed], streams
+
+
+# Integer operations of K12 per pixel and mode (4 channels' unpacking,
+# arithmetic and packing), plus the 7 of the wrapping add, counted from
+# `csrc/vp8l.cu`; modes 14 and 15 predict zero.
+OPS_PRED = (0, 0, 0, 0, 0, 28, 20, 20, 20, 20, 32, 32, 28, 48, 0, 0)
+
+
+def predictor_ops(modes, size_bits: int, width: int, height: int) -> int:
+    """K12's operations on this run's modes: each pixel's mode is its block's."""
+    import numpy as np
+
+    m = modes.cpu().numpy().astype(np.int64)
+    per_block = np.asarray(OPS_PRED)[np.minimum(m, 15)] + 7
+    pixels_y = np.bincount(np.arange(height) >> size_bits, minlength=m.shape[1])
+    pixels_x = np.bincount(np.arange(width) >> size_bits, minlength=m.shape[2])
+    return int((per_block * pixels_y[None, :, None] * pixels_x[None, None, :]).sum())
+
+
+def lossless_phase(dev, card: str) -> dict:
+    """The lossless decode path, counted, checked and timed; name -> kernel
+    record."""
+    import numpy as np
+    import torch
+
+    from webp_tpu_torch import _build, decode_lossless_batch_device
+    from webp_tpu_torch.decode import vp8l_device as ldev
+    from webp_tpu_torch.io import native
+    from webp_tpu_torch.ops import vp8l_device as K
+
+    # 1. Inputs: the two signatures, tiled, and mixed; the host C++ decode.
+    t0 = time.perf_counter()
+    sources, streams = lossless_inputs(WIDTH, HEIGHT)
+    for src, stream in zip(sources, streams):
+        if not (native.vp8l_decode(stream, WIDTH, HEIGHT) == src).all():
+            raise AssertionError("the host C++ decode differs from the source")
+    n_colours = len(np.unique(sources[1].reshape(-1, 4), axis=0))
+    print(f"[lossless] streams {[len(s) for s in streams]} bytes (photo, {n_colours}-colour "
+          f"palette); write + host C++ check {time.perf_counter() - t0:.1f} s", flush=True)
+    batches = {"photo": [streams[0]] * BATCH, "palette": [streams[1]] * BATCH,
+               "mixed": [streams[i % 2] for i in range(BATCH)]}
+    want = {"photo": [sources[0]] * BATCH, "palette": [sources[1]] * BATCH,
+            "mixed": [sources[i % 2] for i in range(BATCH)]}
+
+    # 2. The main path, counted: both signatures and the mixed batch.
+    expect = {"photo": {"subtract_green": 1, "color_transform": 1, "color_indexing": 0,
+                        "predictor": 1},
+              "palette": {"subtract_green": 0, "color_transform": 0, "color_indexing": 1,
+                          "predictor": 1},
+              "mixed": {"subtract_green": 1, "color_transform": 1, "color_indexing": 1,
+                        "predictor": 2}}
+    launches = {k: 0 for k, _, _ in LOSSLESS_KERNELS}
+    for name, batch in batches.items():
+        _build.reset_launches()
+        got = decode_lossless_batch_device(batch, WIDTH, HEIGHT, device_out=True, device=dev)
+        torch.cuda.synchronize()
+        counts = {k: _build.LAUNCHES[k] for k in launches}
+        if counts != expect[name]:
+            raise AssertionError(f"{name} batch launched {counts}, expected {expect[name]}")
+        for k, n in counts.items():
+            launches[k] += n
+        if name != "mixed" and got.device.type != torch.device(dev).type:
+            raise AssertionError(f"{name}: device_out gave a tensor on {got.device}")
+        got = got.cpu().numpy() if name != "mixed" else got
+        for i in range(BATCH):
+            if not (got[i] == want[name][i]).all():
+                raise AssertionError(f"{name} image {i} differs from its source")
+    print(f"[lossless] main path: 3 x {BATCH} images equal to their sources and the host C++ "
+          f"decode (photo, palette, mixed); launches {launches}", flush=True)
+
+    # 3. Each kernel against its twin on the phase's card inputs: the
+    #    transforms inverted one by one, the kernel's output feeding the next.
+    ops = {0: ("predictor", K.inverse_predictor_, K.inverse_predictor_plain_),
+           1: ("color_transform", K.color_transform_, K.color_transform_plain_),
+           2: ("subtract_green", K.subtract_green_, K.subtract_green_plain_),
+           3: ("color_indexing", K.color_indexing, K.color_indexing_plain)}
+    err = {k: 0 for k in launches}
+    steps = {}
+    for name in ("photo", "palette"):
+        results = ldev.entropy_batch(batches[name], WIDTH, HEIGHT)
+        sig = ldev.signature(results[0][1], results[0][0].shape[1])
+        idxs = list(range(BATCH))
+        params = [None if p is None else torch.from_numpy(p).to(dev)
+                  for p in ldev.stack_params(results, idxs, sig, HEIGHT)]
+        px = torch.from_numpy(np.stack([r[0] for r in results])).to(dev)
+        for (ttype, size_bits, table_size), param in zip(reversed(sig[:-1]), reversed(params)):
+            kname, kernel, plain = ops[ttype]
+            extra = {0: (param, size_bits), 1: (param, size_bits), 2: (),
+                     3: (param, table_size, WIDTH)}[ttype]
+            out = kernel(px.clone(), *extra)
+            out_p, t_plain = timed(lambda: plain(px.clone(), *extra))
+            err[kname] = max(err[kname], max_abs_err(out, out_p))
+            steps[(name, kname)] = (kernel, px, extra, t_plain)
+            px = out
+        if max_abs_err(px, torch.from_numpy(np.stack(want[name])).to(dev)):
+            raise AssertionError(f"{name}: the stepped kernels' output differs from the source")
+
+    # K11 unpacked (> 16 entries), where one PyTorch call computes it too.
+    rng = np.random.RandomState(LOSSLESS_SEEDS[0])
+    table_u = np.zeros((BATCH, 256, 4), np.uint8)
+    table_u[:, :200] = rng.randint(0, 256, (BATCH, 200, 4))
+    px_u = np.zeros((BATCH, HEIGHT, WIDTH, 4), np.uint8)
+    px_u[..., 1] = rng.randint(0, 200, (BATCH, HEIGHT, WIDTH))
+    px_u, table_u = torch.from_numpy(px_u).to(dev), torch.from_numpy(table_u).to(dev)
+    idx_u = px_u[..., 1].long()
+    b_idx = torch.arange(BATCH, device=dev)[:, None, None]
+    out_u = K.color_indexing(px_u, table_u, 200, WIDTH)
+    err_u = max(max_abs_err(out_u, K.color_indexing_plain(px_u, table_u, 200, WIDTH)),
+                max_abs_err(out_u, table_u[b_idx, idx_u]))
+    torch.cuda.synchronize()
+    bad = {k: e for k, e in err.items() if e != 0}
+    if bad or err_u:
+        raise AssertionError(f"kernels differ from their plain twins: {bad}, unpacked K11 {err_u}")
+    print(f"[lossless] kernels vs plain twins (bit-exact, tolerance 0; K11 also unpacked, and "
+          f"vs one indexing call): {err}", flush=True)
+
+    # 4. Timings at the main path's shapes: K9, K10, K12 on the photo (K12
+    #    also on the packed palette image), K11 on the palette; kernel
+    #    beside its twin (one timed run) and its bound.  The in-place
+    #    kernels start each run from a fresh copy of their input.
+    records = {}
+    for (name, kname), (kernel, inp, extra, t_plain) in steps.items():
+        work = inp.clone()
+        if kname == "color_indexing":
+            t = time_ms(lambda: kernel(inp, *extra), 20)
+        else:
+            t = time_ms(lambda: kernel(work, *extra), 20, lambda: work.copy_(inp))
+        npx = inp.shape[0] * inp.shape[1] * inp.shape[2]
+        if kname == "subtract_green":
+            b = bound(2 * nbytes(inp), npx * 8)
+        elif kname == "color_transform":
+            b = bound(2 * nbytes(inp) + nbytes(extra[0]), npx * 25)
+        elif kname == "color_indexing":
+            b = bound(nbytes(inp, extra[0]) + BATCH * HEIGHT * WIDTH * 4,
+                      BATCH * HEIGHT * WIDTH * 8)
+        else:
+            b = bound(2 * nbytes(inp) + nbytes(extra[0]),
+                      predictor_ops(extra[0], extra[1], inp.shape[2], inp.shape[1]))
+        print(f"[lossless] {kname} ({name}, {tuple(inp.shape)}): {t:.4f} ms kernel, "
+              f"{t_plain:.4f} ms plain, bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({card})", flush=True)
+        if kname not in records:  # the photo's predictor, the full width
+            records[kname] = {"ms": t, "plain_ms": t_plain, **b}
+    u_ms = time_ms(lambda: K.color_indexing(px_u, table_u, 200, WIDTH), 20)
+    u_plain = time_ms(lambda: K.color_indexing_plain(px_u, table_u, 200, WIDTH), 5)
+    u_lib = time_ms(lambda: table_u[b_idx, idx_u], 20)
+    u_bound = bound(nbytes(px_u, table_u) + BATCH * HEIGHT * WIDTH * 4, BATCH * HEIGHT * WIDTH * 8)
+    print(f"[lossless] color_indexing unpacked (200 entries, {tuple(px_u.shape)}): {u_ms:.4f} ms "
+          f"kernel, {u_plain:.4f} ms plain, {u_lib:.4f} ms table[b, idx] (int64 indices made "
+          f"before), bound {u_bound['bound_ms']:.4f} ms by {u_bound['bound_by']} ({card})",
+          flush=True)
+
+    # 5. End to end (host clock): entropy on the host's threads, upload,
+    #    kernels, fetch; beside the host C++ full decode, one image at a time.
+    reps = 3
+    for name in ("photo", "palette"):
+        decode_lossless_batch_device(batches[name], WIDTH, HEIGHT, device=dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            decode_lossless_batch_device(batches[name], WIDTH, HEIGHT, device=dev)
+        e2e = (time.perf_counter() - t0) * 1000 / (reps * BATCH)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ldev.entropy_batch(batches[name], WIDTH, HEIGHT)
+        entropy = (time.perf_counter() - t0) * 1000 / (reps * BATCH)
+        t0 = time.perf_counter()
+        for s in batches[name]:
+            native.vp8l_decode(s, WIDTH, HEIGHT)
+        host = (time.perf_counter() - t0) * 1000 / BATCH
+        print(f"[lossless] {name}: decode_lossless_batch_device {e2e:.4f} ms/img (host clock; "
+              f"its threaded entropy pass alone {entropy:.4f}); host C++ vp8l_decode "
+              f"{host:.4f} ms/img, one thread ({card})", flush=True)
+    # One PyTorch call computes K11 only unpacked (above); none computes
+    # K9, K10 or K12 (a wavefront recurrence).
+    return {k: {"launches": launches[k], "max_abs_err": err[k], **records[k], "library_ms": None}
+            for k, _, _ in LOSSLESS_KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -722,6 +937,7 @@ def main() -> int:
         print(f"card: {card}", flush=True)
 
         records = decode_phase(dev, card)
+        records.update(lossless_phase(dev, card))
         for job in ENCODES:
             # A kernel on both encode paths: launches and errors over both,
             # the times of the flagship's (the last) path.
@@ -737,7 +953,7 @@ def main() -> int:
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, **records[name]}
-        for name, source, replaces in DECODE_KERNELS + ENCODE_KERNELS
+        for name, source, replaces in DECODE_KERNELS + ENCODE_KERNELS + LOSSLESS_KERNELS
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -10,8 +10,10 @@ that is not a whole number of MBs) and seeded random keyframes
 (`random_vp8.py`: both loop filter kinds, escapes, several partitions).
 Encode inputs are seeded synthetic frames (`synthetic_rgb.py`), seeded
 level arrays, seeded token probabilities and seeded segment ids; the
-encode kernels' twins run on CPU copies of the same inputs.  Tolerance:
-bit-exact (integer arithmetic).
+encode kernels' twins run on CPU copies of the same inputs.  Lossless
+inputs are seeded pixels, modes, coefficients and palettes, and seeded
+VP8L streams (`random_vp8l.py`) checked against the host C++ decode and
+their sources.  Tolerance: bit-exact (integer arithmetic).
 """
 
 import numpy as np
@@ -29,12 +31,15 @@ from webp_tpu_torch.ops.enc_params import EncParams, EncTables
 from webp_tpu_torch.ops.enc_tables import enc_tables, enc_tables_plain
 from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch, encode_analysis_batch_plain
 from webp_tpu_torch.ops.token_stats import token_stats, token_stats_plain
+from webp_tpu_torch.io import native
 from webp_tpu_torch.ops import residual
+from webp_tpu_torch.ops import vp8l_device as L
 from webp_tpu_torch.ops.loopfilter import loop_filter_, loop_filter_plain_
 from webp_tpu_torch.ops.wavefront import recon_, recon_plain_
 from webp_tpu_torch.ops.yuv import fancy_yuv420_to_rgb, fancy_yuv420_to_rgb_plain
 
 from random_vp8 import random_keyframe
+from random_vp8l import PALETTE, SUBTRACT_GREEN, color, predictor, quantize, vp8l_stream, with_alpha
 from synthetic_rgb import synthetic_frame
 from torch_fixtures import encode_frame, force_escapes, mixed_payloads, scalar_decode
 
@@ -145,7 +150,9 @@ def test_slice_on_card_matches_scalar(cuda, payloads, out):
     got = tdev.dispatch_decode_batch(payloads, out=out, device=cuda).cpu()
     assert _build.LAUNCHES == {"residual": 1, "recon": 1, "loopfilter": 1,
                                "yuv2rgb": int(out == "rgb"),
-                               "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0}
+                               "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0,
+                               "subtract_green": 0, "color_transform": 0, "color_indexing": 0,
+                               "predictor": 0}
     for i, p in enumerate(payloads):
         np.testing.assert_array_equal(got[i].numpy(), scalar_decode(p)[0 if out == "rgb" else 1])
 
@@ -324,3 +331,109 @@ def test_trellis_more_mb_rows_than_wavefront_warps(cuda):
     rgbs = [synthetic_frame(40, 630, 6)]
     want = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 4, device="cpu")
     assert webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 4, device=cuda) == want
+
+
+# ---- lossless: K9 subtract_green, K10 color_transform, K11 color_indexing, K12 predictor
+
+
+def _bytes(seed: int, *shape) -> torch.Tensor:
+    return torch.from_numpy(np.random.RandomState(seed).randint(0, 256, shape).astype(np.uint8))
+
+
+@pytest.mark.parametrize("kernel,param", [("subtract_green", 0), ("color_transform", 2),
+                                          ("color_transform", 3), ("color_transform", 5),
+                                          ("color_indexing", 2), ("color_indexing", 4),
+                                          ("color_indexing", 11), ("color_indexing", 17),
+                                          ("color_indexing", 250)])
+def test_vp8l_pointwise_kernels_match_plain(cuda, kernel, param):
+    before = _build.LAUNCHES[kernel]
+    if kernel == "subtract_green":
+        px = _bytes(0, 3, 13, 17, 4)
+        want = L.subtract_green_plain_(px.clone())
+        got = L.subtract_green_(px.to(cuda))
+    elif kernel == "color_transform":
+        px = _bytes(1, 2, 21, 37, 4)
+        tf = _bytes(2, 2, L.subsample(21, param), L.subsample(37, param), 4)
+        want = L.color_transform_plain_(px.clone(), tf, param)
+        got = L.color_transform_(px.to(cuda), tf.to(cuda), param)
+    else:  # indices past table_size read the zero padding
+        px = _bytes(3, 2, 9, L.subsample(29, L.pack_bits(param)), 4)
+        table = torch.zeros((2, 256, 4), dtype=torch.uint8)
+        table[:, :param] = _bytes(4, 2, param, 4)
+        want = L.color_indexing_plain(px, table, param, 29)
+        got = L.color_indexing(px.to(cuda), table.to(cuda), param, 29)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[kernel] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("size_bits,h,w,n_modes,batch",
+                         [(2, 8, 8, 14, 2), (2, 13, 29, 14, 2), (3, 17, 40, 14, 2),
+                          (4, 31, 65, 14, 2), (2, 1, 7, 14, 2), (2, 5, 1, 14, 2),
+                          (3, 20, 33, 16, 2), (9, 40, 70, 14, 2), (2, 1500, 5, 14, 1),
+                          (2, 300, 2100, 14, 1), (2, 512, 768, 14, 8)])
+def test_vp8l_predictor_kernel_matches_plain(cuda, size_bits, h, w, n_modes, batch):
+    """Modes 14 and 15 (n_modes 16) add zero; h = 1500 and w = 2100 (more
+    active rows than the block's 256 threads) stride the threads over rows;
+    768x512 at batch 8 is the main path's shape."""
+    px = _bytes(5, batch, h, w, 4)
+    modes = torch.from_numpy(np.random.RandomState(6).randint(
+        0, n_modes, (batch, L.subsample(h, size_bits), L.subsample(w, size_bits))).astype(np.uint8))
+    want = L.inverse_predictor_plain_(px.clone(), modes, size_bits)
+    before = _build.LAUNCHES["predictor"]
+    got = L.inverse_predictor_(px.to(cuda), modes.to(cuda), size_bits)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["predictor"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+_LOSSLESS = {
+    "sg_pred_ct": ((SUBTRACT_GREEN, predictor(2), color(3)), lambda s: with_alpha(
+        synthetic_frame(61, 37, s), s), {"subtract_green": 1, "color_transform": 1,
+                                         "predictor": 1}),
+    "ct_pred": ((color(2), predictor(3)), lambda s: with_alpha(synthetic_frame(61, 37, s), s),
+                {"color_transform": 1, "predictor": 1}),
+    "pal11_pred": ((PALETTE, predictor(2)), lambda s: quantize(
+        with_alpha(synthetic_frame(61, 37, s), s), 11, s), {"color_indexing": 1, "predictor": 1}),
+    "pal200": ((PALETTE,), lambda s: _bytes(s, 200, 4)[torch.from_numpy(
+        np.random.RandomState(s).randint(0, 200, (37, 61)))].numpy(), {"color_indexing": 1}),
+}
+
+
+@pytest.mark.parametrize("name", list(_LOSSLESS))
+def test_vp8l_slice_on_card_matches_host(cuda, name):
+    transforms, make, launched = _LOSSLESS[name]
+    sources = [make(s) for s in (31, 32)]
+    streams = [vp8l_stream(src, s, transforms) for s, src in zip((1, 2), sources)]
+    _build.reset_launches()
+    got = webp_tpu_torch.decode_lossless_batch_device(streams, 61, 37, device=cuda)
+    assert {k: n for k, n in _build.LAUNCHES.items() if n} == launched
+    for g, stream, src in zip(got, streams, sources):
+        np.testing.assert_array_equal(g, src)
+        np.testing.assert_array_equal(native.vp8l_decode(stream, 61, 37), src)
+
+
+def test_vp8l_mixed_batch_and_device_out_on_card(cuda):
+    sources = [make(31) for _, make, _ in _LOSSLESS.values()]
+    streams = [vp8l_stream(src, 3, t) for (t, _, _), src in zip(_LOSSLESS.values(), sources)]
+    got = webp_tpu_torch.decode_lossless_batch_device(streams + streams[:1], 61, 37, device=cuda,
+                                                      device_out=True)
+    assert isinstance(got, np.ndarray)  # four signatures: delivered on the host
+    for g, src in zip(got, sources + sources[:1]):
+        np.testing.assert_array_equal(g, src)
+    one = webp_tpu_torch.decode_lossless_batch_device(streams[:1] * 3, 61, 37, device=cuda,
+                                                      device_out=True)
+    assert one.device.type == "cuda" and one.shape == (3, 37, 61, 4)
+    for g in one.cpu().numpy():
+        np.testing.assert_array_equal(g, sources[0])
+
+
+def test_vp8l_wrappers_reject_bad_layouts(cuda):
+    buf = torch.zeros(4 * 8 * 4 + 1, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):  # not 4-byte aligned
+        L.subtract_green_(buf[1:].view(1, 4, 8, 4))
+    px = torch.zeros((1, 4, 8, 4), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        L.inverse_predictor_(px, torch.zeros((1, 1, 1), dtype=torch.uint8, device=cuda), 2)
+    with pytest.raises(ValueError):
+        L.color_indexing(px, torch.zeros((1, 256, 4), dtype=torch.int32, device=cuda), 200, 8)

@@ -92,12 +92,30 @@ _SIGNATURES = {
         _P, _P, _P, _P,      # pos, cls, eob, init costs out
         _P,
     ],
+    "webp_vp8l_subtract_green": [_P, _L, _P],   # pixels (in place), pixel count
+    "webp_vp8l_color_transform": [
+        _P, _P,              # pixels (in place), transform image [B, bh, bw, 4]
+        _I, _I, _I, _I,      # size_bits, w, h, batch
+        _P,
+    ],
+    "webp_vp8l_color_indexing": [
+        _P, _I, _P, _I,      # packed pixels, packed width, palettes [B, 256, 4], table_size
+        _I, _I, _I,          # width, h, batch
+        _P,                  # pixels out [B, h, width, 4]
+        _P,
+    ],
+    "webp_vp8l_predictor": [
+        _P, _P,              # pixels (in place), modes [B, bh, bw]
+        _I, _I, _I, _I,      # size_bits, w, h, batch
+        _P,
+    ],
 }
 
 # Kernel name -> launches since the last reset_launches().  Each wrapper
 # counts here, and only when its kernel was launched.
 LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "yuv2rgb": 0,
-            "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0}
+            "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0,
+            "subtract_green": 0, "color_transform": 0, "color_indexing": 0, "predictor": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -145,20 +163,44 @@ def _build() -> None:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, LIB_PATH)
+        write_stamp(LIB_PATH, _sources())
         PTXAS_REPORT.write_text("".join(reports))
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
 
 
+def _sources() -> list:
+    return sorted(CSRC.iterdir())
+
+
+def _stamp_text(sources) -> str:
+    return "\n".join(p.name for p in sources)
+
+
+def write_stamp(lib: Path, sources) -> None:
+    """Record beside `lib` the names of the sources it was built from."""
+    lib.with_suffix(".sources").write_text(_stamp_text(sources))
+
+
+def stale(lib: Path, sources) -> bool:
+    """Whether `lib` must be built from `sources`: it is missing, was built
+    from another list of sources (a library that lacks a newer source's
+    symbols can be newer than every source), or is older than one."""
+    stamp = lib.with_suffix(".sources")
+    if not lib.exists() or not stamp.exists() or stamp.read_text() != _stamp_text(sources):
+        return True
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in sources)
+
+
 def load():
-    """Build (if the sources are newer than the library) and load the kernels."""
+    """Build (if the library is missing, from other sources, or older than
+    one of them) and load the kernels."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        newest = max(p.stat().st_mtime for p in CSRC.iterdir())
-        if not LIB_PATH.exists() or LIB_PATH.stat().st_mtime < newest:
+        if stale(LIB_PATH, _sources()):
             _build()
         lib = ctypes.CDLL(str(LIB_PATH))
         for name, argtypes in _SIGNATURES.items():

@@ -1,12 +1,14 @@
 """ctypes bindings for the host halves of the codec: the C++ entropy passes.
 
-The boolean arithmetic coders are the codec's serial tail and run on the
-host.  Their source is the repo's `native/vp8_entropy.cpp`; this module
-builds it with g++ at first use into `build/` beside the package (its own
-copy, so that it never shares a library file with another process's build)
-and binds the entry points the decode needs (frame parse, levels-mode
-entropy decode, fancy YUV->RGB) and those the encode needs (RGB->YUV420,
-token statistics, token and MB-header coding).
+The boolean arithmetic coders and the VP8L Huffman decoder are the
+codec's serial tail and run on the host.  Their sources are the repo's
+`native/vp8_entropy.cpp` and `native/vp8l.cpp`; this module builds them
+with g++ at first use into one library in `build/` beside the package (its
+own copy, so that it never shares a library file with another process's
+build) and binds the entry points the lossy decode needs (frame parse,
+levels-mode entropy decode, fancy YUV->RGB), those the encode needs
+(RGB->YUV420, token statistics, token and MB-header coding) and those the
+lossless decode needs (VP8L entropy pass, full host decode).
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import _build as build
 from ..common import vp8_tables as T
 
 _ROOT = Path(__file__).resolve().parent.parent.parent
-SRC = _ROOT / "native" / "vp8_entropy.cpp"
+SRCS = (_ROOT / "native" / "vp8_entropy.cpp", _ROOT / "native" / "vp8l.cpp")
 LIB_PATH = _ROOT / "build" / "libwebp_tpu_torch_native.so"
 
 _lib = None
@@ -45,20 +48,22 @@ def _build() -> None:
     # loads a half-written library.
     LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
     tmp = LIB_PATH.with_suffix(f".tmp{os.getpid()}.so")
-    proc = subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", str(tmp), str(SRC)],
+    proc = subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", str(tmp), *map(str, SRCS)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, LIB_PATH)
+    build.write_stamp(LIB_PATH, SRCS)
 
 
 def load():
-    """Build (if the source is newer than the library) and load it."""
+    """Build (if the library is missing, from other sources, or older than
+    one of them) and load it."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        if not LIB_PATH.exists() or LIB_PATH.stat().st_mtime < SRC.stat().st_mtime:
+        if build.stale(LIB_PATH, SRCS):
             _build()
         lib = ctypes.CDLL(str(LIB_PATH))
         lib.vp8_parse_dims.restype = ctypes.c_int
@@ -85,6 +90,12 @@ def load():
             _i32p, _i32p, _i32p, _i32p, _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, _u8p, _u8p, _u8p, ctypes.c_int,
         ]
+        lib.vp8l_decode_entropy.restype = ctypes.c_int
+        lib.vp8l_decode_entropy.argtypes = [_u8p, ctypes.c_int, ctypes.c_int32, ctypes.c_int32,
+                                            ctypes.c_int, _u8p, _i32p, _u8p, ctypes.c_int]
+        lib.vp8l_decode.restype = ctypes.c_int
+        lib.vp8l_decode.argtypes = [_u8p, ctypes.c_int, ctypes.c_int32, ctypes.c_int32,
+                                    ctypes.c_int, _u8p]
         _lib = lib
         return lib
 
@@ -217,3 +228,48 @@ def vp8_mbheader_encode(enc, luma_mode, bpred, chroma_mode, skipped, mbw: int, s
     if n < 0:
         raise ValueError(f"vp8_mbheader_encode failed: {n}")
     return out[:n].tobytes()
+
+
+def vp8l_decode_entropy(data, width: int, height: int, implicit: bool = False):
+    """The entropy pass of one VP8L stream, its inverse transforms not applied.
+
+    Returns (buf [height, tw, 4] uint8, transforms): tw is the width the
+    entropy-coded image has after the stream's transforms (a palette of <= 16
+    colours packs it), and transforms lists (type, size_bits, table_size,
+    data) in stream order: type 0 predictor, 1 colour, 2 subtract-green,
+    3 colour indexing; data is the sub-image (bh * bw * 4 bytes) or the
+    delta-decoded palette (table_size * 4 bytes) as uint8.  `implicit`: the
+    stream has no header (an ALPH payload).  Raises ValueError with the C++
+    error code on a stream it rejects.
+    """
+    src = np.frombuffer(bytes(data), np.uint8)
+    out = np.zeros(height * width * 4, np.uint8)
+    meta = np.zeros(1 + 4 * 4, np.int32)  # [n, (type, size_bits, table_size, len) x 4]
+    # The largest sub-images: predictor and colour images at size_bits 2,
+    # plus a 256-entry palette.
+    tdata = np.zeros(2 * ((width + 3) // 4) * ((height + 3) // 4) * 4 + 1024, np.uint8)
+    tw = load().vp8l_decode_entropy(
+        _p(src, ctypes.c_uint8), len(src), width, height, int(bool(implicit)),
+        _p(out, ctypes.c_uint8), _p(meta, ctypes.c_int32), _p(tdata, ctypes.c_uint8), len(tdata),
+    )
+    if tw <= 0:
+        raise ValueError(f"vp8l_decode_entropy failed: {tw}")
+    transforms, off = [], 0
+    for i in range(int(meta[0])):
+        ttype, size_bits, table_size, dlen = (int(v) for v in meta[1 + 4 * i: 5 + 4 * i])
+        transforms.append((ttype, size_bits, table_size, tdata[off: off + dlen].copy()))
+        off += dlen
+    return out[: height * tw * 4].reshape(height, tw, 4), transforms
+
+
+def vp8l_decode(data, width: int, height: int, implicit: bool = False) -> np.ndarray:
+    """Full host decode of one VP8L stream, transforms included ->
+    RGBA [height, width, 4] uint8.  Raises ValueError with the C++ error
+    code on a stream it rejects."""
+    src = np.frombuffer(bytes(data), np.uint8)
+    out = np.empty((height, width, 4), np.uint8)
+    rc = load().vp8l_decode(_p(src, ctypes.c_uint8), len(src), width, height,
+                            int(bool(implicit)), _p(out, ctypes.c_uint8))
+    if rc != 0:
+        raise ValueError(f"vp8l_decode failed: {rc}")
+    return out
