@@ -34,7 +34,15 @@ the default tables and segment ids), K6 token_stats (also against the host
 C++ token statistics) and K7
 enc_tables are each held bit-exact to their plain twins on the main
 path's card inputs; the payloads decode through K1-K4 bit-exact with the
-plain CPU decode.
+plain CPU decode.  In both phases the device-token flow
+(`device_tokens=True`: K13 codes the coefficient partitions from pass 2's
+levels on the card, K14 the MB headers) gives the same payloads as the
+host finisher.  In the flagship phase K13 coeff_tokens and K14 mb_headers
+are held bit-exact to their plain twins on the card's own pass-2 arrays,
+K15 bool_lanes on adversarial carry streams (`tests/token_inputs.py`), and
+the host C++ coders (`vp8_token_encode`, `vp8_mbheader_encode`) are timed
+on the same arrays as the yardstick; both phases time the end to end with
+and without device tokens in alternating runs.
 
 Lossless (VP8L) decode.  Two distinct seeded synthetic frames with seeded
 alpha (`tests/synthetic_rgb.py`, `tests/random_vp8l.py`) are written by
@@ -51,7 +59,7 @@ unpacked 200-colour index image, beside one PyTorch indexing call.
 
 Prints the card's name and power limit, per-kernel timings (CUDA events;
 kernel beside plain twin and the kernel's bound), the encodes' per-stage
-host-clock split, the lossless decode's ms/img beside the host C++
+host-clock split (both flows) and d2h bytes, the lossless decode's ms/img beside the host C++
 decode's, one JSON line of kernel records and, last,
 {"ok": true, "device": {...}}.
 Exits non-zero, without that line, when there is no CUDA device or any
@@ -104,6 +112,13 @@ ENCODE_KERNELS = [
     ("token_stats", "webp_tpu_torch/csrc/token_stats.cu", "webp_tpu/ops/token_stats.py:183"),
     ("enc_tables", "webp_tpu_torch/csrc/enc_tables.cu",
      "webp_tpu/ops/encode_wavefront2.py:1405"),
+]
+TOKEN_KERNELS = [
+    ("coeff_tokens", "webp_tpu_torch/csrc/tokens.cu",
+     "webp_tpu/ops/token_ops.py:228 (+ :80, :169) + webp_tpu/ops/boolenc2.py:89"),
+    ("mb_headers", "webp_tpu_torch/csrc/tokens.cu",
+     "webp_tpu/ops/token_ops.py:424 (+ :340) + webp_tpu/ops/boolenc2.py:89"),
+    ("bool_lanes", "webp_tpu_torch/csrc/tokens.cu", "webp_tpu/ops/boolenc2.py:89"),
 ]
 LOSSLESS_KERNELS = [
     ("subtract_green", "webp_tpu_torch/csrc/vp8l.cu", "webp_tpu/ops/vp8l_device.py:45"),
@@ -212,13 +227,24 @@ def enc_ops(n_mb: int, n_i4: int, n_try: int, trellis: bool) -> float:
     return ops
 
 
+# Integer operations of one coder step (`csrc/boolenc.cuh` put: the split,
+# the update, ~1.5 doublings of 5 operations and a byte store every 8 bits),
+# and of generating one op in K13 and K14 (the class or symbol, the table
+# lookups of its node and probability); K13 also scans each MB's 400 levels
+# once and its blocks' neighbours for the contexts.
+OPS_CODER_STEP = 16
+OPS_OP_GEN = 8
+OPS_CTX_BLOCK = 16 + 2 * 16
+
+
 def ptxas_report() -> list:
-    """K5's (both instances) and K8's registers, shared memory and spills,
-    from the build's ptxas report."""
+    """K5's (both instances), K8's and K13-K15's registers, shared memory
+    and spills, from the build's ptxas report."""
     from webp_tpu_torch import _build
 
     names = {"enc_kernelILb0E": "enc<no trellis>", "enc_kernelILb1E": "enc<trellis>",
-             "analysis_kernel": "analysis"}
+             "analysis_kernel": "analysis", "coeff_tokens_kernel": "coeff_tokens",
+             "mb_headers_kernel": "mb_headers", "bool_lanes_kernel": "bool_lanes"}
     if not _build.PTXAS_REPORT.exists():  # a library built before the report was kept
         return []
     out, name = [], None
@@ -480,10 +506,11 @@ def check_reference(ref, segments: bool) -> str:
     return summary
 
 
-def encode_stages(rgbs, dev, method: int, segments: bool, reps: int = 3):
+def encode_stages(rgbs, dev, method: int, segments: bool, device_tokens: bool = False,
+                  reps: int = 3):
     """Host-clock ms per stage of the two-pass encode (a synchronise ends
-    each), the median of `reps` runs after a warm-up; also the bytes of the
-    pass-2 arrays fetched and the payloads."""
+    each), the median of `reps` runs after a warm-up; also the bytes that
+    came back from the device after pass 2, and the payloads."""
     import torch
 
     from webp_tpu_torch.common import vp8_tables as T
@@ -493,8 +520,10 @@ def encode_stages(rgbs, dev, method: int, segments: bool, reps: int = 3):
 
     height, width = rgbs[0].shape[:2]
     n_try = edev.n_try_for(method)
-    names = ("rgb_to_yuv", "upload", "segment", "pass1", "stats_d2h_probs", "tables", "pass2",
-             "d2h", "finish")
+    mbw, mbh = width // 16, height // 16
+    names = ("rgb_to_yuv", "upload", "segment", "pass1", "stats_d2h_probs", "tables", "pass2")
+    names += (("encode_tokens", "fetch_tokens", "header_coders", "mb_headers", "assemble")
+              if device_tokens else ("d2h", "finish"))
     runs = []
     for _ in range(reps + 1):
         t = [time.perf_counter()]
@@ -519,14 +548,28 @@ def encode_stages(rgbs, dev, method: int, segments: bool, reps: int = 3):
         mark()
         arrays = encode_analysis_batch(y, u, v, P, tables, n_try, method >= 4, sid)
         mark()
-        host = edev.fetch(arrays)
-        mark()
-        payloads = edev.finish_frames_lossy_batch(host, probs, QUALITY, width, height, PARTITIONS,
-                                                  segs)
-        mark()
+        if device_tokens:
+            skipped, lanes = edev.encode_tokens(arrays, probs, mbw, mbh, PARTITIONS)
+            mark()
+            tokens = edev.fetch_tokens(arrays, skipped, lanes, sid)
+            mark()
+            coders = edev.header_coders(tokens, probs, QUALITY, segs)
+            mark()
+            headers = edev.code_mb_headers(tokens, coders, mbw, mbh, segs)
+            mark()
+            payloads = edev.assemble(tokens, coders, headers, width, height)
+            mark()
+            d2h = tokens.meta.nbytes + sum(a.nbytes for a in (*tokens.parts, *headers))
+        else:
+            host = edev.fetch(arrays)
+            mark()
+            payloads = edev.finish_frames_lossy_batch(host, probs, QUALITY, width, height,
+                                                      PARTITIONS, segs)
+            mark()
+            d2h = nbytes(*arrays.values())
         runs.append([(b - a) * 1000 for a, b in zip(t, t[1:])])
     ms = {n: statistics.median(r[i] for r in runs[1:]) for i, n in enumerate(names)}
-    return ms, nbytes(*arrays.values()), payloads
+    return ms, d2h, payloads
 
 
 def encode_phase(dev, card: str, method: int, segments: bool, pending) -> dict:
@@ -554,6 +597,7 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending) -> dict:
     name = f"Q{QUALITY} m{method}, segments {'on' if segments else 'off'}, {PARTITIONS} partitions"
     n_try, trellis = edev.n_try_for(method), method >= 4
     kernels = [k for k, _, _ in ENCODE_KERNELS if segments or k != "analysis"]
+    flagship = (method, segments) == ENCODES[-1]
 
     # 1. Inputs: two distinct frames tiled into a batch of 8, and the plain
     #    CPU encode of the distinct frames (from the worker).
@@ -589,6 +633,24 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending) -> dict:
         payloads[two_pass] = got
     print(f"[{name}] main path: byte-equal to the plain CPU encode on 2 x {BATCH} images "
           f"(two-pass and one-pass); launches {launches}", flush=True)
+
+    # The device-token flow, counted: the same payloads as the host finisher.
+    expect = {"enc": 2, "token_stats": 1, "enc_tables": 1, "coeff_tokens": 1, "mb_headers": 1,
+              "bool_lanes": 0, **({"analysis": 1} if segments else {})}
+    _build.reset_launches()
+    got = encode_frames_lossy_batch(rgbs, QUALITY, method, True, segments,
+                                    num_partitions=PARTITIONS, device=dev, device_tokens=True)
+    torch.cuda.synchronize()
+    counts = {k: _build.LAUNCHES[k] for k in expect}
+    if counts != expect:
+        raise AssertionError(f"device_tokens launched {counts}, expected {expect}")
+    if got != payloads[True]:
+        raise AssertionError("the device-token payloads differ from the host finisher's")
+    for k in kernels:
+        launches[k] += counts[k]
+    token_launches = {k: counts[k] for k, _, _ in TOKEN_KERNELS}
+    print(f"[{name}] device-token path: byte-equal to the host finisher's payloads on {BATCH} "
+          f"images; launches {counts}", flush=True)
 
     # 3. Each kernel against its plain twin, on the main path's card inputs
     #    (the twins' single runs timed by CUDA events).
@@ -688,26 +750,150 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending) -> dict:
         print(f"[{name}] {k}{what}: {ms[k]:.4f} ms kernel, {plain_ms[k]:.4f} ms plain, bound "
               f"{bounds[k]['bound_ms']:.4f} ms by {bounds[k]['bound_by']} ({shape})", flush=True)
     stage_ms, nb, staged = encode_stages(rgbs, dev, method, segments)
-    if staged != payloads[True]:
+    tok_stage_ms, tok_nb, tok_staged = encode_stages(rgbs, dev, method, segments, True)
+    if staged != payloads[True] or tok_staged != payloads[True]:
         raise AssertionError("the staged encode differs from the main path")
-    t0 = time.perf_counter()
-    reps = 3
-    for _ in range(reps):
+    # End to end in alternating runs of the two flows (the host clock swings).
+    e2e = {False: [], True: []}
+    for tokens in (False, True, True, False, False, True):
+        t0 = time.perf_counter()
         encode_frames_lossy_batch(rgbs, QUALITY, method, True, segments,
-                                  num_partitions=PARTITIONS, device=dev)
-    e2e_ms = (time.perf_counter() - t0) * 1000 / reps
-    split = ", ".join(f"{k} {x / BATCH:.4f}" for k, x in stage_ms.items())
-    print(f"[{name}] encode_frames_lossy_batch stages (host clock, ms/img): {split} ({card})",
-          flush=True)
+                                  num_partitions=PARTITIONS, device=dev, device_tokens=tokens)
+        torch.cuda.synchronize()
+        e2e[tokens].append((time.perf_counter() - t0) * 1000 / BATCH)
+    for flow, st in (("host finish", stage_ms), ("device tokens", tok_stage_ms)):
+        split = ", ".join(f"{k} {x / BATCH:.4f}" for k, x in st.items())
+        print(f"[{name}] encode_frames_lossy_batch stages, {flow} (host clock, ms/img): {split} "
+              f"({card})", flush=True)
     copy_ms = time_ms(lambda: [a.cpu() for a in pass2.values()], 10)
     print(f"[{name}] pass-2 d2h: {nb // BATCH} bytes/img; the copy alone {copy_ms / BATCH:.4f} "
           f"ms/img (CUDA events), with the host's per-image int32 arrays "
-          f"{stage_ms['d2h'] / BATCH:.4f} ms/img ({card})", flush=True)
-    print(f"[{name}] encode_frames_lossy_batch (two-pass, host clock): {e2e_ms / BATCH:.4f} "
-          f"ms/img ({card})", flush=True)
+          f"{stage_ms['d2h'] / BATCH:.4f} ms/img; device tokens: {tok_nb // BATCH} bytes/img "
+          f"(modes, skip flags, lanes, partition and header bytes) ({card})", flush=True)
+    print(f"[{name}] encode_frames_lossy_batch (two-pass, host clock, alternating runs): host "
+          f"finish {statistics.median(e2e[False]):.4f} ms/img "
+          f"{[round(x, 4) for x in e2e[False]]}, device tokens "
+          f"{statistics.median(e2e[True]):.4f} ms/img {[round(x, 4) for x in e2e[True]]} "
+          f"({card})", flush=True)
     # No single PyTorch call computes any of these functions.
-    return {k: {"launches": launches[k], "max_abs_err": err[k], "ms": ms[k],
-                "plain_ms": plain_ms[k], **bounds[k], "library_ms": None} for k in kernels}
+    records = {k: {"launches": launches[k], "max_abs_err": err[k], "ms": ms[k],
+                   "plain_ms": plain_ms[k], **bounds[k], "library_ms": None} for k in kernels}
+    if flagship:
+        tok = token_phase(dev, card, name, pass2, probs, sid, segs, mbw, mbh)
+        for k, r in tok.items():
+            records[k] = {"launches": token_launches[k], **r}
+    else:  # the payloads above checked what these kernels computed
+        records.update({k: {"launches": n, "max_abs_err": 0} for k, n in token_launches.items()})
+    return records
+
+
+def token_phase(dev, card: str, name: str, pass2, probs, sid, segs, mbw: int, mbh: int) -> dict:
+    """K13, K14 and K15 against their plain twins on the card (K13 and K14
+    on the flagship's pass-2 arrays, K15 on adversarial carry streams),
+    timed beside their bounds and the host C++ coders on the same arrays;
+    name -> kernel record without launches."""
+    import numpy as np
+    import torch
+
+    from token_inputs import CARRY_PATTERNS
+    from webp_tpu_torch.encode import device as edev
+    from webp_tpu_torch.encode import vp8 as tvp8
+    from webp_tpu_torch.encode.contexts import compute_contexts
+    from webp_tpu_torch.io import native
+    from webp_tpu_torch.ops import boolenc2, token_ops
+
+    nmb = mbw * mbh
+    err, plain_ms, ms, bounds, ops = {}, {}, {}, {}, {}
+    # K13 on pass 2's levels and the images' adapted probabilities.
+    tok_in = (pass2["luma_mode"], pass2["y2_levels"], pass2["y_levels"], pass2["uv_levels"],
+              probs.reshape(BATCH, -1))
+    lanes = token_ops.encode_coeff_partitions(*tok_in, mbw, mbh, PARTITIONS)
+    width = lanes.data.shape[-1]
+    lanes_p, plain_ms["coeff_tokens"] = timed(
+        lambda: token_ops.encode_coeff_partitions_plain(*tok_in, mbw, mbh, PARTITIONS, width))
+    err["coeff_tokens"] = max(max_abs_err(a, b) for a, b in zip(lanes, lanes_p))
+    ms["coeff_tokens"] = time_ms(
+        lambda: token_ops._coeff_tokens_kernel(*tok_in, mbw, mbh, PARTITIONS, width), 10)
+    ops["coeff_tokens"] = lanes.n_ops
+    bounds["coeff_tokens"] = bound(
+        nbytes(*tok_in, lanes.fields()) + int(lanes.n_bytes.sum()),
+        int(lanes.n_ops.sum()) * (OPS_CODER_STEP + OPS_OP_GEN) + BATCH * nmb * 25 * OPS_CTX_BLOCK)
+
+    # K14, continuing the frame headers the host writes for these images.
+    skipped = edev.skip_flags(pass2)
+    tokens = edev.fetch_tokens(pass2, skipped, lanes, sid)
+    probs_h = probs.cpu().numpy()
+    coders = edev.header_coders(tokens, probs_h, QUALITY, segs)
+    params = edev.mb_header_params(tokens, coders, segs)
+    hdr_in = (pass2["luma_mode"], pass2["bpred"], pass2["chroma_mode"],
+              torch.zeros_like(pass2["luma_mode"]) if sid is None else sid, skipped)
+    heads = token_ops.encode_mb_headers(*hdr_in, params, mbw, mbh)
+    hwidth = heads.data.shape[-1]
+    heads_p, plain_ms["mb_headers"] = timed(
+        lambda: token_ops.encode_mb_headers_plain(*hdr_in, params, mbw, mbh, hwidth))
+    err["mb_headers"] = max(max_abs_err(a, b) for a, b in zip(heads, heads_p))
+    ms["mb_headers"] = time_ms(
+        lambda: token_ops._mb_headers_kernel(*hdr_in, params, mbw, mbh, hwidth), 10)
+    ops["mb_headers"] = heads.n_ops
+    bounds["mb_headers"] = bound(nbytes(*hdr_in, params, heads.fields()) + int(heads.n_bytes.sum()),
+                                 int(heads.n_ops.sum()) * (OPS_CODER_STEP + OPS_OP_GEN))
+
+    # K15 alone on the carry patterns, from a fresh coder.
+    steps, n_lanes = max(len(b) for b, _ in CARRY_PATTERNS), len(CARRY_PATTERNS)
+    streams = np.zeros((3, steps, n_lanes), np.uint8)
+    for lane, (b, p) in enumerate(CARRY_PATTERNS):
+        streams[0, :len(b), lane], streams[1, :len(b), lane], streams[2, :len(b), lane] = b, p, 1
+    bits, bprobs, valid = torch.from_numpy(streams).to(dev)
+    cap = 4096
+    k15 = boolenc2.bool_encode_lanes(bits, bprobs, valid, cap)
+    k15_p, plain_ms["bool_lanes"] = timed(
+        lambda: boolenc2.bool_encode_lanes_plain(bits, bprobs, valid, cap))
+    err["bool_lanes"] = max(max_abs_err(a, b) for a, b in zip(k15, k15_p))
+    ms["bool_lanes"] = time_ms(
+        lambda: boolenc2._bool_lanes_kernel(bits, bprobs, valid, cap, boolenc2.INIT_STATE), 10)
+    ops["bool_lanes"] = k15.n_ops
+    bounds["bool_lanes"] = bound(3 * steps * n_lanes + nbytes(k15.fields())
+                                 + int(k15.n_bytes.sum()), int(k15.n_ops.sum()) * OPS_CODER_STEP)
+    torch.cuda.synchronize()
+    bad = {k: e for k, e in err.items() if e != 0}
+    if bad:
+        raise AssertionError(f"token kernels differ from their plain twins: {bad}")
+    print(f"[{name}] token kernels vs plain twins (bit-exact, tolerance 0; K13 and K14 on the "
+          f"card's pass-2 arrays, K15 on {n_lanes} carry streams): {err}", flush=True)
+
+    # The yardstick: the host C++ coders on the same arrays, one thread.
+    host = edev.fetch(pass2)
+    streams_h = []
+    for a in host:
+        ctx = compute_contexts(a["luma_mode"], a["y2_levels"], a["y_levels"], a["uv_levels"],
+                               mbw, mbh)
+        streams_h.append(tvp8.token_stream(a, ctx, tvp8.skip_flags(a), mbw))
+    t0 = time.perf_counter()
+    for i, (levels, meta) in enumerate(streams_h):
+        for p in range(PARTITIONS):
+            sel = (meta[:, 3] % PARTITIONS) == p
+            native.vp8_token_encode(levels[sel], meta[sel], probs_h[i])
+    host_tok_ms = (time.perf_counter() - t0) * 1000
+    t0 = time.perf_counter()
+    for i, a in enumerate(host):  # segs: the flagship's segmentations
+        native.vp8_mbheader_encode(coders[i][0], a["luma_mode"], a["bpred"], a["chroma_mode"],
+                                   tokens.meta[i, :, 18], mbw, coders[i][1],
+                                   segs[i].segment_map, segs[i].enabled and segs[i].update_map,
+                                   segs[i].tree_probs)
+    host_hdr_ms = (time.perf_counter() - t0) * 1000
+
+    shape = f"batch {BATCH} at {WIDTH}x{HEIGHT}, {PARTITIONS} partitions; {card}"
+    for k, _, _ in TOKEN_KERNELS:
+        n = ops[k]
+        print(f"[{name}] {k}: {ms[k]:.4f} ms kernel, {plain_ms[k]:.4f} ms plain, bound "
+              f"{bounds[k]['bound_ms']:.4f} ms by {bounds[k]['bound_by']}; {n.numel()} lanes, "
+              f"longest lane {int(n.max())} ops (one dependent chain), "
+              f"{int(n.sum())} ops in all ({shape})", flush=True)
+    print(f"[{name}] host C++ on the same arrays (one thread, the batch): vp8_token_encode "
+          f"{host_tok_ms:.4f} ms ({PARTITIONS} partitions x {BATCH} images), "
+          f"vp8_mbheader_encode {host_hdr_ms:.4f} ms ({card})", flush=True)
+    return {k: {"max_abs_err": err[k], "ms": ms[k], "plain_ms": plain_ms[k], **bounds[k],
+                "library_ms": None} for k, _, _ in TOKEN_KERNELS}
 
 
 def lossless_inputs(width: int, height: int):
@@ -953,7 +1139,8 @@ def main() -> int:
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, **records[name]}
-        for name, source, replaces in DECODE_KERNELS + ENCODE_KERNELS + LOSSLESS_KERNELS
+        for name, source, replaces in (DECODE_KERNELS + ENCODE_KERNELS + TOKEN_KERNELS
+                                       + LOSSLESS_KERNELS)
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -13,7 +13,9 @@ level arrays, seeded token probabilities and seeded segment ids; the
 encode kernels' twins run on CPU copies of the same inputs.  Lossless
 inputs are seeded pixels, modes, coefficients and palettes, and seeded
 VP8L streams (`random_vp8l.py`) checked against the host C++ decode and
-their sources.  Tolerance: bit-exact (integer arithmetic).
+their sources.  The token coder's inputs (`token_inputs.py`) are seeded
+level arrays, MB modes, host coders part-way through a stream and
+adversarial carry streams.  Tolerance: bit-exact (integer arithmetic).
 """
 
 import numpy as np
@@ -32,7 +34,7 @@ from webp_tpu_torch.ops.enc_tables import enc_tables, enc_tables_plain
 from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch, encode_analysis_batch_plain
 from webp_tpu_torch.ops.token_stats import token_stats, token_stats_plain
 from webp_tpu_torch.io import native
-from webp_tpu_torch.ops import residual
+from webp_tpu_torch.ops import boolenc2, residual, token_ops
 from webp_tpu_torch.ops import vp8l_device as L
 from webp_tpu_torch.ops.loopfilter import loop_filter_, loop_filter_plain_
 from webp_tpu_torch.ops.wavefront import recon_, recon_plain_
@@ -41,6 +43,7 @@ from webp_tpu_torch.ops.yuv import fancy_yuv420_to_rgb, fancy_yuv420_to_rgb_plai
 from random_vp8 import random_keyframe
 from random_vp8l import PALETTE, SUBTRACT_GREEN, color, predictor, quantize, vp8l_stream, with_alpha
 from synthetic_rgb import synthetic_frame
+from token_inputs import CARRY_PATTERNS, header_inputs, prefix_coders, token_arrays
 from torch_fixtures import encode_frame, force_escapes, mixed_payloads, scalar_decode
 
 pytestmark = pytest.mark.cuda
@@ -152,7 +155,8 @@ def test_slice_on_card_matches_scalar(cuda, payloads, out):
                                "yuv2rgb": int(out == "rgb"),
                                "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0,
                                "subtract_green": 0, "color_transform": 0, "color_indexing": 0,
-                               "predictor": 0}
+                               "predictor": 0, "coeff_tokens": 0, "mb_headers": 0,
+                               "bool_lanes": 0}
     for i, p in enumerate(payloads):
         np.testing.assert_array_equal(got[i].numpy(), scalar_decode(p)[0 if out == "rgb" else 1])
 
@@ -437,3 +441,109 @@ def test_vp8l_wrappers_reject_bad_layouts(cuda):
         L.inverse_predictor_(px, torch.zeros((1, 1, 1), dtype=torch.uint8, device=cuda), 2)
     with pytest.raises(ValueError):
         L.color_indexing(px, torch.zeros((1, 256, 4), dtype=torch.int32, device=cuda), 200, 8)
+
+
+# ---- device token coder: K13 coeff_tokens, K14 mb_headers, K15 bool_lanes --
+
+
+def _same_lanes(got, want):
+    """Every field, and the bytes (both cut to the largest count, zero past
+    each lane's)."""
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _coeff_inputs(B: int, mbw: int, mbh: int, seed: int):
+    arrays = [torch.from_numpy(a) for a in token_arrays(B, mbw, mbh, seed)]
+    probs = torch.from_numpy(np.random.RandomState(seed).randint(1, 256, (B, 1056))
+                             .astype(np.uint8))
+    return arrays + [probs]
+
+
+@pytest.mark.parametrize("B,mbw,mbh,nparts", [(2, 6, 5, 8), (2, 6, 5, 1), (3, 5, 4, 2),
+                                              (1, 16, 16, 8)])
+def test_coeff_tokens_kernel_matches_plain(cuda, B, mbw, mbh, nparts):
+    """At 6x5 MBs and 8 partitions, three lanes per image are empty.  The
+    seeded levels are denser than an encode's: the capacity is ample."""
+    inputs = _coeff_inputs(B, mbw, mbh, mbw + nparts)
+    want = token_ops.encode_coeff_partitions(*inputs, mbw, mbh, nparts, capacity=1 << 16)
+    before = _build.LAUNCHES["coeff_tokens"]
+    got = token_ops.encode_coeff_partitions(*(a.to(cuda) for a in inputs), mbw, mbh, nparts,
+                                            capacity=1 << 16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["coeff_tokens"] == before + 1
+    _same_lanes(got, want)
+
+
+def _header_args(B: int, mbw: int, mbh: int, write_segments: bool):
+    lm, bp, cm, sid, sk, seg_probs, skip_prob = header_inputs(B, mbw, mbh, 17)
+    encs = prefix_coders(B, 9)
+    state = [[getattr(e, k) for e in encs] for k in ("bottom", "range", "bit_num")]
+    params = token_ops.header_params([write_segments] * B, seg_probs, skip_prob, state, "cpu")
+    return [torch.from_numpy(a) for a in (lm, bp, cm, sid, sk)] + [params], (mbw, mbh)
+
+
+@pytest.mark.parametrize("write_segments", [True, False], ids=["segment_map", "no_map"])
+def test_mb_headers_kernel_matches_plain(cuda, write_segments):
+    modes, args = _header_args(3, 7, 5, write_segments)
+    want = token_ops.encode_mb_headers(*modes, *args)
+    before = _build.LAUNCHES["mb_headers"]
+    got = token_ops.encode_mb_headers(*(a.to(cuda) for a in modes), *args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mb_headers"] == before + 1
+    _same_lanes(got, want)
+
+
+@pytest.mark.parametrize("init", ["fresh", "continued"])
+@pytest.mark.parametrize("case", ["carries", "random"])
+def test_bool_lanes_kernel_matches_plain(cuda, case, init):
+    rng = np.random.RandomState(3)
+    streams = CARRY_PATTERNS if case == "carries" else [
+        (rng.randint(0, 2, n), rng.randint(1, 256, n)) for n in rng.randint(1, 4000, 9)]
+    T, n_lanes = max(len(b) for b, _ in streams), len(streams)
+    bits, probs, valid = (np.zeros((T, n_lanes), np.uint8) for _ in range(3))
+    for lane, (b, p) in enumerate(streams):
+        bits[:len(b), lane], probs[:len(p), lane], valid[:len(b), lane] = b, p, 1
+    state = None
+    if init == "continued":
+        state = [torch.tensor([getattr(e, k) for e in prefix_coders(n_lanes, 5)])
+                 for k in ("bottom", "range", "bit_num")]
+    host = [torch.from_numpy(a) for a in (bits, probs, valid)]
+    want = boolenc2.bool_encode_lanes(*host, 4096, state)
+    before = _build.LAUNCHES["bool_lanes"]
+    got = boolenc2.bool_encode_lanes(*(a.to(cuda) for a in host), 4096, state)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["bool_lanes"] == before + 1
+    _same_lanes(got, want)
+
+
+def test_token_kernels_relaunch_on_overflow(cuda):
+    """A 16-byte capacity: each wrapper launches twice, the second time at
+    the largest reported count, and gives the plain twin's result."""
+    inputs = _coeff_inputs(2, 6, 5, 3)
+    modes, args = _header_args(2, 6, 5, True)
+    before = dict(_build.LAUNCHES)
+    got = token_ops.encode_coeff_partitions(*(a.to(cuda) for a in inputs), 6, 5, 2, capacity=16)
+    got_h = token_ops.encode_mb_headers(*(a.to(cuda) for a in modes), *args, capacity=16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["coeff_tokens"] == before["coeff_tokens"] + 2
+    assert _build.LAUNCHES["mb_headers"] == before["mb_headers"] + 2
+    _same_lanes(got, token_ops.encode_coeff_partitions(*inputs, 6, 5, 2))
+    _same_lanes(got_h, token_ops.encode_mb_headers(*modes, *args))
+
+
+@pytest.mark.parametrize("method,segments,size", [(3, False, (72, 40)), (4, True, (256, 256))],
+                         ids=["m3", "m4_segments"])
+def test_device_tokens_slice_on_card_matches_cpu(cuda, method, segments, size):
+    """The device-token flow on the card (K13 and K14 once each) gives the
+    payloads of the host finisher on the CPU."""
+    rgbs = [synthetic_frame(*size, s) for s in (11, 12)]
+    want = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, method, True, segments,
+                                                    num_partitions=8, device="cpu")
+    _build.reset_launches()
+    got = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, method, True, segments,
+                                                   num_partitions=8, device=cuda,
+                                                   device_tokens=True)
+    assert (_build.LAUNCHES["coeff_tokens"], _build.LAUNCHES["mb_headers"],
+            _build.LAUNCHES["bool_lanes"]) == (1, 1, 0)
+    assert got == want

@@ -8,8 +8,10 @@ segments).  Also, with no JAX compile: the RGB->YUV420 conversion, the
 mixed-geometry entry point, methods 4-6 and segments (on at 256 MBs, the
 segment ids parsed back from the payload by the C++ entropy pass), the
 payloads' round trip through the decoders, and the encode path (the
-flagship, method 4 with segments) in a process where neither jax nor the
-JAX package can be imported.  Tolerance: byte-equal payloads, bit-exact
+flagship, method 4 with segments, with the host finisher and with the
+device token coder) in a process where neither jax nor the JAX package can
+be imported.  The device token coder (`device_tokens=True`) at method 3
+against the JAX package's host writer at 8 partitions.  Tolerance: byte-equal payloads, bit-exact
 planes and segment ids.
 """
 
@@ -71,6 +73,24 @@ def test_encode_matches_jax_method3(rgbs, jax_fetched, two_pass, nparts):
                                                    num_partitions=nparts, device="cpu")
     want = jax_encode(jax_fetched, 3, two_pass, nparts)
     assert got == want
+
+
+def test_device_tokens_match_jax_method3(rgbs, jax_fetched):
+    want = jax_encode(jax_fetched, 3, True, 8)
+    got = webp_tpu_torch.encode_frames_lossy_batch(rgbs, QUALITY, 3, num_partitions=8,
+                                                   device_tokens=True, device="cpu")
+    assert got == want
+    assert webp_tpu_torch.encode_frames_lossy_batch_mixed(
+        rgbs, QUALITY, 3, num_partitions=8, device_tokens=True, device="cpu") == want
+
+
+def test_device_tokens_need_two_pass(rgbs):
+    with pytest.raises(ValueError, match="two-pass"):
+        webp_tpu_torch.encode_frames_lossy_batch(rgbs, QUALITY, 3, False, device_tokens=True,
+                                                 device="cpu")
+    with pytest.raises(ValueError, match="two-pass"):
+        edev.analyze_frames_lossy_batch(edev.rgb_to_planes(rgbs), QUALITY, 3, False,
+                                        device="cpu", device_tokens=True)
 
 
 @pytest.mark.parametrize("width,height,channels", [(72, 40, 3), (33, 17, 4), (1, 1, 3)])
@@ -166,8 +186,8 @@ def test_payloads_round_trip_through_the_decoders(rgbs):
 
 def test_encode_runs_without_jax(tmp_path, flagship):
     """With jax and the JAX package unimportable, the port encodes the
-    flagship (method 4, segments on); the payloads equal those of this
-    process."""
+    flagship (method 4, segments on), with the host finisher and with the
+    device token coder; the payloads equal those of this process."""
     script = textwrap.dedent(
         f"""
         import sys
@@ -179,6 +199,10 @@ def test_encode_runs_without_jax(tmp_path, flagship):
         rgbs = [synthetic_frame({FLAGSHIP}, {FLAGSHIP}, s) for s in {ENC_SEEDS}]
         out = webp_tpu_torch.encode_frames_lossy_batch(rgbs, {QUALITY}, 4, True, True,
                                                        num_partitions=8, device="cpu")
+        tokens = webp_tpu_torch.encode_frames_lossy_batch(rgbs, {QUALITY}, 4, True, True,
+                                                          num_partitions=8, device="cpu",
+                                                          device_tokens=True)
+        assert tokens == out
         for i, p in enumerate(out):
             open(f"p{{i}}.bin", "wb").write(p)
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "webp_tpu")]

@@ -2,7 +2,10 @@
 `webp_tpu_torch.encode_frames_lossy_batch` against the JAX package's
 `analyze_frames_lossy_batch` + `finish_frames_lossy_batch`, two-pass and
 one-pass, 1 and 8 coefficient partitions, on seeded synthetic 256x256
-frames (256 MBs: the least that turns segmentation on).  Kept apart from
+frames (256 MBs: the least that turns segmentation on); also with the
+coefficient partitions and MB headers coded by the device token coder
+(`device_tokens=True`, 8 partitions) against the JAX package's host
+writer at 8 partitions.  Kept apart from
 the other encode files so that the JAX package's compiles of its two
 variants run on their own test worker.  Tolerance: byte-equal payloads.
 """
@@ -48,4 +51,13 @@ def test_encode_matches_jax_method4_segments(rgbs, jax_fetched, two_pass, nparts
     want = jvp8.finish_frames_lossy_batch(planes, fetched, QUALITY, METHOD, W, H, True, nparts)
     got = webp_tpu_torch.encode_frames_lossy_batch(rgbs, QUALITY, METHOD, two_pass, True,
                                                    num_partitions=nparts, device="cpu")
+    assert got == want
+
+
+def test_device_tokens_match_jax_method4_segments(rgbs, jax_fetched):
+    planes, fetched = jax_fetched(True)
+    want = jvp8.finish_frames_lossy_batch(planes, fetched, QUALITY, METHOD, W, H, True, 8)
+    got = webp_tpu_torch.encode_frames_lossy_batch(rgbs, QUALITY, METHOD, True, True,
+                                                   num_partitions=8, device_tokens=True,
+                                                   device="cpu")
     assert got == want

@@ -5,7 +5,9 @@ CUDA kernels for Hopper (sm_90a).
 The host side is the repo's C++ entropy coders (`native/vp8_entropy.cpp`
 and `native/vp8l.cpp`, built with g++ and bound in `io/native.py`), the VP8 spec and encoder
 tables (`common/vp8_tables.py`, `encode/tables.py`) and the encode's
-frame writer (`encode/vp8.py`).  The package imports neither jax nor the JAX
+frame writer (`encode/vp8.py`); with `device_tokens=True` the encode's
+coefficient partitions and MB headers are coded on the card instead
+(`ops/token_ops.py`).  The package imports neither jax nor the JAX
 package `webp_tpu`.  Every entry point takes an explicit `device`:
 "cuda" runs the kernels of `csrc/` (built with nvcc at first use), "cpu"
 runs their plain torch twins.

@@ -109,13 +109,36 @@ _SIGNATURES = {
         _I, _I, _I, _I,      # size_bits, w, h, batch
         _P,
     ],
+    "webp_coeff_tokens": [
+        _P, _L,              # luma_mode (+ batch stride)
+        _P, _P, _P,          # y2, y, uv levels
+        _P, _P, _I,          # probs [B, 1056], constant tables and their count
+        _I, _I, _I, _I, _I,  # mbw, mbh, batch, partitions, byte capacity
+        _P, _P,              # bytes [B, P, cap], fields [B, P, 6] out
+        _P,
+    ],
+    "webp_mb_headers": [
+        _P, _L, _P, _L, _P, _L,   # luma_mode, bpred, chroma_mode (+ batch strides)
+        _P, _L, _P, _L,      # segment ids, skipped (+ batch strides)
+        _P, _P, _I,          # per-image parameters [B, 8], constant tables and their count
+        _I, _I, _I, _I,      # mbw, mbh, batch, byte capacity
+        _P, _P,              # bytes [B, cap], fields [B, 6] out
+        _P,
+    ],
+    "webp_bool_lanes": [
+        _P, _P, _P, _I, _I,  # bits, probs, valid [T, L]; T, L
+        _P, _I,              # initial states [L, 3], byte capacity
+        _P, _P,              # bytes [L, cap], fields [L, 6] out
+        _P,
+    ],
 }
 
 # Kernel name -> launches since the last reset_launches().  Each wrapper
 # counts here, and only when its kernel was launched.
 LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "yuv2rgb": 0,
             "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0,
-            "subtract_green": 0, "color_transform": 0, "color_indexing": 0, "predictor": 0}
+            "subtract_green": 0, "color_transform": 0, "color_indexing": 0, "predictor": 0,
+            "coeff_tokens": 0, "mb_headers": 0, "bool_lanes": 0}
 
 _lib = None
 _lock = threading.Lock()

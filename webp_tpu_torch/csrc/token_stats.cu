@@ -17,6 +17,7 @@
 // output with global atomics once per thread block.
 
 #include "common.cuh"
+#include "contexts.cuh"
 
 namespace {
 
@@ -24,35 +25,6 @@ constexpr int kThreads = 256;
 constexpr int kCounters = 4 * 8 * 3 * 11;
 
 __constant__ int kBands[16] = {0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7};
-
-struct Levels {
-    const uint8_t* lmode;
-    const int16_t *y2, *y, *uv;  // of one image: [nmb][16], [nmb][16][16], [nmb][8][16]
-};
-
-__device__ bool any_nz(const int16_t* blk, int from) {
-    bool nz = false;
-    for (int k = from; k < 16; ++k) nz |= blk[k] != 0;
-    return nz;
-}
-
-// Nonzero flag of luma block s of MB m as the contexts see it: the AC
-// levels only when the MB has a Y2 block.
-__device__ int y_nz(const Levels& L, int m, int s) {
-    return any_nz(L.y + (m * 16 + s) * 16, L.lmode[m] != 4 ? 1 : 0);
-}
-
-__device__ int uv_nz(const Levels& L, int m, int s) { return any_nz(L.uv + (m * 8 + s) * 16, 0); }
-
-// Y2 nonzero flag of the nearest MB at m - k * step (k >= 1, `count`
-// candidates) that has a Y2 block, 0 when there is none.
-__device__ int y2_ctx_walk(const Levels& L, int m, int step, int count) {
-    for (int k = 1; k <= count; ++k) {
-        const int n = m - k * step;
-        if (L.lmode[n] != 4) return any_nz(L.y2 + n * 16, 0);
-    }
-    return 0;
-}
 
 __global__ void __launch_bounds__(kThreads) token_stats_kernel(
     const uint8_t* __restrict__ lmode, long long lm_bs, const uint8_t* __restrict__ skipped,
@@ -77,21 +49,19 @@ __global__ void __launch_bounds__(kThreads) token_stats_kernel(
             if (has_y2) {
                 ctype = 1;
                 blk = L.y2 + m * 16;
-                ctx = y2_ctx_walk(L, m, mbw, my) + y2_ctx_walk(L, m, 1, mx);
+                ctx = y2_ctx(L, m, mx, my, mbw);
             }
         } else if (slot <= 16) {
-            const int s = slot - 1, sy = s >> 2, sx = s & 3;
+            const int s = slot - 1;
             ctype = has_y2 ? 0 : 3;
             first = has_y2 ? 1 : 0;
             blk = L.y + (m * 16 + s) * 16;
-            ctx = (sy > 0 ? y_nz(L, m, s - 4) : (my > 0 ? y_nz(L, m - mbw, 12 + sx) : 0))
-                  + (sx > 0 ? y_nz(L, m, s - 1) : (mx > 0 ? y_nz(L, m - 1, 4 * sy + 3) : 0));
+            ctx = y_ctx(L, m, s, mx, my, mbw);
         } else {
-            const int s = slot - 17, ch = s >> 2, q = s & 3, qy = q >> 1, qx = q & 1;
+            const int s = slot - 17;
             ctype = 2;
             blk = L.uv + (m * 8 + s) * 16;
-            ctx = (qy > 0 ? uv_nz(L, m, s - 2) : (my > 0 ? uv_nz(L, m - mbw, ch * 4 + 2 + qx) : 0))
-                  + (qx > 0 ? uv_nz(L, m, s - 1) : (mx > 0 ? uv_nz(L, m - 1, ch * 4 + 2 * qy + 1) : 0));
+            ctx = uv_ctx(L, m, s, mx, my, mbw);
         }
         if (ctype >= 0) {
             const int base = ctype * 8;

@@ -24,6 +24,21 @@ The stages, each a function here so that they can be timed apart:
    frame header (with the segment header and map) per image in a thread
    pool (`encode/vp8.py`).
 
+With device_tokens (two-pass only; the JAX package's
+`encode_analysis_batch_v2_pertbl_tokens`, `_fetch_tokens` and its
+finisher's device branches, `webp_tpu/encode/vp8.py:1301-1376`, :814-849,
+:1702-1750), pass 2's levels never leave the card:
+
+8. `encode_tokens`: the skip flags on the device, the adapted
+   probabilities up, and K13 codes every image's coefficient partitions.
+9. `fetch_tokens`: per-MB modes and skip flags (19 B/MB), K13's lane
+   fields and the partitions' bytes to the host, in one copy.
+10. `header_coders`: per image, the frame header on the host, up to the
+    MB headers.
+11. `code_mb_headers`: K14 continues every image's header coder with its
+    MB headers, read on the card (modes, skip flags, segment ids).
+12. `assemble`: per image, the lanes' carries and flushes, and the frame.
+
 With two_pass=False, one K5 pass runs on the default tables at
 n_try = min(n_try, 3), with the trellis from method 4, and the finisher
 adapts the header's probabilities from the final levels itself.  Every
@@ -35,6 +50,7 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,11 +61,16 @@ from ..ops.analysis import analyze_alphas_batch
 from ..ops.enc_params import EncParams, EncTables
 from ..ops.enc_tables import enc_tables
 from ..ops.encode_wavefront import OUT_FIELDS, encode_analysis_batch
+from ..ops import token_ops
+from ..ops.boolenc2 import Lanes
 from ..ops.token_stats import token_stats
 from . import vp8
 from .analysis import MIN_MBS, setup_segments_from_alphas
+from .boolenc import assemble_lane
 from .costs import ProbaStats
 from .quant import SegmentParams, quality_to_quant_index
+
+DEVICE_TOKEN_PARTS = 8  # the JAX package's partitions of the device-token flow
 
 
 def n_try_for(method: int) -> int:
@@ -78,8 +99,7 @@ def upload(planes, device):
 
 def skip_flags(arrays):
     """[B, nmb] bool: the MB carries no nonzero level (device arrays)."""
-    return ((arrays["y_levels"] == 0).all(-1).all(-1) & (arrays["uv_levels"] == 0).all(-1).all(-1)
-            & (arrays["y2_levels"] == 0).all(-1))
+    return token_ops.skip_flags(arrays["y2_levels"], arrays["y_levels"], arrays["uv_levels"])
 
 
 def segment(y, u, v, quality: int):
@@ -131,11 +151,127 @@ def fetch(arrays):
             for i in range(host["luma_mode"].shape[0])]
 
 
+def _fetch_rows(*tensors):
+    """Device tensors [B, ...] to host numpy arrays of the same shapes and
+    types, in one copy (a row per image)."""
+    B = tensors[0].shape[0]
+    rows = [t.contiguous().reshape(B, t[0].numel()).view(torch.uint8) for t in tensors]
+    host = torch.cat(rows, dim=1).cpu().numpy()
+    out, at = [], 0
+    for t, r in zip(tensors, rows):
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(host[:, at:at + r.shape[1]].copy().view(dtype).reshape(t.shape))
+        at += r.shape[1]
+    return out
+
+
+class DeviceTokens(NamedTuple):
+    """Pass 2's result in the device-token flow.  On the host: `meta` [B,
+    nmb, 19] uint8 (16 B modes, luma mode, chroma mode, skip flag per MB)
+    and the coded coefficient partitions `parts` (`Lanes` [B, P] of numpy
+    arrays).  On the device, what K14 reads: `modes` (luma_mode, bpred,
+    chroma_mode, skipped) and the MB segment ids `sid` (None: segments
+    off)."""
+    meta: np.ndarray
+    parts: Lanes
+    modes: dict
+    sid: object
+
+
+def encode_tokens(out, probs: np.ndarray, mbw: int, mbh: int, num_partitions: int):
+    """The skip flags [B, nmb] of pass 2's device arrays `out`, and K13's
+    coefficient partitions (`Lanes` [B, P], on the device) under the images'
+    adapted probabilities `probs` [B, 4, 8, 3, 11]."""
+    dev = out["luma_mode"].device
+    skipped = skip_flags(out)
+    pf = torch.from_numpy(np.ascontiguousarray(probs, np.uint8).reshape(len(probs), -1)).to(dev)
+    lanes = token_ops.encode_coeff_partitions(out["luma_mode"], out["y2_levels"], out["y_levels"],
+                                              out["uv_levels"], pf, mbw, mbh, num_partitions)
+    return skipped, lanes
+
+
+def fetch_tokens(out, skipped, lanes: Lanes, sid) -> DeviceTokens:
+    """The modes, skip flags and K13's partitions to the host in one copy;
+    the MB-header inputs stay on the device."""
+    meta = torch.cat([out["bpred"], out["luma_mode"][..., None], out["chroma_mode"][..., None],
+                      skipped[..., None].to(torch.uint8)], dim=-1)
+    meta, fields, data = _fetch_rows(meta, lanes.fields(), lanes.data)
+    modes = {k: out[k] for k in ("luma_mode", "bpred", "chroma_mode")}
+    return DeviceTokens(meta, Lanes.from_fields(fields, data), {**modes, "skipped": skipped}, sid)
+
+
+def header_coders(tokens: DeviceTokens, probs, quality: int, segs=None) -> list:
+    """Per image, (the frame header's coder up to the MB headers, its skip
+    probability from the fetched skip flags), in a host thread pool."""
+    nparts = tokens.parts.lead.shape[1]
+
+    def one(i):
+        skip_prob = vp8.skip_probability(tokens.meta[i, :, 18])
+        return vp8.header_coder(probs[i], quality, nparts, None if segs is None else segs[i],
+                                skip_prob), skip_prob
+
+    return _pool_map(one, range(len(tokens.meta)))
+
+
+def code_mb_headers(tokens: DeviceTokens, coders, mbw: int, mbh: int, segs=None) -> Lanes:
+    """K14: every image's MB headers, continuing its header coder; the lanes
+    ([B], numpy) on the host."""
+    m = tokens.modes
+    lanes = token_ops.encode_mb_headers(m["luma_mode"], m["bpred"], m["chroma_mode"], tokens.sid,
+                                        m["skipped"], mb_header_params(tokens, coders, segs),
+                                        mbw, mbh)
+    return Lanes.from_fields(*_fetch_rows(lanes.fields(), lanes.data))
+
+
+def mb_header_params(tokens: DeviceTokens, coders, segs=None):
+    """K14's per-image parameters [B, 8] on the device: whether the frame
+    writes the segment map, its tree probabilities, the skip probability
+    and the frame-header coder's state."""
+    B = len(coders)
+    return token_ops.header_params(
+        [False] * B if segs is None else [s.enabled and s.update_map for s in segs],
+        [[255] * 3] * B if segs is None else [s.tree_probs for s in segs],
+        [sp for _, sp in coders],
+        [[getattr(enc, k) for enc, _ in coders] for k in ("bottom", "range", "bit_num")],
+        tokens.modes["luma_mode"].device)
+
+
+def assemble(tokens: DeviceTokens, coders, headers: Lanes, width: int, height: int) -> list:
+    """Per image, the payload: the header lane's carries into the frame
+    header, the lanes' flushes, and the frame (host thread pool)."""
+    parts = tokens.parts
+
+    def lane(f, *i, prefix=b""):
+        return assemble_lane(f.lead[i], f.data[i], f.n_bytes[i], f.bottom[i], f.bit_num[i], prefix)
+
+    def one(i):
+        header = lane(headers, i, prefix=bytes(coders[i][0].out))
+        return vp8.payload(header, [lane(parts, i, p) for p in range(parts.lead.shape[1])],
+                           width, height)
+
+    return _pool_map(one, range(len(coders)))
+
+
+def finish_frames_tokens(tokens: DeviceTokens, probs, quality: int, width: int, height: int,
+                         segs=None) -> list:
+    """Stages 10-12: the payloads of the device-token flow."""
+    coders = header_coders(tokens, probs, quality, segs)
+    headers = code_mb_headers(tokens, coders, (width + 15) // 16, (height + 15) // 16, segs)
+    return assemble(tokens, coders, headers, width, height)
+
+
 def analyze_frames_lossy_batch(planes, quality: int, method: int, two_pass: bool = True,
-                               segments: bool = False, device="cuda"):
+                               segments: bool = False, device="cuda", device_tokens: bool = False,
+                               num_partitions: int = DEVICE_TOKEN_PARTS):
     """Stages 2-8 on host planes (Y, U, V) [B, ...]: (per-image arrays,
     per-image adapted probabilities or None, per-image segmentations or
-    None)."""
+    None).  With device_tokens (two-pass only), stages 2-9 with
+    `num_partitions` coefficient partitions coded on the device:
+    (`DeviceTokens`, probabilities, segmentations)."""
+    if device_tokens and not two_pass:
+        raise ValueError("device_tokens needs the two-pass flow")
+    if device_tokens:
+        vp8.check_partitions(num_partitions)
     n_try = n_try_for(method)
     trellis = method >= 4
     dev = torch.device(device)
@@ -149,7 +285,11 @@ def analyze_frames_lossy_batch(planes, quality: int, method: int, two_pass: bool
     totals, ones = encode_analysis_stats_batch(y, u, v, P, default, min(n_try, 3), sid)
     probs = adapt_probs(totals.cpu().numpy(), ones.cpu().numpy())
     out = encode_analysis_batch(y, u, v, P, tables_for(probs, dev), n_try, trellis, sid)
-    return fetch(out), probs, segs
+    if not device_tokens:
+        return fetch(out), probs, segs
+    mbw, mbh = y.shape[2] // 16, y.shape[1] // 16
+    skipped, lanes = encode_tokens(out, probs, mbw, mbh, num_partitions)
+    return fetch_tokens(out, skipped, lanes, sid), probs, segs
 
 
 def finish_frames_lossy_batch(arrays_list, probs, quality: int, width: int, height: int,
@@ -164,22 +304,27 @@ def finish_frames_lossy_batch(arrays_list, probs, quality: int, width: int, heig
 
 def encode_frames_lossy_batch(rgbs, quality: int = 75, method: int = 4, two_pass: bool = True,
                               segments: bool = False, num_partitions: int = 1,
-                              device="cuda") -> list:
-    """Encode same-geometry RGB frames [h, w, 3|4] uint8 to VP8 payloads."""
+                              device="cuda", device_tokens: bool = False) -> list:
+    """Encode same-geometry RGB frames [h, w, 3|4] uint8 to VP8 payloads.
+    With device_tokens (two-pass only) the card codes the coefficient
+    partitions and the MB headers; the payloads are the same."""
     n_try_for(method)
-    if num_partitions not in vp8.PARTITIONS:
-        raise ValueError(f"num_partitions must be one of {vp8.PARTITIONS}, got {num_partitions}")
+    vp8.check_partitions(num_partitions)
     h, w = rgbs[0].shape[:2]
     if any(r.shape[:2] != (h, w) for r in rgbs):
         raise ValueError("frames of one batch must share their geometry")
     arrays, probs, segs = analyze_frames_lossy_batch(rgb_to_planes(rgbs), quality, method,
-                                                     two_pass, segments, device)
+                                                     two_pass, segments, device, device_tokens,
+                                                     num_partitions)
+    if device_tokens:
+        return finish_frames_tokens(arrays, probs, quality, w, h, segs)
     return finish_frames_lossy_batch(arrays, probs, quality, w, h, num_partitions, segs)
 
 
 def encode_frames_lossy_batch_mixed(rgbs, quality: int = 75, method: int = 4,
                                     two_pass: bool = True, segments: bool = False,
-                                    num_partitions: int = 1, device="cuda") -> list:
+                                    num_partitions: int = 1, device="cuda",
+                                    device_tokens: bool = False) -> list:
     """Frames of mixed geometries: one batch per (h, w), results in input order."""
     groups = {}
     for i, im in enumerate(rgbs):
@@ -187,7 +332,7 @@ def encode_frames_lossy_batch_mixed(rgbs, quality: int = 75, method: int = 4,
     out = [None] * len(rgbs)
     for idxs in groups.values():
         res = encode_frames_lossy_batch([rgbs[i] for i in idxs], quality, method, two_pass,
-                                        segments, num_partitions, device)
+                                        segments, num_partitions, device, device_tokens)
         for j, i in enumerate(idxs):
             out[i] = res[j]
     return out

@@ -10,6 +10,10 @@ from the card's pass-1 statistics in the two-pass flow, else the host C++
 segment header (the analysis's `Segmentation`, reused as it is), the MB
 headers with the segment map (C++ `vp8_mbheader_encode`) and the
 coefficient partitions (C++ `vp8_token_encode`).
+
+The device-token flow (`encode/device.py:finish_frames_tokens`, the JAX
+package's :158-164, :814-849 and :1013-1033) shares `header_coder`, whose
+state the card's MB-header coder continues, and `payload`.
 """
 
 from __future__ import annotations
@@ -115,47 +119,31 @@ def _frame_header(enc: BoolEncoder, quant_index: int, segs: Segmentation,
     enc.write_literal(8, skip_prob)
 
 
-def finish_frame(arrays, probs, quality: int, width: int, height: int,
-                 num_partitions: int = 1, segs: Segmentation = None) -> bytes:
-    """VP8 payload of one image from its analysis arrays (luma_mode,
-    chroma_mode [nmb], bpred [nmb, 16], y_levels [nmb, 16, 16], y2_levels
-    [nmb, 16], uv_levels [nmb, 8, 16]).  `probs` [4, 8, 3, 11] are the token
-    probabilities adapted from pass 1 (two-pass flow), or None to adapt them
-    here from these arrays' own token statistics; `segs` the image's
-    segmentation (None: segments off)."""
-    if num_partitions not in PARTITIONS:
-        raise ValueError(f"num_partitions must be one of {PARTITIONS}, got {num_partitions}")
-    mbw, mbh = (width + 15) // 16, (height + 15) // 16
+def skip_probability(skipped: np.ndarray) -> int:
+    """The header's probability that an MB is not skipped, from the skip flags."""
+    total = len(skipped)
+    non_skip = int(total - np.count_nonzero(skipped))
+    return min(max((255 * non_skip + total // 2) // total, 1), 254)
+
+
+def header_coder(probs, quality: int, num_partitions: int, segs: Segmentation,
+                 skip_prob: int) -> BoolEncoder:
+    """The frame header written up to the MB headers: the coder whose state
+    the MB-header coders continue (`segs` None: segments off)."""
     qi = quality_to_quant_index(quality)
     if segs is None:
-        segs = segments_off(mbw * mbh, SegmentParams(qi))
-    skipped = skip_flags(arrays)
-    ctx = compute_contexts(arrays["luma_mode"], arrays["y2_levels"], arrays["y_levels"],
-                           arrays["uv_levels"], mbw, mbh)
-    levels, meta = token_stream(arrays, ctx, skipped, mbw)
-    if probs is None:
-        probs = ProbaStats(*native.vp8_token_stats(levels, meta)).updated_probs(
-            T.COEFF_PROBS_DEFAULT)
-
-    total = len(skipped)
-    non_skip = int(total - skipped.sum())
-    skip_prob = min(max((255 * non_skip + total // 2) // total, 1), 254)
-
+        segs = segments_off(0, SegmentParams(qi))
     enc = BoolEncoder()
     _frame_header(enc, qi, segs, num_partitions, probs, skip_prob)
-    header = native.vp8_mbheader_encode(enc, arrays["luma_mode"], arrays["bpred"],
-                                        arrays["chroma_mode"], skipped, mbw, skip_prob,
-                                        segs.segment_map, segs.enabled and segs.update_map,
-                                        segs.tree_probs)
+    return enc
+
+
+def payload(header: bytes, parts, width: int, height: int) -> bytes:
+    """The VP8 payload: frame tag, start code and dimensions, the first
+    partition (frame and MB headers), the sizes of all coefficient
+    partitions but the last, and the partitions."""
     if len(header) >= MAX_FIRST_PARTITION:
         raise ValueError("partition 0 overflow (header > 512 KiB)")
-
-    # MB row r goes to coefficient partition r % num_partitions.
-    parts = []
-    for p in range(num_partitions):
-        psel = (meta[:, 3] % num_partitions) == p
-        parts.append(native.vp8_token_encode(levels[psel], meta[psel], probs))
-
     out = bytearray()
     tag = (len(header) << 5) | (1 << 4)  # show_frame, version 0, keyframe
     out += bytes([tag & 0xFF, (tag >> 8) & 0xFF, (tag >> 16) & 0xFF])
@@ -165,3 +153,43 @@ def finish_frame(arrays, probs, quality: int, width: int, height: int,
     out += b"".join(len(pb).to_bytes(3, "little") for pb in parts[:-1])
     out += b"".join(parts)
     return bytes(out)
+
+
+def check_partitions(num_partitions: int) -> None:
+    if num_partitions not in PARTITIONS:
+        raise ValueError(f"num_partitions must be one of {PARTITIONS}, got {num_partitions}")
+
+
+def finish_frame(arrays, probs, quality: int, width: int, height: int,
+                 num_partitions: int = 1, segs: Segmentation = None) -> bytes:
+    """VP8 payload of one image from its analysis arrays (luma_mode,
+    chroma_mode [nmb], bpred [nmb, 16], y_levels [nmb, 16, 16], y2_levels
+    [nmb, 16], uv_levels [nmb, 8, 16]).  `probs` [4, 8, 3, 11] are the token
+    probabilities adapted from pass 1 (two-pass flow), or None to adapt them
+    here from these arrays' own token statistics; `segs` the image's
+    segmentation (None: segments off)."""
+    check_partitions(num_partitions)
+    mbw, mbh = (width + 15) // 16, (height + 15) // 16
+    if segs is None:
+        segs = segments_off(mbw * mbh, SegmentParams(quality_to_quant_index(quality)))
+    skipped = skip_flags(arrays)
+    ctx = compute_contexts(arrays["luma_mode"], arrays["y2_levels"], arrays["y_levels"],
+                           arrays["uv_levels"], mbw, mbh)
+    levels, meta = token_stream(arrays, ctx, skipped, mbw)
+    if probs is None:
+        probs = ProbaStats(*native.vp8_token_stats(levels, meta)).updated_probs(
+            T.COEFF_PROBS_DEFAULT)
+
+    skip_prob = skip_probability(skipped)
+    enc = header_coder(probs, quality, num_partitions, segs, skip_prob)
+    header = native.vp8_mbheader_encode(enc, arrays["luma_mode"], arrays["bpred"],
+                                        arrays["chroma_mode"], skipped, mbw, skip_prob,
+                                        segs.segment_map, segs.enabled and segs.update_map,
+                                        segs.tree_probs)
+
+    # MB row r goes to coefficient partition r % num_partitions.
+    parts = []
+    for p in range(num_partitions):
+        psel = (meta[:, 3] % num_partitions) == p
+        parts.append(native.vp8_token_encode(levels[psel], meta[psel], probs))
+    return payload(header, parts, width, height)

@@ -1,0 +1,414 @@
+"""Kernels K13 (coefficient partitions) and K14 (MB headers): the device
+token coder, and their plain twins.
+
+K13 replaces `webp_tpu/ops/token_ops.py:228` `encode_coeff_partitions` (with
+`block_ops` :80, `_cls_of` :66 and `compute_contexts_dev` :169); K14 replaces
+`:424` `encode_mb_headers` (with `header_ops` :340 and `_mode_tree_tables`
+:311).  Both then code their ops with the lane coder of `ops/boolenc2.py`.
+
+K13 codes each image's P coefficient partitions from the levels the encode
+pass left on the card: partition p carries the MB rows r with r % P == p in
+raster order, each MB that is not skipped (some level nonzero) as its Y2
+block (when the luma mode is not B), 16 Y blocks and 8 UV blocks, each
+block's tokens under the image's adapted probabilities, in the order and
+with the contexts of the host writer (`encode/vp8.py`, the C++
+`vp8_token_encode`).  K14 continues each image's frame-header coder state
+with its MB headers: the segment id (when the frame writes the map), the
+skip flag, the luma mode, the 16 B modes under their top and left mode
+contexts, and the chroma mode.
+
+The kernels (`csrc/tokens.cu`) generate each op where it is coded; the
+plain twins follow the JAX form: `block_ops` and `header_ops` lay out every
+possible op slot with a valid mask, the valid ops of each lane are
+compacted, and `ops/boolenc2.bool_encode_lanes_plain` codes all lanes at
+once.  The wrappers take a byte capacity per lane (the JAX package's
+budgets by default); a lane over it makes the wrapper run once more with
+the capacity set to the largest count reported, and a second overflow
+raises.  The JAX package falls back to its host coders there; the port
+has no fallback.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..common import vp8_tables as T
+from ..encode.boolenc import tree_paths
+from .boolenc2 import Lanes, bool_encode_lanes_plain
+from .token_stats import compute_contexts
+
+# ---- static tables --------------------------------------------------------
+
+_TOKEN_PATHS = tree_paths(T.DCT_TOKEN_TREE)  # start 0: the full tree; 2: no EOB branch
+
+
+def _token_tables():
+    max_len = max(len(p) for start in (0, 2) for p in _TOKEN_PATHS[start].values())
+    tp_len = np.zeros((2, 12), np.int32)
+    tp_bit = np.zeros((2, 12, max_len), np.int32)
+    tp_node = np.zeros((2, 12, max_len), np.int32)
+    for s2, start in enumerate((0, 2)):
+        for cls, path in _TOKEN_PATHS[start].items():
+            tp_len[s2, cls] = len(path)
+            for k, (bit, node) in enumerate(path):
+                tp_bit[s2, cls, k] = bit
+                tp_node[s2, cls, k] = node
+    cat_nbits = np.zeros(12, np.int32)
+    cat_probs = np.zeros((12, 11), np.int32)
+    for c, probs in enumerate(T.PROB_DCT_CAT):
+        cat_nbits[6 + c] = len(probs)
+        cat_probs[6 + c, :len(probs)] = probs
+    cat_base = np.zeros(12, np.int32)
+    cat_base[6:12] = T.DCT_CAT_BASE
+    return max_len, tp_len, tp_bit, tp_node, cat_nbits, cat_probs, cat_base
+
+
+(_TP_MAX, _TP_LEN, _TP_BIT, _TP_NODE, _CAT_NBITS, _CAT_PROBS, _CAT_BASE) = _token_tables()
+_BANDS = np.asarray(T.COEFF_BANDS, np.int32)
+_PER_COEFF = _TP_MAX + 11 + 1  # tree path, extra bits, sign
+SLOTS = 16 * _PER_COEFF + _TP_MAX  # then the EOB's path
+
+
+def _mode_tree_tables(tree, nsym: int):
+    paths = tree_paths(tree)[0]
+    max_len = max(len(p) for p in paths.values())
+    ln = np.zeros(nsym, np.int32)
+    bit = np.zeros((nsym, max_len), np.int32)
+    node = np.zeros((nsym, max_len), np.int32)
+    for sym, path in paths.items():
+        ln[sym] = len(path)
+        for k, (b, nd) in enumerate(path):
+            bit[sym, k] = b
+            node[sym, k] = nd
+    return ln, bit, node, max_len
+
+
+_SEG_LN, _SEG_BIT, _SEG_NODE, _SEG_MAX = _mode_tree_tables(T.SEGMENT_ID_TREE, 4)
+_YM_LN, _YM_BIT, _YM_NODE, _YM_MAX = _mode_tree_tables(T.KEYFRAME_YMODE_TREE, 5)
+_UV_LN, _UV_BIT, _UV_NODE, _UV_MAX = _mode_tree_tables(T.KEYFRAME_UV_MODE_TREE, 4)
+_BP_LN, _BP_BIT, _BP_NODE, _BP_MAX = _mode_tree_tables(T.KEYFRAME_BPRED_MODE_TREE, 10)
+_BP_PROBS = np.asarray(T.KEYFRAME_BPRED_MODE_PROBS, np.int32)  # [10, 10, 9]
+_YM_PROBS = np.asarray(T.KEYFRAME_YMODE_PROBS, np.int32)
+_UV_PROBS = np.asarray(T.KEYFRAME_UV_MODE_PROBS, np.int32)
+# Whole-MB luma modes DC, V, H, TM imply the B-mode context B_DC, B_VE, B_HE, B_TM.
+_IMPLIED_BMODE = np.asarray([0, 2, 3, 1, 0], np.int32)
+
+HEADER_SLOTS = _SEG_MAX + 1 + _YM_MAX + 16 * _BP_MAX + _UV_MAX
+
+# The kernels' int32 tables, in the order `csrc/tokens.cu` reads them.
+TOKEN_CONSTS_NP = np.concatenate([a.reshape(-1) for a in (
+    _TP_LEN, _TP_BIT, _TP_NODE, _CAT_NBITS, _CAT_PROBS, _CAT_BASE, _BANDS)]).astype(np.int32)
+HEADER_CONSTS_NP = np.concatenate([np.asarray(a, np.int32).reshape(-1) for a in (
+    _SEG_LN, _SEG_BIT, _SEG_NODE, _YM_LN, _YM_BIT, _YM_NODE, _YM_PROBS, _UV_LN, _UV_BIT,
+    _UV_NODE, _UV_PROBS, _BP_LN, _BP_BIT, _BP_NODE, _BP_PROBS, _IMPLIED_BMODE)])
+
+
+def token_budget(nmb: int, nparts: int) -> int:
+    """The JAX package's byte budget of a coefficient partition."""
+    return max(2048, (nmb * 120) // nparts)
+
+
+def header_budget(nmb: int) -> int:
+    """The JAX package's byte budget of the MB headers."""
+    return max(1024, nmb * 8)
+
+
+def _t(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=torch.int64)
+
+
+# ---- coefficient tokens ---------------------------------------------------
+
+
+def _cls_of(v):
+    """Token class of |level| v (zero is class 1)."""
+    cat = 6 + (v >= 7).long() + (v >= 11).long() + (v >= 19).long() + (v >= 35).long() \
+        + (v >= 67).long()
+    return torch.where(v <= 4, v.clamp(max=4) + 1, cat)
+
+
+def block_ops(levels, plane, first, ctx0, probs_flat):
+    """Op slots of [..., 16] zigzag level blocks coded from position `first`
+    with initial context `ctx0` in plane `plane` ([...] each) under one
+    image's probabilities `probs_flat` [1056]: (prob, bit) int32 and valid
+    bool [..., SLOTS], in stream order."""
+    dev = levels.device
+    lead = levels.shape[:-1]
+    levels = levels.to(torch.int64)
+    plane, first, ctx0 = (x.to(torch.int64) for x in (plane, first, ctx0))
+    pf = probs_flat.to(torch.int64).reshape(-1)
+    v = levels.abs()
+    n_idx = torch.arange(16, device=dev)
+    last = torch.where(v != 0, n_idx, -1).amax(-1)  # -1 when empty
+    end = last + 1
+    cls = _cls_of(v)
+    prev_v = torch.cat([torch.zeros_like(v[..., :1]), v[..., :-1]], dim=-1)
+    ci = torch.where(n_idx == first[..., None], ctx0[..., None], prev_v.clamp(max=2))
+    skip2 = (n_idx > first[..., None]) & (prev_v == 0)
+    active = (n_idx >= first[..., None]) & (n_idx < end[..., None])
+    tp_len, tp_bit, tp_node = (_t(a, dev) for a in (_TP_LEN, _TP_BIT, _TP_NODE))
+    cat_nbits, cat_probs, cat_base, bands = (_t(a, dev) for a in (_CAT_NBITS, _CAT_PROBS,
+                                                                   _CAT_BASE, _BANDS))
+    s2 = skip2.long()
+
+    ks = torch.arange(_TP_MAX, device=dev)
+    node = tp_node[s2[..., None], cls[..., None], ks]             # [..., 16, K]
+    tbit = tp_bit[s2[..., None], cls[..., None], ks]
+    tvalid = active[..., None] & (ks < tp_len[s2, cls][..., None])
+    pidx = ((plane[..., None, None] * 8 + bands[:, None]) * 3 + ci[..., None]) * 11 + node
+    tprob = pf[pidx]
+
+    nb = cat_nbits[cls]
+    extra = v - cat_base[cls]
+    ke = torch.arange(11, device=dev)
+    ebit = (extra[..., None] >> (nb[..., None] - 1 - ke).clamp(min=0)) & 1
+    eprob = cat_probs[cls[..., None], ke]
+    evalid = active[..., None] & (ke < nb[..., None])
+
+    sbit = (levels < 0).long()[..., None]
+    sprob = torch.full_like(sbit, 128)
+    svalid = (active & (cls != 1))[..., None]                     # zeros carry no sign
+
+    eb_pos = torch.maximum(first, end).clamp(max=15)
+    last_v = v.gather(-1, last.clamp(min=0)[..., None])[..., 0]
+    eb_ctx = torch.where(end > first, torch.where(last_v == 1, 1, 2), ctx0)
+    eb_pidx = ((plane * 8 + bands[eb_pos]) * 3 + eb_ctx)[..., None] * 11 + tp_node[0, 0]
+    eb_valid = (end < 16)[..., None] & (ks < tp_len[0, 0])
+
+    def lay(per_coeff, eob):
+        return torch.cat([torch.cat(per_coeff, dim=-1).reshape(*lead, -1), eob], dim=-1)
+
+    prob = lay([tprob, eprob, sprob], pf[eb_pidx]).to(torch.int32)
+    bit = lay([tbit, ebit, sbit], tp_bit[0, 0].expand(*lead, _TP_MAX)).to(torch.int32)
+    valid = lay([tvalid, evalid, svalid], eb_valid)
+    return prob, bit, valid
+
+
+def skip_flags(y2_levels, y_levels, uv_levels):
+    """[B, nmb] bool: the MB carries no nonzero level."""
+    return ((y_levels == 0).all(-1).all(-1) & (uv_levels == 0).all(-1).all(-1)
+            & (y2_levels == 0).all(-1))
+
+
+def _pad_lanes(streams, dev):
+    """[T, L] bit, prob, valid of per-lane (bit, prob) streams, padded with no-ops."""
+    T_max = max([len(b) for b, _ in streams] + [1])
+    L = len(streams)
+    bits = torch.zeros((T_max, L), dtype=torch.int64, device=dev)
+    probs = torch.full((T_max, L), 128, dtype=torch.int64, device=dev)
+    valid = torch.zeros((T_max, L), dtype=torch.bool, device=dev)
+    for lane, (b, p) in enumerate(streams):
+        bits[:len(b), lane] = b
+        probs[:len(p), lane] = p
+        valid[:len(b), lane] = True
+    return bits, probs, valid
+
+
+def encode_coeff_partitions_plain(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw: int,
+                                  mbh: int, nparts: int, max_bytes: int) -> Lanes:
+    """Torch twin of K13 (any device): lanes [B, P], data [B, P, max_bytes]."""
+    B, nmb = luma_mode.shape
+    dev = luma_mode.device
+    lm = luma_mode.to(torch.int64)
+    y2_ctx, y_ctx, uv_ctx = compute_contexts(lm, y2_levels, y_levels, uv_levels, mbw, mbh)
+    skipped = skip_flags(y2_levels, y_levels, uv_levels)
+    has_y2 = lm != 4
+    pf = probs.reshape(B, -1)
+    streams = []
+    for b in range(B):
+        levels = torch.cat([y2_levels[b][:, None], y_levels[b], uv_levels[b]], dim=1)
+        plane = torch.full((nmb, 25), 2, dtype=torch.int64, device=dev)
+        plane[:, 0] = 1
+        plane[:, 1:17] = torch.where(has_y2[b], 0, 3)[:, None]
+        first = torch.zeros((nmb, 25), dtype=torch.int64, device=dev)
+        first[:, 1:17] = has_y2[b].long()[:, None]
+        ctxs = torch.cat([y2_ctx[b][:, None], y_ctx[b], uv_ctx[b]], dim=1)
+        blk_ok = torch.ones((nmb, 25), dtype=torch.bool, device=dev)
+        blk_ok[:, 0] = has_y2[b]
+        blk_ok &= ~skipped[b][:, None]
+        prob, bit, valid = block_ops(levels, plane, first, ctxs, pf[b])
+        valid &= blk_ok[..., None]
+        rows = [x.reshape(mbh, -1) for x in (prob, bit, valid)]
+        for p in range(nparts):  # rows r with r % nparts == p, raster order
+            pr, bt, ok = (x[p::nparts].reshape(-1) for x in rows)
+            streams.append((bt[ok], pr[ok]))
+    lanes = bool_encode_lanes_plain(*_pad_lanes(streams, dev), max_bytes)
+    return Lanes(*(x.reshape(B, nparts, *x.shape[1:]) for x in lanes))
+
+
+def _capacity_run(run, capacity: int) -> Lanes:
+    """run(capacity), once more at the largest reported byte count if a lane
+    went over; data cut to the largest count."""
+    lanes = run(capacity)
+    need = int(lanes.n_bytes.max()) if lanes.n_bytes.numel() else 0
+    if need > capacity:
+        lanes = run(need)
+        again = int(lanes.n_bytes.max())
+        if again > need:
+            raise RuntimeError(f"lane coder overflow: {again} bytes after a relaunch at {need}")
+    return lanes._replace(data=lanes.data[..., :need])
+
+
+def encode_coeff_partitions(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw: int,
+                            mbh: int, nparts: int, capacity: int = None) -> Lanes:
+    """The coefficient partitions of a batch: luma_mode [B, nmb] uint8,
+    y2_levels [B, nmb, 16], y_levels [B, nmb, 16, 16], uv_levels [B, nmb, 8,
+    16] int16 and the images' token probabilities probs [B, 1056] uint8 ->
+    `Lanes` [B, P] (data [B, P, largest n_bytes]).  K13 for CUDA tensors,
+    the plain twin for CPU ones; `capacity` bytes per partition first
+    (default `token_budget`)."""
+    dev = _build.same_device(luma_mode, y2_levels, y_levels, uv_levels, probs)
+    B, nmb = luma_mode.shape
+    if nmb != mbw * mbh:
+        raise ValueError(f"{nmb} MBs for a {mbw}x{mbh} grid")
+    if capacity is None:
+        capacity = token_budget(nmb, nparts)
+    coder = encode_coeff_partitions_plain if dev.type == "cpu" else _coeff_tokens_kernel
+    return _capacity_run(lambda cap: coder(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw,
+                                           mbh, nparts, cap), capacity)
+
+
+def _coeff_tokens_kernel(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw, mbh, nparts,
+                         cap) -> Lanes:
+    dev = luma_mode.device
+    B, nmb = luma_mode.shape
+    info = torch.empty((B, nparts, 6), dtype=torch.int64, device=dev)
+    data = torch.zeros((B, nparts, cap), dtype=torch.uint8, device=dev)
+    consts = _build.device_constant("token_consts", TOKEN_CONSTS_NP, dev)
+    _build.launch(
+        "coeff_tokens", "webp_coeff_tokens", dev,
+        *_build.mb_field(luma_mode, B, nmb),
+        _build.dense(y2_levels, torch.int16, (B, nmb, 16)),
+        _build.dense(y_levels, torch.int16, (B, nmb, 16, 16)),
+        _build.dense(uv_levels, torch.int16, (B, nmb, 8, 16)),
+        _build.dense(probs.reshape(B, -1), torch.uint8, (B, 1056)),
+        _build.dense(consts, torch.int32, (consts.numel(),)), consts.numel(),
+        mbw, mbh, B, nparts, cap, data.data_ptr(), info.data_ptr(),
+    )
+    return Lanes.from_fields(info, data)
+
+
+# ---- MB headers -----------------------------------------------------------
+
+
+def header_ops(luma_mode, bpred, chroma_mode, segment_ids, skipped, seg_probs3, skip_prob,
+               write_segments: bool, mbw: int, mbh: int):
+    """Op slots of one image's MB headers in raster order: (prob, bit) int32
+    and valid bool [nmb, HEADER_SLOTS]."""
+    dev = luma_mode.device
+    nmb = mbw * mbh
+    lm = luma_mode.to(torch.int64)
+    bp = bpred.to(torch.int64)
+    implied = _t(_IMPLIED_BMODE, dev)[lm.clamp(max=3)]
+    eff = torch.where((lm == 4)[:, None], bp, implied[:, None])
+    grid = eff.reshape(mbh, mbw, 4, 4).transpose(1, 2).reshape(mbh * 4, mbw * 4)
+    top = torch.cat([torch.zeros_like(grid[:1]), grid[:-1]], dim=0)
+    left = torch.cat([torch.zeros_like(grid[:, :1]), grid[:, :-1]], dim=1)
+
+    def unmb(g):
+        return g.reshape(mbh, 4, mbw, 4).transpose(1, 2).reshape(nmb, 16)
+
+    top_m, left_m = unmb(top), unmb(left)
+
+    def path(ln, bit, node, max_len, sym):
+        k = torch.arange(max_len, device=dev)
+        return (_t(bit, dev)[sym[..., None], k], _t(node, dev)[sym[..., None], k],
+                k < _t(ln, dev)[sym][..., None])
+
+    sid = segment_ids.to(torch.int64)
+    seg_bit, seg_node, seg_valid = path(_SEG_LN, _SEG_BIT, _SEG_NODE, _SEG_MAX, sid)
+    seg_prob = torch.as_tensor(seg_probs3, device=dev).to(torch.int64)[seg_node]
+    seg_valid = seg_valid & bool(write_segments)
+
+    sk_bit = skipped.to(torch.int64)[:, None]
+    sk_prob = torch.full_like(sk_bit, int(skip_prob))
+    sk_valid = torch.ones_like(sk_bit, dtype=torch.bool)
+
+    ym_bit, ym_node, ym_valid = path(_YM_LN, _YM_BIT, _YM_NODE, _YM_MAX, lm)
+    ym_prob = _t(_YM_PROBS, dev)[ym_node]
+
+    bp_bit, bp_node, bp_valid = path(_BP_LN, _BP_BIT, _BP_NODE, _BP_MAX, bp)  # [nmb, 16, K]
+    bp_prob = _t(_BP_PROBS, dev)[top_m[..., None], left_m[..., None], bp_node]
+    bp_valid = bp_valid & (lm == 4)[:, None, None]
+
+    cm = chroma_mode.to(torch.int64)
+    uv_bit, uv_node, uv_valid = path(_UV_LN, _UV_BIT, _UV_NODE, _UV_MAX, cm)
+    uv_prob = _t(_UV_PROBS, dev)[uv_node]
+
+    def lay(parts):
+        return torch.cat([parts[0], parts[1], parts[2], parts[3].reshape(nmb, -1), parts[4]],
+                         dim=-1)
+
+    prob = lay([seg_prob, sk_prob, ym_prob, bp_prob, uv_prob]).to(torch.int32)
+    bit = lay([seg_bit, sk_bit, ym_bit, bp_bit, uv_bit]).to(torch.int32)
+    valid = lay([seg_valid, sk_valid, ym_valid, bp_valid, uv_valid])
+    return prob, bit, valid
+
+
+def header_params(write_segments, seg_probs, skip_prob, init_state, device) -> torch.Tensor:
+    """Per-image MB-header parameters int64 [B, 8] on `device` from host
+    values: write_segments [B], the segment-tree probabilities [B, 3],
+    skip_prob [B] and the frame-header coder's (bottom, range, bit_num), each
+    [B]."""
+    cols = [np.asarray(write_segments, np.int64)[:, None],
+            np.asarray(seg_probs, np.int64).reshape(-1, 3),
+            np.asarray(skip_prob, np.int64)[:, None],
+            np.asarray(init_state, np.int64).reshape(3, -1).T]
+    return torch.from_numpy(np.concatenate(cols, axis=1)).to(device)
+
+
+def encode_mb_headers_plain(luma_mode, bpred, chroma_mode, segment_ids, skipped, params,
+                            mbw: int, mbh: int, max_bytes: int) -> Lanes:
+    """Torch twin of K14 (any device): one lane per image, [B]."""
+    dev = luma_mode.device
+    streams = []
+    for b, (ws, p0, p1, p2, skip_prob) in enumerate(params[:, :5].tolist()):
+        prob, bit, valid = header_ops(luma_mode[b], bpred[b], chroma_mode[b], segment_ids[b],
+                                      skipped[b], [p0, p1, p2], skip_prob, bool(ws), mbw, mbh)
+        ok = valid.reshape(-1)
+        streams.append((bit.reshape(-1)[ok], prob.reshape(-1)[ok]))
+    return bool_encode_lanes_plain(*_pad_lanes(streams, dev), max_bytes, params[:, 5:8].T)
+
+
+def encode_mb_headers(luma_mode, bpred, chroma_mode, segment_ids, skipped, params, mbw: int,
+                      mbh: int, capacity: int = None) -> Lanes:
+    """Every image's MB headers, continuing its frame-header coder:
+    luma_mode, chroma_mode [B, nmb] and bpred [B, nmb, 16] uint8, segment_ids
+    [B, nmb] uint8 (None: all 0), skipped [B, nmb] bool and the images'
+    `header_params` [B, 8], on one device.  Returns `Lanes` [B] (data [B,
+    largest n_bytes]).  K14 for CUDA tensors, the plain twin for CPU ones;
+    `capacity` bytes per image first (default `header_budget`)."""
+    B, nmb = luma_mode.shape
+    if nmb != mbw * mbh:
+        raise ValueError(f"{nmb} MBs for a {mbw}x{mbh} grid")
+    if segment_ids is None:
+        if bool(params[:, 0].any()):
+            raise ValueError("writing the segment map needs segment_ids")
+        segment_ids = torch.zeros_like(luma_mode)
+    dev = _build.same_device(luma_mode, bpred, chroma_mode, segment_ids, skipped, params)
+    if capacity is None:
+        capacity = header_budget(nmb)
+    coder = encode_mb_headers_plain if dev.type == "cpu" else _mb_headers_kernel
+    return _capacity_run(lambda cap: coder(luma_mode, bpred, chroma_mode, segment_ids, skipped,
+                                           params, mbw, mbh, cap), capacity)
+
+
+def _mb_headers_kernel(luma_mode, bpred, chroma_mode, segment_ids, skipped, params, mbw, mbh,
+                       cap) -> Lanes:
+    dev = luma_mode.device
+    B, nmb = luma_mode.shape
+    info = torch.empty((B, 6), dtype=torch.int64, device=dev)
+    data = torch.zeros((B, cap), dtype=torch.uint8, device=dev)
+    consts = _build.device_constant("header_consts", HEADER_CONSTS_NP, dev)
+    _build.launch(
+        "mb_headers", "webp_mb_headers", dev,
+        *_build.mb_field(luma_mode, B, nmb), *_build.mb_field(bpred, B, nmb, 16),
+        *_build.mb_field(chroma_mode, B, nmb), *_build.mb_field(segment_ids, B, nmb),
+        *_build.mb_field(skipped, B, nmb),
+        _build.dense(params, torch.int64, (B, 8)),
+        _build.dense(consts, torch.int32, (consts.numel(),)), consts.numel(),
+        mbw, mbh, B, cap, data.data_ptr(), info.data_ptr(),
+    )
+    return Lanes.from_fields(info, data)
