@@ -57,6 +57,19 @@ bit-exact to their plain twins on the phase's own card inputs, the
 inverse transforms stepped in stream order reversed; K11 also on an
 unpacked 200-colour index image, beside one PyTorch indexing call.
 
+Scale-out, last.  The decode batches of both filter kinds go through
+`parallel.decode_wavefront_banded` at 2, 4 and 8 bands an image (K16
+recon_banded and K17 filter_banded, one cluster of that many CTAs per
+image): planes byte-equal to K2 + K3's of the same run; K16 and K17 held
+bit-exact to their twins (bands held apart, halo rows handed over each
+step) at 4 bands, and timed at each band count beside K2 and K3, with the
+card's largest number of resident clusters.  Then a one-rank NCCL process
+group (`torch.distributed`, tcp on localhost) carries the four
+data-parallel factories of `webp_tpu_torch.parallel`, each byte-equal to
+the unsharded path of this run: the decode's RGB, the one-pass analysis,
+the flagship's pass-2 arrays and payloads, and the token lanes gathered
+over the group (the all_gather timed); then the group is destroyed.
+
 Prints the card's name and power limit, per-kernel timings (CUDA events;
 kernel beside plain twin and the kernel's bound), the encodes' per-stage
 host-clock split (both flows) and d2h bytes, the lossless decode's ms/img beside the host C++
@@ -70,6 +83,7 @@ from __future__ import annotations
 
 import json
 import multiprocessing
+import socket
 import statistics
 import subprocess
 import sys
@@ -120,6 +134,13 @@ TOKEN_KERNELS = [
      "webp_tpu/ops/token_ops.py:424 (+ :340) + webp_tpu/ops/boolenc2.py:89"),
     ("bool_lanes", "webp_tpu_torch/csrc/tokens.cu", "webp_tpu/ops/boolenc2.py:89"),
 ]
+PARALLEL_KERNELS = [
+    ("recon_banded", "webp_tpu_torch/csrc/banded.cu",
+     "webp_tpu/parallel/pipeline.py:60 (+ :37 _band_shifts)"),
+    ("filter_banded", "webp_tpu_torch/csrc/banded.cu",
+     "webp_tpu/parallel/pipeline.py:60 (+ :37 _band_shifts)"),
+]
+N_BANDS = (2, 4, 8)  # CTAs per image of the banded decode; 4 is the kernels line's
 LOSSLESS_KERNELS = [
     ("subtract_green", "webp_tpu_torch/csrc/vp8l.cu", "webp_tpu/ops/vp8l_device.py:45"),
     ("color_transform", "webp_tpu_torch/csrc/vp8l.cu", "webp_tpu/ops/vp8l_device.py:51"),
@@ -264,8 +285,9 @@ def max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
 
 
-def decode_phase(dev, card: str) -> dict:
-    """The decode path, counted, checked and timed; name -> kernel record."""
+def decode_phase(dev, card: str, keep: dict) -> dict:
+    """The decode path, counted, checked and timed; name -> kernel record.
+    Leaves its batches (filter kind -> payloads) in keep["decode"]."""
     import torch
 
     from webp_tpu_torch import _build
@@ -290,6 +312,7 @@ def decode_phase(dev, card: str) -> dict:
         batches[simple] = [distinct[i % len(distinct)] for i in range(BATCH)]
         refs[simple] = cpu_reference(distinct)
     print(f"write + plain CPU decode: {time.perf_counter() - t0:.1f} s", flush=True)
+    keep["decode"] = batches
     host = tdev.parse_levels_batch(batches[False])
     nmb = (WIDTH + 15) // 16 * ((HEIGHT + 15) // 16)
     n_esc = int((host["esc_pos"] < nmb * 400).sum(1).min())
@@ -572,9 +595,11 @@ def encode_stages(rgbs, dev, method: int, segments: bool, device_tokens: bool = 
     return ms, d2h, payloads
 
 
-def encode_phase(dev, card: str, method: int, segments: bool, pending) -> dict:
+def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dict) -> dict:
     """One encode path, counted, checked and timed; name -> kernel record.
-    `pending` is the worker's `reference_job(method, segments)`."""
+    `pending` is the worker's `reference_job(method, segments)`.  The
+    flagship leaves its planes, parameters, pass-2 arrays, probabilities
+    and two-pass payloads in keep["flagship"]."""
     import numpy as np
     import torch
 
@@ -779,6 +804,8 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending) -> dict:
     records = {k: {"launches": launches[k], "max_abs_err": err[k], "ms": ms[k],
                    "plain_ms": plain_ms[k], **bounds[k], "library_ms": None} for k in kernels}
     if flagship:
+        keep["flagship"] = dict(planes=(y, u, v), P=P, sid=sid, segs=segs, pass2=pass2,
+                                probs=probs.cpu().numpy(), payloads=payloads[True], n_try=n_try)
         tok = token_phase(dev, card, name, pass2, probs, sid, segs, mbw, mbh)
         for k, r in tok.items():
             records[k] = {"launches": token_launches[k], **r}
@@ -1088,6 +1115,198 @@ def lossless_phase(dev, card: str) -> dict:
             for k, _, _ in LOSSLESS_KERNELS}
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(dev, card: str, keep: dict) -> dict:
+    """The scale-out path, counted, checked and timed; name -> kernel record.
+
+    Banded decode: the decode phase's batches (both filter kinds) through
+    `parallel.decode_wavefront_banded` at every n_band of N_BANDS, byte-equal
+    to K2 + K3's planes of the same run; K16 and K17 against their twins at
+    n_band 4 and timed beside K2 and K3.  Then the four data-parallel
+    factories on a process group of one rank (NCCL on a card, gloo on the
+    CPU), each byte-equal to the unsharded path of this run: the decode's
+    RGB; the one-pass analysis; the flagship's pass-2 arrays and payloads;
+    the gathered token lanes, whose all_gather is timed."""
+    import torch
+    import torch.distributed as dist
+
+    from webp_tpu_torch import _build, parallel
+    from webp_tpu_torch.common import vp8_tables as T
+    from webp_tpu_torch.decode import device as tdev
+    from webp_tpu_torch.encode import device as edev
+    from webp_tpu_torch.ops import banded
+    from webp_tpu_torch.ops.enc_params import EncTables
+    from webp_tpu_torch.ops.encode_wavefront import OUT_FIELDS, encode_analysis_batch
+    from webp_tpu_torch.ops.loopfilter import loop_filter_
+    from webp_tpu_torch.ops.wavefront import recon_
+
+    mbw, mbh = (WIDTH + 15) // 16, (HEIGHT + 15) // 16
+    nmb = mbw * mbh
+
+    # 1. Inputs and the unsharded path of this run: the decode batches'
+    #    K1 outputs, K2 + K3 planes and RGB; the flagship's one-pass
+    #    analysis and device-token lanes.
+    flag = keep["flagship"]
+    y, u, v = flag["planes"]
+    P, sid, segs, pass2, probs = (flag[k] for k in ("P", "sid", "segs", "pass2", "probs"))
+    n_try1 = min(flag["n_try"], 3)
+    default = EncTables.from_probs(T.COEFF_PROBS_DEFAULT, dev)
+    decode_in, want_planes, want_rgb = {}, {}, {}
+    for simple in (False, True):
+        d = tdev.to_device_batch(tdev.parse_levels_batch(keep["decode"][simple]), dev)
+        decode_in[simple] = d, tdev.wavefront_inputs(d)
+        want_planes[simple] = [p.clone() for p in
+                               tdev.split_planes(tdev.decode_core(d, "yuv"), mbw, mbh)]
+        want_rgb[simple] = tdev.decode_core(d, "rgb")
+    want_analysis = encode_analysis_batch(y, u, v, P, default, n_try1, True)
+    skipped, want_lanes = edev.encode_tokens(pass2, probs, mbw, mbh, PARTITIONS)
+    want_tokens = edev.fetch_tokens(pass2, skipped, want_lanes, sid)
+
+    def same(got, want, what):
+        if max_abs_err(got, want):
+            raise AssertionError(f"{what} differs from the unsharded path")
+
+    # 2. The main path, counted: the banded decode at every n_band, then the
+    #    factories on a one-rank process group.
+    _build.reset_launches()
+    for n_band in N_BANDS:
+        for simple in (False, True):
+            got = parallel.decode_wavefront_banded(
+                *decode_in[simple][1], parallel.make_mesh(n_band=n_band, device=dev), mbw, mbh,
+                simple)
+            for g, w, plane in zip(got, want_planes[simple], "yuv"):
+                same(g, w, f"banded {plane} plane (n_band {n_band}, simple={simple})")
+    backend = parallel.mesh.BACKENDS[torch.device(dev).type]
+    kwargs = {"device_id": torch.device(dev)} if backend == "nccl" else {}
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0, **kwargs)
+    try:
+        init_s = time.perf_counter() - t0
+        mesh = parallel.make_mesh(device=dev)
+        if mesh.group is None or (mesh.n_data, mesh.rank) != (1, 0):
+            raise AssertionError(f"expected a one-rank {backend} mesh, got {mesh}")
+        for simple in (False, True):
+            step = parallel.make_decode_batch_sharded(mesh, mbw, mbh, simple, WIDTH, HEIGHT)
+            same(step(decode_in[simple][0]), want_rgb[simple], f"sharded decode (simple={simple})")
+        step = parallel.make_encode_analysis_sharded(mesh, mbw, mbh, n_try1, True)
+        got = step(y, u, v, P, default)
+        for k in OUT_FIELDS:
+            same(got[k], want_analysis[k], f"sharded analysis {k}")
+        stats_step, pass2_step = parallel.make_encode_twopass_sharded(mesh, mbw, mbh, n_try1,
+                                                                      flag["n_try"], True)
+        totals, ones = stats_step(y, u, v, P, default, sid)
+        probs2 = edev.adapt_probs(totals.cpu().numpy(), ones.cpu().numpy())
+        arrays = pass2_step(y, u, v, P, edev.tables_for(probs2, dev), sid)
+        for k in OUT_FIELDS:
+            same(arrays[k], pass2[k], f"sharded pass-2 {k}")
+        payloads = edev.finish_frames_lossy_batch(edev.fetch(arrays), probs2, QUALITY, WIDTH,
+                                                  HEIGHT, PARTITIONS, segs)
+        if payloads != flag["payloads"]:
+            raise AssertionError("the sharded two-pass payloads differ from the unsharded ones")
+        step = parallel.make_encode_tokens_sharded(mesh, mbw, mbh, PARTITIONS)
+        lanes = step(*(arrays[k] for k in ("luma_mode", "y2_levels", "y_levels", "uv_levels")),
+                     torch.from_numpy(probs2).to(dev))
+        for a, b, name in zip(lanes, want_lanes, lanes._fields):
+            same(a, b, f"gathered lanes' {name}")
+        host = want_tokens.parts
+        for name in ("lead", "n_bytes", "bottom", "bit_num"):
+            if not (getattr(lanes, name).cpu().numpy() == getattr(host, name)).all():
+                raise AssertionError(f"gathered lanes' {name} differ from fetch_tokens'")
+        if not (lanes.data.cpu().numpy() == host.data).all():
+            raise AssertionError("gathered lanes' bytes differ from fetch_tokens'")
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        fields = lanes.fields()
+        gather_ms = time_ms(lambda: (parallel.pipeline.all_gather(mesh, fields),
+                                     parallel.pipeline.all_gather(mesh, lanes.data)), 20)
+        gather_bytes = nbytes(fields, lanes.data)
+    finally:
+        dist.destroy_process_group()
+    needed = [k for k, _, _ in PARALLEL_KERNELS] + [
+        "residual", "recon", "loopfilter", "yuv2rgb", "enc", "token_stats", "enc_tables",
+        "coeff_tokens"]
+    missing = [k for k in needed if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the scale-out path launched no {missing} kernel: {launches}")
+    print(f"[parallel] main path: banded decode byte-equal to K2 + K3 at n_band {N_BANDS} "
+          f"(2 x {BATCH} images, both filter kinds); on a one-rank {backend} group (init "
+          f"{init_s:.1f} s) the sharded decode, one-pass analysis, two-pass pass-2 arrays and "
+          f"payloads, and gathered token lanes equal the unsharded path; launches "
+          f"{ {k: launches[k] for k in needed} }", flush=True)
+    print(f"[parallel] token lanes all_gather (fields + bytes, {gather_bytes} B, world size 1): "
+          f"{gather_ms:.4f} ms ({card})", flush=True)
+
+    # 3. K16 and K17 against their twins at n_band 4 (the normal filter's
+    #    batch, and K17 on the simple one's reconstruction too).
+    res, lm, bp, cm, level, interior, hev, do_sub = decode_in[False][1]
+    recon_args, lf_args = (res, lm, bp, cm), (level, interior, hev, do_sub)
+
+    def planes():
+        return tdev.split_planes(torch.zeros((BATCH, nmb * 384), dtype=torch.uint8, device=dev),
+                                 mbw, mbh)
+
+    rec, rec_p = planes(), planes()
+    banded.recon_banded_(*rec, *recon_args, 4)
+    _, recon_plain_ms = timed(lambda: banded.recon_banded_plain_(*rec_p, *recon_args, 4))
+    err = {"recon_banded": max(max_abs_err(a, b) for a, b in zip(rec, rec_p))}
+    got, want = [p.clone() for p in rec], [p.clone() for p in rec]
+    banded.filter_banded_(*got, *lf_args, False, 4)
+    _, filter_plain_ms = timed(lambda: banded.filter_banded_plain_(*want, *lf_args, False, 4))
+    err["filter_banded"] = max(max_abs_err(a, b) for a, b in zip(got, want))
+    s_args = decode_in[True][1]
+    s_rec = planes()
+    recon_(*s_rec, *s_args[:4])
+    got, want = [p.clone() for p in s_rec], [p.clone() for p in s_rec]
+    banded.filter_banded_(*got, *s_args[4:], True, 4)
+    banded.filter_banded_plain_(*want, *s_args[4:], True, 4)
+    err["filter_banded"] = max(err["filter_banded"], *(max_abs_err(a, b) for a, b in zip(got, want)))
+    torch.cuda.synchronize()
+    if any(err.values()):
+        raise AssertionError(f"K16 / K17 differ from their plain twins: {err}")
+    print(f"[parallel] K16 / K17 vs plain twins at n_band 4 (bit-exact, tolerance 0; batch "
+          f"{BATCH}, K17 also on the simple filter): {err}", flush=True)
+
+    # 4. Timings per n_band beside K2 and K3, on the normal filter's batch;
+    #    the filter starts each run from fresh unfiltered planes.
+    target = planes()
+    work = [p.clone() for p in rec]
+
+    def fresh():
+        for w, r in zip(work, rec):
+            w.copy_(r)
+
+    k2_ms = time_ms(lambda: recon_(*target, *recon_args), 20)
+    k3_ms = time_ms(lambda: loop_filter_(*work, *lf_args, False), 20, fresh)
+    ms = {}
+    for n_band in N_BANDS:
+        ms[("recon_banded", n_band)] = time_ms(
+            lambda: banded.recon_banded_(*target, *recon_args, n_band), 20)
+        ms[("filter_banded", n_band)] = time_ms(
+            lambda: banded.filter_banded_(*work, *lf_args, False, n_band), 20, fresh)
+        clusters = banded.max_active_clusters(n_band, mbh) if torch.device(dev).type == "cuda" \
+            else "n/a"
+        print(f"[parallel] n_band {n_band} ({mbh // n_band} MB rows, {32 * min(mbh // n_band, 32)} "
+              f"threads a CTA; max active clusters K16 / K17 {clusters}): K16 recon_banded "
+              f"{ms[('recon_banded', n_band)]:.4f} ms, K17 filter_banded "
+              f"{ms[('filter_banded', n_band)]:.4f} ms; K2 recon {k2_ms:.4f} ms, K3 loopfilter "
+              f"{k3_ms:.4f} ms (same run; batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
+
+    # Bounds: K2's and K3's, the same work.  No PyTorch call computes either.
+    pixels = BATCH * nmb * 384
+    bounds = {"recon_banded": bound(nbytes(*recon_args, *rec), pixels * 8),
+              "filter_banded": bound(2 * nbytes(*rec) + nbytes(*lf_args), pixels * 20)}
+    plain_ms = {"recon_banded": recon_plain_ms, "filter_banded": filter_plain_ms}
+    return {k: {"launches": launches[k], "max_abs_err": err[k], "ms": ms[(k, 4)],
+                "plain_ms": plain_ms[k], **bounds[k], "library_ms": None}
+            for k, _, _ in PARALLEL_KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -1122,16 +1341,18 @@ def main() -> int:
         card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
         print(f"card: {card}", flush=True)
 
-        records = decode_phase(dev, card)
+        keep = {}
+        records = decode_phase(dev, card, keep)
         records.update(lossless_phase(dev, card))
         for job in ENCODES:
             # A kernel on both encode paths: launches and errors over both,
             # the times of the flagship's (the last) path.
-            for k, r in encode_phase(dev, card, *job, refs[job]).items():
+            for k, r in encode_phase(dev, card, *job, refs[job], keep).items():
                 if k in records:
                     r["launches"] += records[k]["launches"]
                     r["max_abs_err"] = max(r["max_abs_err"], records[k]["max_abs_err"])
                 records[k] = r
+    records.update(parallel_phase(dev, card, keep))
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "webp_tpu"))
     if leaked:
@@ -1140,7 +1361,7 @@ def main() -> int:
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, **records[name]}
         for name, source, replaces in (DECODE_KERNELS + ENCODE_KERNELS + TOKEN_KERNELS
-                                       + LOSSLESS_KERNELS)
+                                       + LOSSLESS_KERNELS + PARALLEL_KERNELS)
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

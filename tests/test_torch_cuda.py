@@ -15,7 +15,9 @@ inputs are seeded pixels, modes, coefficients and palettes, and seeded
 VP8L streams (`random_vp8l.py`) checked against the host C++ decode and
 their sources.  The token coder's inputs (`token_inputs.py`) are seeded
 level arrays, MB modes, host coders part-way through a stream and
-adversarial carry streams.  Tolerance: bit-exact (integer arithmetic).
+adversarial carry streams.  The band-split wavefront (K16, K17) runs on
+seeded random keyframes at every band count that divides their MB rows.
+Tolerance: bit-exact (integer arithmetic).
 """
 
 import numpy as np
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 import webp_tpu_torch
-from webp_tpu_torch import _build
+from webp_tpu_torch import _build, parallel
 from webp_tpu_torch.common import vp8_tables as T
 from webp_tpu_torch.decode import device as tdev
 from webp_tpu_torch.encode import device as edev
@@ -34,7 +36,7 @@ from webp_tpu_torch.ops.enc_tables import enc_tables, enc_tables_plain
 from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch, encode_analysis_batch_plain
 from webp_tpu_torch.ops.token_stats import token_stats, token_stats_plain
 from webp_tpu_torch.io import native
-from webp_tpu_torch.ops import boolenc2, residual, token_ops
+from webp_tpu_torch.ops import banded, boolenc2, residual, token_ops
 from webp_tpu_torch.ops import vp8l_device as L
 from webp_tpu_torch.ops.loopfilter import loop_filter_, loop_filter_plain_
 from webp_tpu_torch.ops.wavefront import recon_, recon_plain_
@@ -156,7 +158,7 @@ def test_slice_on_card_matches_scalar(cuda, payloads, out):
                                "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0,
                                "subtract_green": 0, "color_transform": 0, "color_indexing": 0,
                                "predictor": 0, "coeff_tokens": 0, "mb_headers": 0,
-                               "bool_lanes": 0}
+                               "bool_lanes": 0, "recon_banded": 0, "filter_banded": 0}
     for i, p in enumerate(payloads):
         np.testing.assert_array_equal(got[i].numpy(), scalar_decode(p)[0 if out == "rgb" else 1])
 
@@ -547,3 +549,38 @@ def test_device_tokens_slice_on_card_matches_cpu(cuda, method, segments, size):
     assert (_build.LAUNCHES["coeff_tokens"], _build.LAUNCHES["mb_headers"],
             _build.LAUNCHES["bool_lanes"]) == (1, 1, 0)
     assert got == want
+
+
+# ---- scale-out: K16 recon_banded, K17 filter_banded
+
+
+@pytest.mark.parametrize("simple", [False, True], ids=["normal", "simple"])
+def test_banded_kernels_match_unbanded_and_plain(cuda, simple):
+    """64x256 random keyframes (16 MB rows) at every band count that divides
+    them: planes byte-equal to K2 + K3's, one K16 and one K17 launch per
+    call; at 4 bands also equal to the twins on CPU copies."""
+    payloads = [random_keyframe(64, 256, s, simple=simple)[0] for s in (51, 52)]
+    d = tdev.to_device_batch(tdev.parse_levels_batch(payloads), cuda)
+    mbw, mbh = tdev.geometry(d["headers"])[:2]
+    args = tdev.wavefront_inputs(d)
+    want = tdev.split_planes(tdev.decode_core(d, "yuv"), mbw, mbh)
+    for n_band in (1, 2, 4, 8):
+        before = (_build.LAUNCHES["recon_banded"], _build.LAUNCHES["filter_banded"])
+        got = parallel.decode_wavefront_banded(*args, parallel.make_mesh(n_band=n_band, device=cuda),
+                                               mbw, mbh, simple)
+        torch.cuda.synchronize()
+        assert (_build.LAUNCHES["recon_banded"], _build.LAUNCHES["filter_banded"]) == (
+            before[0] + 1, before[1] + 1)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), n_band
+    twin = parallel.decode_wavefront_banded(*(a.cpu() for a in args),
+                                            parallel.make_mesh(n_band=4, device="cpu"),
+                                            mbw, mbh, simple)
+    for g, w in zip(twin, want):
+        assert torch.equal(g, w.cpu())
+
+
+def test_banded_clusters_fit_on_the_card(cuda):
+    """The card holds clusters of 8 CTAs at 768x512 (32 MB rows, 4 warps a CTA)."""
+    for n_band in (2, 4, 8):
+        assert min(banded.max_active_clusters(n_band, 32)) >= 1

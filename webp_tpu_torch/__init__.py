@@ -10,7 +10,10 @@ coefficient partitions and MB headers are coded on the card instead
 (`ops/token_ops.py`).  The package imports neither jax nor the JAX
 package `webp_tpu`.  Every entry point takes an explicit `device`:
 "cuda" runs the kernels of `csrc/` (built with nvcc at first use), "cpu"
-runs their plain torch twins.
+runs their plain torch twins.  Scale-out (`parallel/`): `make_mesh` maps
+the JAX mesh's `data` axis onto the ranks of a `torch.distributed` group
+and its `band` axis onto the CTAs of a thread-block cluster, with the
+banded decode and the data-parallel factories of `webp_tpu.parallel`.
 """
 
 from .decode.device import (
@@ -21,21 +24,39 @@ from .decode.device import (
     dispatch_decode_batch,
     parse_levels_batch,
     to_device_batch,
+    wavefront_inputs,
     yuv_packed_to_rgb,
 )
 from .decode.vp8l_device import decode_lossless_batch_device
 from .encode.device import encode_frames_lossy_batch, encode_frames_lossy_batch_mixed
+from .parallel import (
+    Mesh,
+    decode_wavefront_banded,
+    make_decode_batch_sharded,
+    make_encode_analysis_sharded,
+    make_encode_tokens_sharded,
+    make_encode_twopass_sharded,
+    make_mesh,
+)
 
 __all__ = [
+    "Mesh",
     "decode_core",
     "decode_lossless_batch_device",
     "decode_vp8_batch_device",
     "decode_vp8_batch_device_mixed",
     "decode_vp8_frame_device",
+    "decode_wavefront_banded",
     "dispatch_decode_batch",
     "encode_frames_lossy_batch",
     "encode_frames_lossy_batch_mixed",
+    "make_decode_batch_sharded",
+    "make_encode_analysis_sharded",
+    "make_encode_tokens_sharded",
+    "make_encode_twopass_sharded",
+    "make_mesh",
     "parse_levels_batch",
     "to_device_batch",
+    "wavefront_inputs",
     "yuv_packed_to_rgb",
 ]

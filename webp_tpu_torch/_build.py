@@ -125,6 +125,19 @@ _SIGNATURES = {
         _P, _P,              # bytes [B, cap], fields [B, 6] out
         _P,
     ],
+    "webp_recon_banded": [
+        _P,                  # residuals
+        _P, _L, _P, _L, _P, _L,   # luma_mode, bpred, chroma_mode (+ batch strides)
+        _I, _I, _I, _I,      # mbw, mbh, batch, n_band
+        _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides)
+        _P,
+    ],
+    "webp_filter_banded": [
+        _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides), in place
+        _P, _L, _P, _L, _P, _L, _P, _L,  # level, interior, hev, do_sub
+        _I, _I, _I, _I, _I,  # mbw, mbh, batch, simple, n_band
+        _P,
+    ],
     "webp_bool_lanes": [
         _P, _P, _P, _I, _I,  # bits, probs, valid [T, L]; T, L
         _P, _I,              # initial states [L, 3], byte capacity
@@ -138,7 +151,8 @@ _SIGNATURES = {
 LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "yuv2rgb": 0,
             "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0,
             "subtract_green": 0, "color_transform": 0, "color_indexing": 0, "predictor": 0,
-            "coeff_tokens": 0, "mb_headers": 0, "bool_lanes": 0}
+            "coeff_tokens": 0, "mb_headers": 0, "bool_lanes": 0,
+            "recon_banded": 0, "filter_banded": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -230,6 +244,8 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.webp_banded_max_clusters.argtypes = [_I, _I, _P]
+        lib.webp_banded_max_clusters.restype = ctypes.c_int
         lib.webp_error_string.argtypes = [ctypes.c_int]
         lib.webp_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -235,15 +235,13 @@ def split_planes(packed, mbw: int, mbh: int):
     return y, u, v
 
 
-def decode_core(dev_batch, out: str = "rgb"):
-    """Uploaded batch -> RGB [B, h, w, 3] (out="rgb") or packed planes
-    [B, yh*yw + 2*ch*cw] (out="yuv"), uint8 on the batch's device."""
-    if out not in ("rgb", "yuv"):
-        raise ValueError(f"out must be 'rgb' or 'yuv', not {out!r}")
-    mbw, mbh, simple, width, height = geometry(dev_batch["headers"])
-    nmb = mbw * mbh
-    u8buf = dev_batch["u8buf"]
-    f = field_views(u8buf, nmb)
+def wavefront_inputs(dev_batch):
+    """K1's residuals and the per-MB fields of an uploaded batch, the inputs
+    of K2 and K3: (residuals int32 [B, nmb, 24, 16], luma_mode, bpred [B,
+    nmb, 16], chroma_mode, level, interior, hev uint8 [B, nmb], do_sub bool
+    [B, nmb])."""
+    mbw, mbh = geometry(dev_batch["headers"])[:2]
+    f = field_views(dev_batch["u8buf"], mbw * mbh)
     mb = (f["segment_ids"], f["luma_mode"], f["skipped"], f["non_zero"])
     if "bitmap" in dev_batch:
         res, do_sub = residuals_sparse(
@@ -251,11 +249,22 @@ def decode_core(dev_batch, out: str = "rgb"):
         )
     else:
         res, do_sub = residuals_dense(dev_batch["i16buf"], *mb)
-    B = u8buf.shape[0]
-    packed = torch.empty((B, nmb * 384), dtype=torch.uint8, device=u8buf.device)
+    return (res, f["luma_mode"], f["bpred"], f["chroma_mode"], f["level"], f["interior"],
+            f["hev"], do_sub)
+
+
+def decode_core(dev_batch, out: str = "rgb"):
+    """Uploaded batch -> RGB [B, h, w, 3] (out="rgb") or packed planes
+    [B, yh*yw + 2*ch*cw] (out="yuv"), uint8 on the batch's device."""
+    if out not in ("rgb", "yuv"):
+        raise ValueError(f"out must be 'rgb' or 'yuv', not {out!r}")
+    mbw, mbh, simple, width, height = geometry(dev_batch["headers"])
+    res, lm, bp, cm, level, interior, hev, do_sub = wavefront_inputs(dev_batch)
+    B = res.shape[0]
+    packed = torch.empty((B, mbw * mbh * 384), dtype=torch.uint8, device=res.device)
     y, u, v = split_planes(packed, mbw, mbh)
-    recon_(y, u, v, res, f["luma_mode"], f["bpred"], f["chroma_mode"])
-    loop_filter_(y, u, v, f["level"], f["interior"], f["hev"], do_sub, simple)
+    recon_(y, u, v, res, lm, bp, cm)
+    loop_filter_(y, u, v, level, interior, hev, do_sub, simple)
     if out == "yuv":
         return packed
     return fancy_yuv420_to_rgb(y, u, v, width, height)

@@ -303,36 +303,44 @@ def finish_frames_lossy_batch(arrays_list, probs, quality: int, width: int, heig
 
 
 def encode_frames_lossy_batch(rgbs, quality: int = 75, method: int = 4, two_pass: bool = True,
-                              segments: bool = False, num_partitions: int = 1,
-                              device="cuda", device_tokens: bool = False) -> list:
+                              segments: bool = False, *, device_tokens: bool = False,
+                              num_partitions: int = None, device="cuda") -> list:
     """Encode same-geometry RGB frames [h, w, 3|4] uint8 to VP8 payloads.
     With device_tokens (two-pass only) the card codes the coefficient
-    partitions and the MB headers; the payloads are the same."""
+    partitions and the MB headers; the payloads are the same.  The
+    parameters after `segments` are keyword-only; `num_partitions` None
+    codes DEVICE_TOKEN_PARTS partitions with device tokens and 1 without,
+    as the JAX package does."""
     n_try_for(method)
+    if num_partitions is None:
+        num_partitions = DEVICE_TOKEN_PARTS if device_tokens else 1
     vp8.check_partitions(num_partitions)
     h, w = rgbs[0].shape[:2]
     if any(r.shape[:2] != (h, w) for r in rgbs):
         raise ValueError("frames of one batch must share their geometry")
     arrays, probs, segs = analyze_frames_lossy_batch(rgb_to_planes(rgbs), quality, method,
-                                                     two_pass, segments, device, device_tokens,
-                                                     num_partitions)
+                                                     two_pass, segments, device=device,
+                                                     device_tokens=device_tokens,
+                                                     num_partitions=num_partitions)
     if device_tokens:
         return finish_frames_tokens(arrays, probs, quality, w, h, segs)
     return finish_frames_lossy_batch(arrays, probs, quality, w, h, num_partitions, segs)
 
 
 def encode_frames_lossy_batch_mixed(rgbs, quality: int = 75, method: int = 4,
-                                    two_pass: bool = True, segments: bool = False,
-                                    num_partitions: int = 1, device="cuda",
-                                    device_tokens: bool = False) -> list:
-    """Frames of mixed geometries: one batch per (h, w), results in input order."""
+                                    two_pass: bool = True, segments: bool = False, *,
+                                    device_tokens: bool = False, num_partitions: int = None,
+                                    device="cuda") -> list:
+    """Frames of mixed geometries: one batch per (h, w), results in input
+    order; the parameters as `encode_frames_lossy_batch`'s."""
     groups = {}
     for i, im in enumerate(rgbs):
         groups.setdefault(im.shape[:2], []).append(i)
     out = [None] * len(rgbs)
     for idxs in groups.values():
         res = encode_frames_lossy_batch([rgbs[i] for i in idxs], quality, method, two_pass,
-                                        segments, num_partitions, device, device_tokens)
+                                        segments, device_tokens=device_tokens,
+                                        num_partitions=num_partitions, device=device)
         for j, i in enumerate(idxs):
             out[i] = res[j]
     return out

@@ -94,6 +94,16 @@ class EncParams:
     def batch(self) -> int:
         return self.y1_q.shape[0]
 
+    def rows(self, start: int, stop: int) -> "EncParams":
+        """Images start..stop-1 of a per-image instance (views, no copy):
+        one rank's shard of a batched instance."""
+        if not 0 <= start < stop <= self.batch:
+            raise ValueError(f"rows {start}:{stop} of parameters for {self.batch} images")
+        p = EncParams()
+        for name in self.VECS + self.LAMS:
+            setattr(p, name, getattr(self, name)[start:stop])
+        return p
+
     def packed(self, device) -> torch.Tensor:
         """The kernel's view: int32 [B, 4, SIZE] (per segment the vectors,
         then the lambdas)."""
@@ -145,6 +155,13 @@ class EncTables:
 
         return cls(field(lambda lc: lc.pos_cost), field(lambda lc: lc.pos_cost[..., CLS_REPS]),
                    field(lambda lc: lc.eob_cost), field(lambda lc: lc.init_cost))
+
+    def rows(self, start: int, stop: int) -> "EncTables":
+        """Images start..stop-1 of per-image tables (views, no copy): one
+        rank's shard of a batched instance."""
+        if not 0 <= start < stop <= self.batch:
+            raise ValueError(f"rows {start}:{stop} of tables for {self.batch} images")
+        return EncTables(*(getattr(self, f)[start:stop] for f in self.FIELDS))
 
     def expand(self, batch: int) -> "EncTables":
         """A one-image table set seen as `batch` images (no copy)."""

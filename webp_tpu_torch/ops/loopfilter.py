@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .wavefront import diagonal
 
 
 def _c(v):
@@ -121,6 +122,27 @@ def _filter_patch(patch, n: int, has_left, has_top, level, interior, hev_t, do_s
         h_edge(row, "sub", sub_lim, en_sub)
 
 
+def filter_mbs_(work, R, X, has_top, params, simple: bool) -> None:
+    """Filter MBs of one diagonal in int32 workspaces with 4 margin rows
+    above and columns left: work [(plane [B, 4 + rows, 4 + cols], n)], R [n]
+    the MBs' rows in the workspaces, X [n] their columns, has_top [n] whether
+    the frame has a row above them, params (level, interior, hev, do_sub)
+    [B, n]."""
+    for pw, n in work:
+        k = torch.arange(n + 4, device=pw.device)
+        ri = ((R * n)[:, None] + k)[:, :, None]  # padded rows of the patches
+        ci = ((X * n)[:, None] + k)[:, None, :]
+        patch = pw[:, ri, ci]
+        _filter_patch(patch, n, X > 0, has_top, *params, simple)
+        pw[:, ri, ci] = patch
+
+
+def filter_params(level, interior, hev, do_sub):
+    """The per-MB filter parameters as the workspaces' step functions take
+    them: level, interior, hev int32 and do_sub bool [B, nmb]."""
+    return (*(t.to(torch.int32) for t in (level, interior, hev)), do_sub.bool())
+
+
 def loop_filter_plain_(y, u, v, level, interior, hev, do_sub, simple: bool) -> None:
     """Torch twin of the loop-filter kernel; filters y/u/v in place."""
     B, H, W = y.shape
@@ -128,21 +150,11 @@ def loop_filter_plain_(y, u, v, level, interior, hev, do_sub, simple: bool) -> N
     dev = y.device
     planes = [(y, 16)] if simple else [(y, 16), (u, 8), (v, 8)]
     work = [(F.pad(p.to(torch.int32), (4, 0, 4, 0)), n) for p, n in planes]
-    level, interior, hev = (t.to(torch.int32) for t in (level, interior, hev))
-    do_sub = do_sub.bool()
+    params = filter_params(level, interior, hev, do_sub)
     for t in range(mbw + 2 * (mbh - 1)):
-        rows = [r for r in range(mbh) if 0 <= t - 2 * r < mbw]
-        R = torch.tensor(rows, device=dev)
-        X = t - 2 * R
+        R, X = (a.to(dev) for a in diagonal(t, range(mbh), mbw))
         M = R * mbw + X
-        params = (level[:, M], interior[:, M], hev[:, M], do_sub[:, M])
-        for pw, n in work:
-            k = torch.arange(n + 4, device=dev)
-            ri = ((R * n)[:, None] + k)[:, :, None]  # padded rows of the patches
-            ci = ((X * n)[:, None] + k)[:, None, :]
-            patch = pw[:, ri, ci]
-            _filter_patch(patch, n, X > 0, R > 0, *params, simple)
-            pw[:, ri, ci] = patch
+        filter_mbs_(work, R, X, R > 0, [p[:, M] for p in params], simple)
     for (p, _), (pw, _) in zip(planes, work):
         p.copy_(pw[:, 4:, 4:].to(torch.uint8))
 

@@ -135,67 +135,83 @@ def _bordered(p: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def recon_mbs_(Yw, Uw, Vw, R, X, M, has_above, res, lm_all, bp_all, cm_all) -> None:
+    """Reconstruct MBs of one diagonal into int32 workspaces with a border
+    row above and column left (`_bordered`): R [n] their rows in the
+    workspaces, X [n] their columns, M [n] their MB indices in the per-MB
+    arrays and has_above [n] whether the frame has a row above them."""
+    B, W = Yw.shape[0], Yw.shape[2] - 1
+    dev = Yw.device
+    k16 = torch.arange(16, device=dev)
+    k8 = torch.arange(8, device=dev)
+    k4 = torch.arange(4, device=dev)
+    n = len(R)
+    lm, cm = lm_all[:, M], cm_all[:, M]
+    rs = res[:, M]  # [B, n, 24, 16]
+    has_left = X > 0
+
+    # Luma workspace [B, n, 17, 21] as in create_border_luma.
+    top = (R * 16)[:, None]
+    ws = torch.zeros((B, n, 17, 21), dtype=torch.int32, device=dev)
+    ws[:, :, 0, 1:17] = Yw[:, top, 1 + (X * 16)[:, None] + k16]
+    tr_cols = (X * 16 + 16)[:, None] + k4
+    ws[:, :, 0, 17:21] = Yw[:, top, 1 + tr_cols.clamp(max=W - 1)]  # rightmost MB repeats a[15]
+    for r in (4, 8, 12):
+        ws[:, :, r, 17:21] = ws[:, :, 0, 17:21]
+    ws[:, :, 1:17, 0] = Yw[:, 1 + top + k16, (X * 16)[:, None]]
+    ws[:, :, 0, 0] = Yw[:, R * 16, X * 16]
+
+    pred16 = predict_whole(ws[:, :, 0, 1:17], ws[:, :, 1:17, 0], ws[:, :, 0, 0],
+                           lm.clamp(max=3), has_above, has_left, 16)
+    recon16 = (pred16 + _blocks_to_spatial(rs[:, :, :16], 4)).clamp(0, 255)
+
+    for i in range(16):
+        y0, x0 = 1 + (i // 4) * 4, 1 + (i % 4) * 4
+        e = torch.cat([
+            ws[:, :, y0 + 3, x0 - 1 : x0], ws[:, :, y0 + 2, x0 - 1 : x0],
+            ws[:, :, y0 + 1, x0 - 1 : x0], ws[:, :, y0, x0 - 1 : x0],
+            ws[:, :, y0 - 1, x0 - 1 : x0 + 8],
+        ], dim=-1)
+        preds = predict_b_all(e)  # [B, n, 10, 16]
+        mode = bp_all[:, M, i][..., None, None].expand(B, n, 1, 16)
+        pred = torch.gather(preds, 2, mode)[:, :, 0]
+        blk = (pred + rs[:, :, i]).clamp(0, 255).reshape(B, n, 4, 4)
+        ws[:, :, y0 : y0 + 4, x0 : x0 + 4] = blk
+    luma = torch.where((lm == 4)[..., None, None], ws[:, :, 1:17, 1:17], recon16)
+    Yw[:, 1 + top[:, :, None] + k16[:, None], 1 + (X * 16)[:, None, None] + k16] = luma
+
+    ctop = (R * 8)[:, None]
+    for j, Cw in enumerate((Uw, Vw)):
+        a8 = Cw[:, ctop, 1 + (X * 8)[:, None] + k8]
+        left8 = Cw[:, 1 + ctop + k8, (X * 8)[:, None]]
+        tl = Cw[:, R * 8, X * 8]
+        pred = predict_whole(a8, left8, tl, cm, has_above, has_left, 8)
+        blk = _blocks_to_spatial(rs[:, :, 16 + 4 * j : 20 + 4 * j], 2)
+        Cw[:, 1 + ctop[:, :, None] + k8[:, None], 1 + (X * 8)[:, None, None] + k8] = (
+            (pred + blk).clamp(0, 255)
+        )
+
+
+def diagonal(t: int, rows, mbw: int):
+    """(rows, columns) tensors of the MBs of diagonal t among MB rows `rows`
+    (a range), or None when it has none."""
+    active = [r for r in rows if 0 <= t - 2 * r < mbw]
+    if not active:
+        return None
+    R = torch.tensor(active)
+    return R, t - 2 * R
+
+
 def recon_plain_(y, u, v, residuals, luma_mode, bpred, chroma_mode) -> None:
     """Torch twin of the recon kernel; writes the planes y/u/v in place."""
     B, H, W = y.shape
     mbh, mbw = H // 16, W // 16
     dev = y.device
     Yw, Uw, Vw = _bordered(y), _bordered(u), _bordered(v)
-    res = residuals.to(torch.int32)
-    lm_all, bp_all, cm_all = luma_mode.long(), bpred.long(), chroma_mode.long()
-    k16 = torch.arange(16, device=dev)
-    k8 = torch.arange(8, device=dev)
-    k4 = torch.arange(4, device=dev)
+    args = (residuals.to(torch.int32), luma_mode.long(), bpred.long(), chroma_mode.long())
     for t in range(mbw + 2 * (mbh - 1)):
-        rows = [r for r in range(mbh) if 0 <= t - 2 * r < mbw]
-        R = torch.tensor(rows, device=dev)
-        X = t - 2 * R
-        M = R * mbw + X
-        n = len(rows)
-        lm, cm = lm_all[:, M], cm_all[:, M]
-        rs = res[:, M]  # [B, n, 24, 16]
-        has_above, has_left = R > 0, X > 0
-
-        # Luma workspace [B, n, 17, 21] as in create_border_luma.
-        top = (R * 16)[:, None]
-        ws = torch.zeros((B, n, 17, 21), dtype=torch.int32, device=dev)
-        ws[:, :, 0, 1:17] = Yw[:, top, 1 + (X * 16)[:, None] + k16]
-        tr_cols = (X * 16 + 16)[:, None] + k4
-        ws[:, :, 0, 17:21] = Yw[:, top, 1 + tr_cols.clamp(max=W - 1)]  # rightmost MB repeats a[15]
-        for r in (4, 8, 12):
-            ws[:, :, r, 17:21] = ws[:, :, 0, 17:21]
-        ws[:, :, 1:17, 0] = Yw[:, 1 + top + k16, (X * 16)[:, None]]
-        ws[:, :, 0, 0] = Yw[:, R * 16, X * 16]
-
-        pred16 = predict_whole(ws[:, :, 0, 1:17], ws[:, :, 1:17, 0], ws[:, :, 0, 0],
-                               lm.clamp(max=3), has_above, has_left, 16)
-        recon16 = (pred16 + _blocks_to_spatial(rs[:, :, :16], 4)).clamp(0, 255)
-
-        for i in range(16):
-            y0, x0 = 1 + (i // 4) * 4, 1 + (i % 4) * 4
-            e = torch.cat([
-                ws[:, :, y0 + 3, x0 - 1 : x0], ws[:, :, y0 + 2, x0 - 1 : x0],
-                ws[:, :, y0 + 1, x0 - 1 : x0], ws[:, :, y0, x0 - 1 : x0],
-                ws[:, :, y0 - 1, x0 - 1 : x0 + 8],
-            ], dim=-1)
-            preds = predict_b_all(e)  # [B, n, 10, 16]
-            mode = bp_all[:, M, i][..., None, None].expand(B, n, 1, 16)
-            pred = torch.gather(preds, 2, mode)[:, :, 0]
-            blk = (pred + rs[:, :, i]).clamp(0, 255).reshape(B, n, 4, 4)
-            ws[:, :, y0 : y0 + 4, x0 : x0 + 4] = blk
-        luma = torch.where((lm == 4)[..., None, None], ws[:, :, 1:17, 1:17], recon16)
-        Yw[:, 1 + top[:, :, None] + k16[:, None], 1 + (X * 16)[:, None, None] + k16] = luma
-
-        ctop = (R * 8)[:, None]
-        for j, Cw in enumerate((Uw, Vw)):
-            a8 = Cw[:, ctop, 1 + (X * 8)[:, None] + k8]
-            left8 = Cw[:, 1 + ctop + k8, (X * 8)[:, None]]
-            tl = Cw[:, R * 8, X * 8]
-            pred = predict_whole(a8, left8, tl, cm, has_above, has_left, 8)
-            blk = _blocks_to_spatial(rs[:, :, 16 + 4 * j : 20 + 4 * j], 2)
-            Cw[:, 1 + ctop[:, :, None] + k8[:, None], 1 + (X * 8)[:, None, None] + k8] = (
-                (pred + blk).clamp(0, 255)
-            )
+        R, X = (a.to(dev) for a in diagonal(t, range(mbh), mbw))
+        recon_mbs_(Yw, Uw, Vw, R, X, R * mbw + X, R > 0, *args)
     for p, w in ((y, Yw), (u, Uw), (v, Vw)):
         p.copy_(w[:, 1:, 1:].to(torch.uint8))
 
