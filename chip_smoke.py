@@ -37,7 +37,14 @@ path's card inputs; the payloads decode through K1-K4 bit-exact with the
 plain CPU decode.  In both phases the device-token flow
 (`device_tokens=True`: K13 codes the coefficient partitions from pass 2's
 levels on the card, K14 the MB headers) gives the same payloads as the
-host finisher.  In the flagship phase K13 coeff_tokens and K14 mb_headers
+host finisher.  The host finisher's flows pack pass 2's arrays into the
+encode wire (K18 prepack, K19 pack_levels, K20 wire: one uint8 row per
+image) and unpack it on the host; in both phases the three kernels are held
+bit-exact to their plain twins on the card's pass-2 arrays and on seeded
+arrays that set each of the wire's flags (`tests/wire_inputs.py`;
+`fetch_packed` must return those arrays exactly through each branch), and
+the wire path is timed beside the dense fetch of the same arrays.  In the
+flagship phase K13 coeff_tokens and K14 mb_headers
 are held bit-exact to their plain twins on the card's own pass-2 arrays,
 K15 bool_lanes on adversarial carry streams (`tests/token_inputs.py`), and
 the host C++ coders (`vp8_token_encode`, `vp8_mbheader_encode`) are timed
@@ -67,12 +74,14 @@ card's largest number of resident clusters.  Then a one-rank NCCL process
 group (`torch.distributed`, tcp on localhost) carries the four
 data-parallel factories of `webp_tpu_torch.parallel`, each byte-equal to
 the unsharded path of this run: the decode's RGB, the one-pass analysis,
-the flagship's pass-2 arrays and payloads, and the token lanes gathered
-over the group (the all_gather timed); then the group is destroyed.
+the flagship's int8 prepack (K18) and the payloads finished from it, and
+the token lanes gathered over the group (the all_gather timed); then the
+group is destroyed.
 
 Prints the card's name and power limit, per-kernel timings (CUDA events;
 kernel beside plain twin and the kernel's bound), the encodes' per-stage
-host-clock split (both flows) and d2h bytes, the lossless decode's ms/img beside the host C++
+host-clock split (both flows) and d2h bytes (the wire rows beside the
+dense arrays), the images by wire branch, the lossless decode's ms/img beside the host C++
 decode's, one JSON line of kernel records and, last,
 {"ok": true, "device": {...}}.
 Exits non-zero, without that line, when there is no CUDA device or any
@@ -134,6 +143,15 @@ TOKEN_KERNELS = [
      "webp_tpu/ops/token_ops.py:424 (+ :340) + webp_tpu/ops/boolenc2.py:89"),
     ("bool_lanes", "webp_tpu_torch/csrc/tokens.cu", "webp_tpu/ops/boolenc2.py:89"),
 ]
+WIRE_KERNELS = [
+    ("prepack", "webp_tpu_torch/csrc/wire.cu",
+     "webp_tpu/ops/encode_wavefront2.py:1028 (jitted :1076, :1087)"),
+    ("pack_levels", "webp_tpu_torch/csrc/wire.cu",
+     "webp_tpu/ops/encode_wavefront2.py:1113 + webp_tpu/ops/sparse.py:73"),
+    ("wire", "webp_tpu_torch/csrc/wire.cu",
+     "webp_tpu/ops/encode_wavefront2.py:1200 (+ :1178, :1149)"),
+]
+WIRE_SEED = 31  # the overflow case's arrays (tests/wire_inputs.py)
 PARALLEL_KERNELS = [
     ("recon_banded", "webp_tpu_torch/csrc/banded.cu",
      "webp_tpu/parallel/pipeline.py:60 (+ :37 _band_shifts)"),
@@ -215,6 +233,27 @@ def timed(fn):
     return out, start.elapsed_time(stop)
 
 
+def device_ms(fn, reps: int, names) -> dict:
+    """Mean device time per call of fn(), in ms, of the kernels whose names
+    contain each of `names`, from a torch.profiler trace of `reps` calls
+    after a warm-up; None where the trace holds no device time for one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(names, 0.0)
+    for event in prof.key_averages():
+        for n in names:
+            if n in event.key:
+                total[n] += event.self_device_time_total  # us
+    return {n: t / reps / 1000 if t else None for n, t in total.items()}
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -256,6 +295,16 @@ def enc_ops(n_mb: int, n_i4: int, n_try: int, trellis: bool) -> float:
 OPS_CODER_STEP = 16
 OPS_OP_GEN = 8
 OPS_CTX_BLOCK = 16 + 2 * 16
+
+
+# Integer operations a slot of the wire kernels (`csrc/wire.cu`): K18's
+# gather, clip, compare, ballot rank and store; K19's compare, ballot rank
+# and store; K20's nibble pack and med-list rank per packed value, and its
+# image-list scan per escape slot.
+OPS_PREPACK_SLOT = 8
+OPS_PACK_SLOT = 6
+OPS_WIRE_VALUE = 6
+OPS_LIST_SLOT = 12
 
 
 def ptxas_report() -> list:
@@ -533,11 +582,13 @@ def encode_stages(rgbs, dev, method: int, segments: bool, device_tokens: bool = 
                   reps: int = 3):
     """Host-clock ms per stage of the two-pass encode (a synchronise ends
     each), the median of `reps` runs after a warm-up; also the bytes that
-    came back from the device after pass 2, and the payloads."""
+    came back from the device after pass 2 (the host finisher's: the wire
+    rows, and the dense int8 rows of sp_over images), and the payloads."""
     import torch
 
     from webp_tpu_torch.common import vp8_tables as T
     from webp_tpu_torch.encode import device as edev
+    from webp_tpu_torch.ops import wire
     from webp_tpu_torch.ops.enc_params import EncTables
     from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch
 
@@ -546,7 +597,7 @@ def encode_stages(rgbs, dev, method: int, segments: bool, device_tokens: bool = 
     mbw, mbh = width // 16, height // 16
     names = ("rgb_to_yuv", "upload", "segment", "pass1", "stats_d2h_probs", "tables", "pass2")
     names += (("encode_tokens", "fetch_tokens", "header_coders", "mb_headers", "assemble")
-              if device_tokens else ("d2h", "finish"))
+              if device_tokens else ("wire", "d2h", "finish"))
     runs = []
     for _ in range(reps + 1):
         t = [time.perf_counter()]
@@ -584,12 +635,17 @@ def encode_stages(rgbs, dev, method: int, segments: bool, device_tokens: bool = 
             mark()
             d2h = tokens.meta.nbytes + sum(a.nbytes for a in (*tokens.parts, *headers))
         else:
-            host = edev.fetch(arrays)
+            pre = wire.prepack(arrays)
+            rows = wire.wire_stage(*pre)
+            mark()
+            host = edev.fetch_packed(pre[0], rows, arrays)
             mark()
             payloads = edev.finish_frames_lossy_batch(host, probs, QUALITY, width, height,
                                                       PARTITIONS, segs)
             mark()
-            d2h = nbytes(*arrays.values())
+            flags = rows[:, :2].cpu().numpy()
+            d2h = nbytes(rows) + (nbytes(*arrays.values()) if flags[:, 1].any()
+                                  else int(flags[:, 0].sum()) * nbytes(pre[0][0]))
         runs.append([(b - a) * 1000 for a, b in zip(t, t[1:])])
     ms = {n: statistics.median(r[i] for r in runs[1:]) for i, n in enumerate(names)}
     return ms, d2h, payloads
@@ -621,7 +677,8 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     nmb = mbw * mbh
     name = f"Q{QUALITY} m{method}, segments {'on' if segments else 'off'}, {PARTITIONS} partitions"
     n_try, trellis = edev.n_try_for(method), method >= 4
-    kernels = [k for k, _, _ in ENCODE_KERNELS if segments or k != "analysis"]
+    kernels = [k for k, _, _ in ENCODE_KERNELS + WIRE_KERNELS if segments or k != "analysis"]
+    wire_on = {k: 1 for k, _, _ in WIRE_KERNELS}
     flagship = (method, segments) == ENCODES[-1]
 
     # 1. Inputs: two distinct frames tiled into a batch of 8, and the plain
@@ -638,8 +695,9 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     # 2. The main path, counted: two-pass, then one-pass.
     launches = {k: 0 for k in kernels}
     payloads = {}
-    for two_pass, expect in ((True, {"enc": 2, "token_stats": 1, "enc_tables": 1}),
-                             (False, {"enc": 1, "token_stats": 0, "enc_tables": 0})):
+    edev.WIRE_BRANCHES.update(dict.fromkeys(edev.WIRE_BRANCHES, 0))
+    for two_pass, expect in ((True, {"enc": 2, "token_stats": 1, "enc_tables": 1, **wire_on}),
+                             (False, {"enc": 1, "token_stats": 0, "enc_tables": 0, **wire_on})):
         if segments:
             expect["analysis"] = 1
         _build.reset_launches()
@@ -657,11 +715,12 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
                                      "CPU encode")
         payloads[two_pass] = got
     print(f"[{name}] main path: byte-equal to the plain CPU encode on 2 x {BATCH} images "
-          f"(two-pass and one-pass); launches {launches}", flush=True)
+          f"(two-pass and one-pass); launches {launches}; images by wire branch "
+          f"{edev.WIRE_BRANCHES}", flush=True)
 
     # The device-token flow, counted: the same payloads as the host finisher.
     expect = {"enc": 2, "token_stats": 1, "enc_tables": 1, "coeff_tokens": 1, "mb_headers": 1,
-              "bool_lanes": 0, **({"analysis": 1} if segments else {})}
+              "bool_lanes": 0, **dict.fromkeys(wire_on, 0), **({"analysis": 1} if segments else {})}
     _build.reset_launches()
     got = encode_frames_lossy_batch(rgbs, QUALITY, method, True, segments,
                                     num_partitions=PARTITIONS, device=dev, device_tokens=True)
@@ -769,7 +828,7 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     print(f"[{name}] enc pass 1 (default tables, n_try {min(n_try, 3)}): {p1_ms:.4f} ms kernel, "
           f"{p1_plain} plain, bound {p1_bound['bound_ms']:.4f} ms by "
           f"{p1_bound['bound_by']} ({shape})", flush=True)
-    for k in kernels:
+    for k in (k for k in kernels if k not in wire_on):  # wire_phase prints K18-K20
         what = (f" pass 2 (per-image tables, n_try {n_try}{', trellis' if trellis else ''})"
                 if k == "enc" else "")
         print(f"[{name}] {k}{what}: {ms[k]:.4f} ms kernel, {plain_ms[k]:.4f} ms plain, bound "
@@ -791,9 +850,10 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
         print(f"[{name}] encode_frames_lossy_batch stages, {flow} (host clock, ms/img): {split} "
               f"({card})", flush=True)
     copy_ms = time_ms(lambda: [a.cpu() for a in pass2.values()], 10)
-    print(f"[{name}] pass-2 d2h: {nb // BATCH} bytes/img; the copy alone {copy_ms / BATCH:.4f} "
-          f"ms/img (CUDA events), with the host's per-image int32 arrays "
-          f"{stage_ms['d2h'] / BATCH:.4f} ms/img; device tokens: {tok_nb // BATCH} bytes/img "
+    print(f"[{name}] pass-2 d2h: host finisher {nb // BATCH} bytes/img (the wire rows, "
+          f"{stage_ms['d2h'] / BATCH:.4f} ms/img with the copy of sp_over images' dense rows); "
+          f"the dense arrays {nbytes(*pass2.values()) // BATCH} bytes/img, their copy alone "
+          f"{copy_ms / BATCH:.4f} ms/img (CUDA events); device tokens: {tok_nb // BATCH} bytes/img "
           f"(modes, skip flags, lanes, partition and header bytes) ({card})", flush=True)
     print(f"[{name}] encode_frames_lossy_batch (two-pass, host clock, alternating runs): host "
           f"finish {statistics.median(e2e[False]):.4f} ms/img "
@@ -801,8 +861,11 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
           f"{statistics.median(e2e[True]):.4f} ms/img {[round(x, 4) for x in e2e[True]]} "
           f"({card})", flush=True)
     # No single PyTorch call computes any of these functions.
+    wire_records = wire_phase(dev, card, name, pass2)
     records = {k: {"launches": launches[k], "max_abs_err": err[k], "ms": ms[k],
-                   "plain_ms": plain_ms[k], **bounds[k], "library_ms": None} for k in kernels}
+                   "plain_ms": plain_ms[k], **bounds[k], "library_ms": None}
+               for k in kernels if k not in wire_records}
+    records.update({k: {"launches": launches[k], **r} for k, r in wire_records.items()})
     if flagship:
         keep["flagship"] = dict(planes=(y, u, v), P=P, sid=sid, segs=segs, pass2=pass2,
                                 probs=probs.cpu().numpy(), payloads=payloads[True], n_try=n_try)
@@ -812,6 +875,132 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     else:  # the payloads above checked what these kernels computed
         records.update({k: {"launches": n, "max_abs_err": 0} for k, n in token_launches.items()})
     return records
+
+
+def wire_phase(dev, card: str, name: str, pass2) -> dict:
+    """K18, K19 and K20 against their plain twins on the card's pass-2
+    arrays, timed beside their bounds; the wire path (the three kernels, the
+    rows' d2h and the host unpack in a pool) beside the dense fetch of the
+    same arrays, in alternating runs; and the overflow case: seeded arrays
+    (`tests/wire_inputs.py`) that set every flag, rows equal to the twins',
+    and `fetch_packed` returning the arrays exactly through each branch.
+    name -> kernel record without launches."""
+    import torch
+
+    from webp_tpu_torch.encode import device as edev
+    from webp_tpu_torch.ops import wire
+    from webp_tpu_torch.ops.sparse import pack_levels_mb, pack_levels_mb_plain
+    from wire_inputs import wire_arrays
+
+    B, nmb = pass2["luma_mode"].shape
+    cap = wire.CAP_MB
+
+    def kernels(arrays):  # each kernel's outputs
+        pre = wire.prepack(arrays)
+        packed = pack_levels_mb(pre[0], cap)
+        return pre, packed, (wire.wire(*packed, *pre[1:]),)
+
+    def twins(arrays):
+        pre = wire.prepack_plain(arrays)
+        packed = pack_levels_mb_plain(pre[0], cap)
+        return pre, packed, (wire.wire_plain(*packed, *pre[1:]),)
+
+    def errors(got, want):
+        return {k: max(max_abs_err(a, b) for a, b in zip(g, w))
+                for (k, _, _), g, w in zip(WIRE_KERNELS, got, want)}
+
+    # 1. The kernels on pass 2's arrays; each twin timed alone on the
+    #    kernels' own inputs.
+    pre, packed, (rows,) = kernels(pass2)
+    err = errors((pre, packed, (rows,)), twins(pass2))
+    plain_ms = {}
+    _, plain_ms["prepack"] = timed(lambda: wire.prepack_plain(pass2))
+    _, plain_ms["pack_levels"] = timed(lambda: pack_levels_mb_plain(pre[0], cap))
+    _, plain_ms["wire"] = timed(lambda: wire.wire_plain(*packed, *pre[1:]))
+
+    # 2. The overflow case, at the same shapes.
+    arrays_h, _, flags = wire_arrays(B, nmb, WIRE_SEED)
+    over = {k: torch.from_numpy(a).to(dev) for k, a in arrays_h.items()}
+    o_pre, o_packed, (o_rows,) = kernels(over)
+    for k, e in errors((o_pre, o_packed, (o_rows,)), twins(over)).items():
+        err[k] = max(err[k], e)
+    if not (o_rows[:, :2].cpu().numpy() == flags).all():
+        raise AssertionError(f"overflow case: flags {o_rows[:, :2].tolist()}, expected "
+                             f"{flags.tolist()}")
+    want = edev.fetch(over)
+    keep = [i for i in range(B) if not flags[i, 1]]
+    sub = {k: t[keep] for k, t in over.items()}
+    before = dict(edev.WIRE_BRANCHES)
+    for got, idx in ((edev.fetch_packed(o_pre[0], o_rows, over), range(B)),
+                     (edev.fetch_packed(o_pre[0][keep], o_rows[keep], sub), keep)):
+        for g, i in zip(got, idx):
+            if any(not (g[k] == want[i][k]).all() for k in want[i]):
+                raise AssertionError(f"overflow case: fetch_packed's image {i} differs")
+    taken = {k: edev.WIRE_BRANCHES[k] - before[k] for k in before}
+    torch.cuda.synchronize()
+    bad = {k: e for k, e in err.items() if e != 0}
+    if bad:
+        raise AssertionError(f"wire kernels differ from their plain twins: {bad}")
+    print(f"[{name}] wire kernels vs plain twins (bit-exact, tolerance 0; on the card's pass-2 "
+          f"arrays and on the overflow case, flags {flags.tolist()} as expected; fetch_packed "
+          f"exact, images by branch {taken}): {err}", flush=True)
+
+    # 3. Timings beside the bounds (bytes in and out; operations a slot):
+    #    each call by CUDA events (the wrapper's host work included, as for
+    #    every kernel here), and the kernels' own device time by the profiler.
+    calls = {"prepack": (lambda: wire.prepack(pass2), ["prepack_kernel"]),
+             "pack_levels": (lambda: pack_levels_mb(pre[0], cap), ["pack_levels_kernel"]),
+             "wire": (lambda: wire.wire(*packed, *pre[1:]), ["wire_mb_kernel", "wire_list_kernel"])}
+    ms = {k: time_ms(fn, 20) for k, (fn, _) in calls.items()}
+    on_card = torch.device(dev).type == "cuda"
+    dev_ms = {k: {} for k in calls}
+    try:
+        if on_card:
+            dev_ms = {k: device_ms(fn, 20, names) for k, (fn, names) in calls.items()}
+    except Exception as e:  # the profiler is a measurement aid, not a check
+        print(f"[{name}] torch.profiler gave no device times: {e!r}", flush=True)
+    n_mb = B * nmb
+    bounds = {
+        "prepack": bound(nbytes(*pass2.values(), *pre), n_mb * wire.SLOTS * OPS_PREPACK_SLOT),
+        "pack_levels": bound(nbytes(pre[0], *packed), n_mb * wire.SLOTS * OPS_PACK_SLOT),
+        "wire": bound(nbytes(*packed, *pre[1:], rows),
+                      n_mb * (cap * OPS_WIRE_VALUE + wire.N_ESC * OPS_LIST_SLOT)),
+    }
+    shape = f"batch {B} at {WIDTH}x{HEIGHT}; {card}"
+    for k, _, _ in WIRE_KERNELS:
+        kernel_ms = ", ".join(f"{n} " + ("not measured" if t is None else f"{t:.4f} ms")
+                              for n, t in dev_ms[k].items()) or "not measured"
+        print(f"[{name}] {k}: {ms[k]:.4f} ms kernel (the call), device time {kernel_ms} "
+              f"(profiler), {plain_ms[k]:.4f} ms plain, bound {bounds[k]['bound_ms']:.4f} ms by "
+              f"{bounds[k]['bound_by']} ({shape})", flush=True)
+
+    # 4. After pass 2, host clock, alternating: the wire path against the
+    #    dense fetch of the same arrays.
+    def wire_path():
+        p = wire.prepack(pass2)
+        edev._pool_map(dict, edev.fetch_packed(p[0], wire.wire_stage(*p), pass2))
+
+    rows_h = rows.cpu().numpy()
+    sparse = [i for i in range(B) if not rows_h[i, :2].any()]
+    t0 = time.perf_counter()
+    for i in sparse:
+        wire.unpack_wire(rows_h[i], nmb)
+    unpack = (f"{(time.perf_counter() - t0) * 1000 / len(sparse):.4f} ms/img" if sparse
+              else "not measured")
+    runs = {"wire": [], "dense": []}
+    for kind in ("dense", "wire", "wire", "dense", "dense", "wire"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wire_path() if kind == "wire" else edev.fetch(pass2)
+        runs[kind].append((time.perf_counter() - t0) * 1000 / B)
+    print(f"[{name}] after pass 2 (host clock, alternating runs, ms/img): wire path (K18-K20, "
+          f"d2h of {rows.shape[1]} B/img, host unpack in a pool) "
+          f"{statistics.median(runs['wire']):.4f} {[round(x, 4) for x in runs['wire']]}; dense "
+          f"fetch ({nbytes(*pass2.values()) // B} B/img, int32 host arrays) "
+          f"{statistics.median(runs['dense']):.4f} {[round(x, 4) for x in runs['dense']]}; the "
+          f"host unpack alone, one thread, {unpack} ({card})", flush=True)
+    return {k: {"max_abs_err": err[k], "ms": ms[k], "plain_ms": plain_ms[k], **bounds[k],
+                "library_ms": None} for k, _, _ in WIRE_KERNELS}
 
 
 def token_phase(dev, card: str, name: str, pass2, probs, sid, segs, mbw: int, mbh: int) -> dict:
@@ -1130,8 +1319,9 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
     n_band 4 and timed beside K2 and K3.  Then the four data-parallel
     factories on a process group of one rank (NCCL on a card, gloo on the
     CPU), each byte-equal to the unsharded path of this run: the decode's
-    RGB; the one-pass analysis; the flagship's pass-2 arrays and payloads;
-    the gathered token lanes, whose all_gather is timed."""
+    RGB; the one-pass analysis; the flagship's int8 prepack (K18) and the
+    payloads finished from it; the gathered token lanes, whose all_gather
+    is timed."""
     import torch
     import torch.distributed as dist
 
@@ -1139,7 +1329,7 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
     from webp_tpu_torch.common import vp8_tables as T
     from webp_tpu_torch.decode import device as tdev
     from webp_tpu_torch.encode import device as edev
-    from webp_tpu_torch.ops import banded
+    from webp_tpu_torch.ops import banded, wire
     from webp_tpu_torch.ops.enc_params import EncTables
     from webp_tpu_torch.ops.encode_wavefront import OUT_FIELDS, encode_analysis_batch
     from webp_tpu_torch.ops.loopfilter import loop_filter_
@@ -1164,6 +1354,7 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
                                tdev.split_planes(tdev.decode_core(d, "yuv"), mbw, mbh)]
         want_rgb[simple] = tdev.decode_core(d, "rgb")
     want_analysis = encode_analysis_batch(y, u, v, P, default, n_try1, True)
+    want_prepack = wire.prepack(pass2)
     skipped, want_lanes = edev.encode_tokens(pass2, probs, mbw, mbh, PARTITIONS)
     want_tokens = edev.fetch_tokens(pass2, skipped, want_lanes, sid)
 
@@ -1198,19 +1389,22 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
         got = step(y, u, v, P, default)
         for k in OUT_FIELDS:
             same(got[k], want_analysis[k], f"sharded analysis {k}")
-        stats_step, pass2_step = parallel.make_encode_twopass_sharded(mesh, mbw, mbh, n_try1,
-                                                                      flag["n_try"], True)
+        stats_step, prepack_step = parallel.make_encode_twopass_sharded(mesh, mbw, mbh, n_try1,
+                                                                        flag["n_try"], True)
         totals, ones = stats_step(y, u, v, P, default, sid)
         probs2 = edev.adapt_probs(totals.cpu().numpy(), ones.cpu().numpy())
-        arrays = pass2_step(y, u, v, P, edev.tables_for(probs2, dev), sid)
-        for k in OUT_FIELDS:
-            same(arrays[k], pass2[k], f"sharded pass-2 {k}")
-        payloads = edev.finish_frames_lossy_batch(edev.fetch(arrays), probs2, QUALITY, WIDTH,
-                                                  HEIGHT, PARTITIONS, segs)
+        pre = prepack_step(y, u, v, P, edev.tables_for(probs2, dev), sid)
+        for got, want, k in zip(pre, want_prepack, ("lv8", "meta8", "esc_pos", "esc_val",
+                                                      "overflow")):
+            same(got, want, f"sharded prepack {k}")
+        rows = [t.cpu().numpy() for t in pre[:4]]
+        arrays = [wire.unpack_analysis(*(a[i] for a in rows)) for i in range(BATCH)]
+        payloads = edev.finish_frames_lossy_batch(arrays, probs2, QUALITY, WIDTH, HEIGHT,
+                                                  PARTITIONS, segs)
         if payloads != flag["payloads"]:
             raise AssertionError("the sharded two-pass payloads differ from the unsharded ones")
         step = parallel.make_encode_tokens_sharded(mesh, mbw, mbh, PARTITIONS)
-        lanes = step(*(arrays[k] for k in ("luma_mode", "y2_levels", "y_levels", "uv_levels")),
+        lanes = step(*(pass2[k] for k in ("luma_mode", "y2_levels", "y_levels", "uv_levels")),
                      torch.from_numpy(probs2).to(dev))
         for a, b, name in zip(lanes, want_lanes, lanes._fields):
             same(a, b, f"gathered lanes' {name}")
@@ -1230,13 +1424,13 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
         dist.destroy_process_group()
     needed = [k for k, _, _ in PARALLEL_KERNELS] + [
         "residual", "recon", "loopfilter", "yuv2rgb", "enc", "token_stats", "enc_tables",
-        "coeff_tokens"]
+        "prepack", "coeff_tokens"]
     missing = [k for k in needed if launches[k] == 0]
     if missing:
         raise AssertionError(f"the scale-out path launched no {missing} kernel: {launches}")
     print(f"[parallel] main path: banded decode byte-equal to K2 + K3 at n_band {N_BANDS} "
           f"(2 x {BATCH} images, both filter kinds); on a one-rank {backend} group (init "
-          f"{init_s:.1f} s) the sharded decode, one-pass analysis, two-pass pass-2 arrays and "
+          f"{init_s:.1f} s) the sharded decode, one-pass analysis, two-pass prepack and "
           f"payloads, and gathered token lanes equal the unsharded path; launches "
           f"{ {k: launches[k] for k in needed} }", flush=True)
     print(f"[parallel] token lanes all_gather (fields + bytes, {gather_bytes} B, world size 1): "
@@ -1361,7 +1555,7 @@ def main() -> int:
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, **records[name]}
         for name, source, replaces in (DECODE_KERNELS + ENCODE_KERNELS + TOKEN_KERNELS
-                                       + LOSSLESS_KERNELS + PARALLEL_KERNELS)
+                                       + LOSSLESS_KERNELS + PARALLEL_KERNELS + WIRE_KERNELS)
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

@@ -17,7 +17,10 @@ their sources.  The token coder's inputs (`token_inputs.py`) are seeded
 level arrays, MB modes, host coders part-way through a stream and
 adversarial carry streams.  The band-split wavefront (K16, K17) runs on
 seeded random keyframes at every band count that divides their MB rows.
-Tolerance: bit-exact (integer arithmetic).
+The encode wire (K18-K20) runs on the seeded pass-2 arrays of
+`wire_inputs.py`, which set each of its flags, at 45,000 MBs for positions
+past 2^24, and inside the encode of Q100 frames that take its sparse and
+dense-row branches.  Tolerance: bit-exact (integer arithmetic).
 """
 
 import numpy as np
@@ -36,7 +39,8 @@ from webp_tpu_torch.ops.enc_tables import enc_tables, enc_tables_plain
 from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch, encode_analysis_batch_plain
 from webp_tpu_torch.ops.token_stats import token_stats, token_stats_plain
 from webp_tpu_torch.io import native
-from webp_tpu_torch.ops import banded, boolenc2, residual, token_ops
+from webp_tpu_torch.ops import banded, boolenc2, residual, token_ops, wire
+from webp_tpu_torch.ops.sparse import pack_levels_mb, pack_levels_mb_plain
 from webp_tpu_torch.ops import vp8l_device as L
 from webp_tpu_torch.ops.loopfilter import loop_filter_, loop_filter_plain_
 from webp_tpu_torch.ops.wavefront import recon_, recon_plain_
@@ -47,6 +51,7 @@ from random_vp8l import PALETTE, SUBTRACT_GREEN, color, predictor, quantize, vp8
 from synthetic_rgb import synthetic_frame
 from token_inputs import CARRY_PATTERNS, header_inputs, prefix_coders, token_arrays
 from torch_fixtures import encode_frame, force_escapes, mixed_payloads, scalar_decode
+from wire_inputs import wire_arrays
 
 pytestmark = pytest.mark.cuda
 
@@ -584,3 +589,75 @@ def test_banded_clusters_fit_on_the_card(cuda):
     """The card holds clusters of 8 CTAs at 768x512 (32 MB rows, 4 warps a CTA)."""
     for n_band in (2, 4, 8):
         assert min(banded.max_active_clusters(n_band, 32)) >= 1
+
+
+@pytest.mark.parametrize("nmb", [64, 200], ids=["64x256", "200_mbs"])
+def test_wire_kernels_match_plain(cuda, nmb):
+    """K18, K19 and K20 against their twins on seeded pass-2 arrays
+    (`wire_inputs.py`) that set every flag: an MB over CAP_MB nonzeros, over
+    MED_CAP med entries, over N_ESC escapes, and (at 200 MBs) an image over
+    ESC_IMG; one launch each; `fetch_packed` returns the arrays exactly."""
+    arrays, lv, flags = wire_arrays(5, nmb, 12)
+    cpu = {k: torch.from_numpy(a) for k, a in arrays.items()}
+    dev = {k: t.to(cuda) for k, t in cpu.items()}
+    before = {k: _build.LAUNCHES[k] for k in ("prepack", "pack_levels", "wire")}
+    pre = wire.prepack(dev)
+    packed = pack_levels_mb(pre[0], wire.CAP_MB)
+    rows = wire.wire(*packed, *pre[1:])
+    torch.cuda.synchronize()
+    assert {k: _build.LAUNCHES[k] - n for k, n in before.items()} == {
+        "prepack": 1, "pack_levels": 1, "wire": 1}
+    pre_p = wire.prepack_plain(cpu)
+    packed_p = pack_levels_mb_plain(pre_p[0], wire.CAP_MB)
+    for g, w in zip((*pre, *packed), (*pre_p, *packed_p)):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert torch.equal(rows.cpu(), wire.wire_plain(*packed_p, *pre_p[1:]))
+    assert (rows[:, :2].cpu().numpy() == flags).all()
+    assert torch.equal(pack_levels_mb(pre[0], 100)[1].cpu(), pack_levels_mb_plain(pre_p[0], 100)[1])
+    want = edev.fetch(dev)
+    for got in (edev.fetch_packed(pre[0], rows, dev),
+                edev.fetch_packed(pre[0][:3], rows[:3], {k: t[:3] for k, t in dev.items()})):
+        for i, g in enumerate(got):
+            for k in want[i]:
+                assert (g[k] == want[i][k]).all(), k
+
+
+def test_wire_kernel_escapes_past_2_24(cuda):
+    """45,000 MBs (positions up to 18e6 > 2^24): K20's image list equals the
+    twin's integer list, and the row unpacks to the levels on the host."""
+    nmb = 45_000
+    rng = np.random.RandomState(13)
+    lv = np.zeros((1, nmb, 400), np.int16)
+    for m in np.concatenate([rng.choice(nmb, 30, replace=False), np.arange(nmb - 9, nmb)]):
+        lv[0, m, rng.choice(400, rng.randint(1, 5), replace=False)] = rng.choice([-1, 1]) * 999
+    zeros = np.zeros((1, nmb), np.uint8)
+    arrays = {"y_levels": lv[..., :256].reshape(1, nmb, 16, 16),
+              "uv_levels": lv[..., 256:384].reshape(1, nmb, 8, 16), "y2_levels": lv[..., 384:],
+              "bpred": np.zeros((1, nmb, 16), np.uint8), "luma_mode": zeros, "chroma_mode": zeros}
+    cpu = {k: torch.from_numpy(np.ascontiguousarray(a)) for k, a in arrays.items()}
+    pre = wire.prepack({k: t.to(cuda) for k, t in cpu.items()})
+    rows = wire.wire_stage(*pre).cpu()
+    assert torch.equal(rows, wire.wire_stage(*wire.prepack_plain(cpu)))
+    got = wire.unpack_wire(rows[0].numpy(), nmb)
+    assert (np.concatenate([got["y_levels"].reshape(nmb, 256), got["uv_levels"].reshape(nmb, 128),
+                            got["y2_levels"]], axis=1) == lv[0]).all()
+
+
+@pytest.mark.parametrize("two_pass", [True, False], ids=["two_pass", "one_pass"])
+def test_encode_through_the_wire_on_card(cuda, two_pass):
+    """Q100 frames whose rows take the sparse branch with escapes and the
+    dense-row branch (sp_over): payloads equal the CPU encode's; K18-K20
+    launched once each."""
+    yy, xx = np.mgrid[0:48, 0:64]
+    tiles = np.repeat(np.where(((yy // 16) + (xx // 16)) % 2 == 1, 255, 0)[..., None], 3, 2)
+    noise = 128 + np.random.RandomState(8).randint(-40, 41, (48, 64, 3))
+    rgbs = [tiles.astype(np.uint8), np.clip(noise, 0, 255).astype(np.uint8)]
+    want = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 100, 3, two_pass, device="cpu")
+    _build.reset_launches()
+    before = dict(edev.WIRE_BRANCHES)
+    got = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 100, 3, two_pass, device=cuda)
+    assert {k: _build.LAUNCHES[k] for k in ("prepack", "pack_levels", "wire")} == {
+        "prepack": 1, "pack_levels": 1, "wire": 1}
+    assert {k: edev.WIRE_BRANCHES[k] - n for k, n in before.items()} == {
+        "sparse": 1, "dense_row": 1, "dense_arrays": 0}
+    assert got == want

@@ -12,10 +12,12 @@ batch, and this process holds their outputs to:
   partitions) on every rank, on seeded levels, and again with levels
   dense enough on one rank's images that only that rank's lanes outgrow
   K13's first byte capacity;
-- for `make_encode_twopass_sharded`, the finished payloads of the port's
-  unsharded encode (Q75 m4, segments on, 8 partitions; 64x48 frames, with
-  the 256-MB floor of the segmentation lowered so that small frames are
-  segmented), which the port's other tests hold to the JAX package.
+- for `make_encode_twopass_sharded`, the ranks' int8 prepack (K18's
+  5-tuple) against the unsharded port's, and the payloads finished from it
+  (`ops.wire.unpack_analysis`) against the port's unsharded encode (Q75
+  m4, segments on, 8 partitions; 64x48 frames, with the 256-MB floor of
+  the segmentation lowered so that small frames are segmented), which the
+  port's other tests hold to the JAX package.
 
 Also the checks of the mesh against its process group and the per-rank
 rows of the encoder's parameters.  Tolerance: bit-exact.
@@ -43,9 +45,12 @@ from webp_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from webp_tpu.parallel.pipeline import (make_decode_batch_sharded, make_encode_analysis_sharded,
                                         make_encode_tokens_sharded)
 from webp_tpu_torch import parallel
+from webp_tpu_torch.common import vp8_tables as T
 from webp_tpu_torch.encode import device as edev
 from webp_tpu_torch.encode.quant import SegmentParams, quality_to_quant_index
 from webp_tpu_torch.ops.enc_params import EncParams, EncTables
+from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch
+from webp_tpu_torch.ops.wire import prepack
 
 import webp_tpu_torch
 from random_vp8 import random_keyframe
@@ -74,7 +79,7 @@ from webp_tpu_torch import parallel
 from webp_tpu_torch.common import vp8_tables as T
 from webp_tpu_torch.decode import device as tdev
 from webp_tpu_torch.encode import device as edev
-from webp_tpu_torch.ops import token_ops
+from webp_tpu_torch.ops import token_ops, wire
 from webp_tpu_torch.ops.enc_params import EncParams, EncTables
 
 tmp = os.environ["CASE_DIR"]
@@ -136,12 +141,13 @@ P_all, sid_all = edev.params_for(segs_all, 75, "cpu")
 segs, sid = mine(segs_all), mine(sid_all)
 y, u, v = (mine(p) for p in (yg, ug, vg))
 mbw, mbh = y.shape[2] // 16, y.shape[1] // 16
-stats_step, pass2_step = parallel.make_encode_twopass_sharded(mesh, mbw, mbh, 3, 4, True)
+stats_step, prepack_step = parallel.make_encode_twopass_sharded(mesh, mbw, mbh, 3, 4, True)
 totals, ones = stats_step(y, u, v, P_all, EncTables.from_probs(T.COEFF_PROBS_DEFAULT), sid)
 probs = edev.adapt_probs(totals.numpy(), ones.numpy())
-arrays = pass2_step(y, u, v, P_all, edev.tables_for(probs, "cpu"), sid)
-out["twopass"] = edev.finish_frames_lossy_batch(edev.fetch(arrays), probs, 75, width, height, 8,
-                                                segs)
+pre = [t.numpy() for t in prepack_step(y, u, v, P_all, edev.tables_for(probs, "cpu"), sid)]
+out["prepack"] = pre
+arrays = [wire.unpack_analysis(*(a[i] for a in pre[:4])) for i in range(len(pre[0]))]
+out["twopass"] = edev.finish_frames_lossy_batch(arrays, probs, 75, width, height, 8, segs)
 out["segment_ids_used"] = [len(set(s.segment_map.tolist())) for s in segs]
 
 with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
@@ -265,6 +271,13 @@ def _references(payloads, frames, tokens, twopass_frames):
     try:
         ref["twopass"] = webp_tpu_torch.encode_frames_lossy_batch(
             twopass_frames, QUALITY, 4, True, True, num_partitions=8, device="cpu")
+        y, u, v = edev.upload(edev.rgb_to_planes(twopass_frames), "cpu")
+        P, sid = edev.params_for(edev.segment(y, u, v, QUALITY), QUALITY, "cpu")
+        totals, ones = edev.encode_analysis_stats_batch(
+            y, u, v, P, EncTables.from_probs(T.COEFF_PROBS_DEFAULT), 3, sid)
+        tables = edev.tables_for(edev.adapt_probs(totals.numpy(), ones.numpy()), "cpu")
+        ref["prepack"] = [t.numpy() for t in
+                          prepack(encode_analysis_batch(y, u, v, P, tables, 4, True, sid))]
     finally:
         edev.MIN_MBS = floor
     return ref
@@ -318,6 +331,18 @@ def test_sharded_tokens_need_an_even_batch(legs):
     _, outs, _ = legs
     for out in outs:
         assert "does not split evenly" in out["uneven"]
+
+
+def test_sharded_prepack_matches_unsharded(legs):
+    """prepack_step returns K18's 5-tuple, as the JAX package's returns
+    `_prepack_batch_pertbl`'s: each rank's rows equal the unsharded port's."""
+    _, outs, ref = legs
+    names = ("lv8", "meta8", "esc_pos", "esc_val", "overflow")
+    for j, name in enumerate(names):
+        got = np.concatenate([out["prepack"][j] for out in outs])
+        assert got.dtype == ref["prepack"][j].dtype, name
+        np.testing.assert_array_equal(got, ref["prepack"][j], err_msg=name)
+    assert not ref["prepack"][4].any()
 
 
 def test_sharded_twopass_payloads_match_unsharded(legs):

@@ -144,6 +144,25 @@ _SIGNATURES = {
         _P, _P,              # bytes [L, cap], fields [L, 6] out
         _P,
     ],
+    "webp_prepack": [
+        _P, _P, _P,          # y, uv, y2 levels
+        _P, _L, _P, _L, _P, _L,   # luma_mode, chroma_mode, bpred (+ batch strides)
+        _I, _I,              # nmb, batch
+        _P, _P, _P, _P, _P,  # lv8, meta8, esc_pos, esc_val, overflow (zeroed) out
+        _P,
+    ],
+    "webp_pack_levels": [
+        _P, _I, _I, _I,      # lv8, nmb, batch, cap_mb
+        _P, _P, _P,          # bitmap, vals, overflow (zeroed) out
+        _P,
+    ],
+    "webp_wire": [
+        _P, _P, _P, _P, _P,  # bitmap, vals, meta8, esc_pos, esc_val
+        _P, _P,              # sp_over, overflow [B] bool
+        _I, _I,              # nmb, batch
+        _P, _P,              # med-list overflow scratch [B] int32 (zeroed), wire rows out
+        _P,
+    ],
 }
 
 # Kernel name -> launches since the last reset_launches().  Each wrapper
@@ -152,7 +171,8 @@ LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "yuv2rgb": 0,
             "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0,
             "subtract_green": 0, "color_transform": 0, "color_indexing": 0, "predictor": 0,
             "coeff_tokens": 0, "mb_headers": 0, "bool_lanes": 0,
-            "recon_banded": 0, "filter_banded": 0}
+            "recon_banded": 0, "filter_banded": 0,
+            "prepack": 0, "pack_levels": 0, "wire": 0}
 
 _lib = None
 _lock = threading.Lock()

@@ -19,10 +19,19 @@ The stages, each a function here so that they can be timed apart:
 6. `tables_for`: K7, per-image rate tables from those probabilities.
 7. Pass 2: K5 with the per-image tables, the method's n_try and, for
    methods 4-6, the trellis.
-8. `fetch`: the dense per-MB arrays to the host, in one copy.
-9. `finish`: skip flags, contexts, token and MB-header coding and the
-   frame header (with the segment header and map) per image in a thread
-   pool (`encode/vp8.py`).
+8. `wire`: K18 prepack, K19 pack_levels and K20 wire pack pass 2's arrays
+   into one uint8 row per image (`ops/wire.py`; 402,434 B at 768x512,
+   against 818 B/MB dense).
+9. `d2h` (`fetch_packed`): the rows to the host, in one copy; the dense
+   int8 level rows of images whose values did not fit the row (sp_over)
+   in a second.  When an escape list overflowed, the dense arrays
+   (`fetch`) instead: they are still on the device.
+10. `finish`: per image in a thread pool, the unpack of its row (C++) and
+   then skip flags, contexts, token and MB-header coding and the frame
+   header (with the segment header and map) (`encode/vp8.py`).  The
+   unpack runs lazily, in the worker that finishes the image, as the JAX
+   package's `_LazyUnpack` (`webp_tpu/encode/vp8.py:1240`, `_fetch_packed`
+   :1269).
 
 With device_tokens (two-pass only; the JAX package's
 `encode_analysis_batch_v2_pertbl_tokens`, `_fetch_tokens` and its
@@ -40,15 +49,19 @@ finisher's device branches, `webp_tpu/encode/vp8.py:1301-1376`, :814-849,
 12. `assemble`: per image, the lanes' carries and flushes, and the frame.
 
 With two_pass=False, one K5 pass runs on the default tables at
-n_try = min(n_try, 3), with the trellis from method 4, and the finisher
-adapts the header's probabilities from the final levels itself.  Every
+n_try = min(n_try, 3), with the trellis from method 4, then stages 8-10,
+and the finisher adapts the header's probabilities from the final levels
+itself.  Every
 entry point takes an explicit `device`: on "cpu" the kernels' plain twins
 run, on "cuda" the kernels (or the call raises).
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import threading
+from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
@@ -64,6 +77,7 @@ from ..ops.encode_wavefront import OUT_FIELDS, encode_analysis_batch
 from ..ops import token_ops
 from ..ops.boolenc2 import Lanes
 from ..ops.token_stats import token_stats
+from ..ops.wire import encode_analysis_batch_packed, unpack_dense_wire, unpack_wire
 from . import vp8
 from .analysis import MIN_MBS, setup_segments_from_alphas
 from .boolenc import assemble_lane
@@ -149,6 +163,67 @@ def fetch(arrays):
     host = {k: arrays[k].cpu().numpy() for k in OUT_FIELDS}
     return [{k: host[k][i].astype(np.int32) for k in OUT_FIELDS}
             for i in range(host["luma_mode"].shape[0])]
+
+
+# Images by the branch `fetch_packed` took for them since the last reset:
+# the sparse row, the dense int8 row (sp_over), the dense arrays (an
+# escape list overflowed).
+WIRE_BRANCHES = {"sparse": 0, "dense_row": 0, "dense_arrays": 0}
+
+
+class LazyUnpack(Mapping):
+    """One image's arrays dict, unpacked at first access (in the finisher's
+    pool worker)."""
+
+    def __init__(self, unpack):
+        self._unpack = unpack
+        self._d = None
+        self._lock = threading.Lock()
+
+    def _arrays(self) -> dict:
+        with self._lock:
+            if self._d is None:
+                self._d, self._unpack = self._unpack(), None
+            return self._d
+
+    def __getitem__(self, k):
+        return self._arrays()[k]
+
+    def __iter__(self):
+        return iter(self._arrays())
+
+    def __len__(self):
+        return len(self._arrays())
+
+    def __reduce__(self):  # pickles as the unpacked dict (the lock cannot be pickled)
+        return dict, (self._arrays(),)
+
+
+def fetch_packed(lv8, wire, arrays):
+    """Per image, its arrays dict from the wire (`encode_analysis_batch_packed`'s
+    outputs): one copy of the rows [B, wire_bytes] to the host, and of the
+    lv8 rows of the sp_over images; the dense `fetch(arrays)` when any
+    image's escapes overflowed (byte 1).  Each image unpacks at first
+    access (`LazyUnpack`)."""
+    rows = wire.cpu().numpy()
+    if rows[:, 1].any():
+        WIRE_BRANCHES["dense_arrays"] += len(rows)
+        return fetch(arrays)
+    nmb = lv8.shape[1]
+    dense_idx = np.flatnonzero(rows[:, 0])
+    dense = {}
+    if len(dense_idx):
+        dense = dict(zip(dense_idx.tolist(),
+                         lv8[torch.from_numpy(dense_idx).to(lv8.device)].cpu().numpy()))
+    WIRE_BRANCHES["dense_row"] += len(dense)
+    WIRE_BRANCHES["sparse"] += len(rows) - len(dense)
+
+    def one(i):
+        if i in dense:
+            return unpack_dense_wire(dense[i], rows[i], nmb)
+        return unpack_wire(rows[i], nmb)
+
+    return [LazyUnpack(functools.partial(one, i)) for i in range(len(rows))]
 
 
 def _fetch_rows(*tensors):
@@ -263,9 +338,10 @@ def finish_frames_tokens(tokens: DeviceTokens, probs, quality: int, width: int, 
 def analyze_frames_lossy_batch(planes, quality: int, method: int, two_pass: bool = True,
                                segments: bool = False, device="cuda", device_tokens: bool = False,
                                num_partitions: int = DEVICE_TOKEN_PARTS):
-    """Stages 2-8 on host planes (Y, U, V) [B, ...]: (per-image arrays,
-    per-image adapted probabilities or None, per-image segmentations or
-    None).  With device_tokens (two-pass only), stages 2-9 with
+    """Stages 2-9 on host planes (Y, U, V) [B, ...]: (per-image arrays, each
+    unpacked at first access, per-image adapted probabilities or None,
+    per-image segmentations or None).  With device_tokens (two-pass only),
+    stages 2-9 with
     `num_partitions` coefficient partitions coded on the device:
     (`DeviceTokens`, probabilities, segmentations)."""
     if device_tokens and not two_pass:
@@ -280,13 +356,15 @@ def analyze_frames_lossy_batch(planes, quality: int, method: int, two_pass: bool
     P, sid = params_for(segs, quality, dev)
     default = EncTables.from_probs(T.COEFF_PROBS_DEFAULT, dev)
     if not two_pass:
-        out = encode_analysis_batch(y, u, v, P, default, min(n_try, 3), trellis, sid)
-        return fetch(out), None, segs
+        packed = encode_analysis_batch_packed(y, u, v, P, default, min(n_try, 3), trellis, sid)
+        return fetch_packed(*packed), None, segs
     totals, ones = encode_analysis_stats_batch(y, u, v, P, default, min(n_try, 3), sid)
     probs = adapt_probs(totals.cpu().numpy(), ones.cpu().numpy())
-    out = encode_analysis_batch(y, u, v, P, tables_for(probs, dev), n_try, trellis, sid)
+    tables = tables_for(probs, dev)
     if not device_tokens:
-        return fetch(out), probs, segs
+        packed = encode_analysis_batch_packed(y, u, v, P, tables, n_try, trellis, sid)
+        return fetch_packed(*packed), probs, segs
+    out = encode_analysis_batch(y, u, v, P, tables, n_try, trellis, sid)
     mbw, mbh = y.shape[2] // 16, y.shape[1] // 16
     skipped, lanes = encode_tokens(out, probs, mbw, mbh, num_partitions)
     return fetch_tokens(out, skipped, lanes, sid), probs, segs
@@ -294,7 +372,8 @@ def analyze_frames_lossy_batch(planes, quality: int, method: int, two_pass: bool
 
 def finish_frames_lossy_batch(arrays_list, probs, quality: int, width: int, height: int,
                               num_partitions: int = 1, segs=None) -> list:
-    """Stage 9: per-image VP8 payloads, in a host thread pool."""
+    """Stage 10: per-image VP8 payloads, in a host thread pool (an image's
+    arrays are unpacked in its worker)."""
     return _pool_map(
         lambda i: vp8.finish_frame(arrays_list[i], None if probs is None else probs[i],
                                    quality, width, height, num_partitions,

@@ -7,8 +7,9 @@ with g++ at first use into one library in `build/` beside the package (its
 own copy, so that it never shares a library file with another process's
 build) and binds the entry points the lossy decode needs (frame parse,
 levels-mode entropy decode, fancy YUV->RGB), those the encode needs
-(RGB->YUV420, token statistics, token and MB-header coding) and those the
-lossless decode needs (VP8L entropy pass, full host decode).
+(RGB->YUV420, the encode wire's expansion, token statistics, token and
+MB-header coding) and those the lossless decode needs (VP8L entropy pass,
+full host decode).
 """
 
 from __future__ import annotations
@@ -90,6 +91,9 @@ def load():
             _i32p, _i32p, _i32p, _i32p, _u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, _u8p, _u8p, _u8p, ctypes.c_int,
         ]
+        lib.wire_expand_levels.restype = ctypes.c_int
+        lib.wire_expand_levels.argtypes = [_u8p, _u8p, _u8p, ctypes.POINTER(ctypes.c_int8),
+                                           ctypes.c_int, ctypes.c_int, ctypes.c_int, _i16p]
         lib.vp8l_decode_entropy.restype = ctypes.c_int
         lib.vp8l_decode_entropy.argtypes = [_u8p, ctypes.c_int, ctypes.c_int32, ctypes.c_int32,
                                             ctypes.c_int, _u8p, _i32p, _u8p, ctypes.c_int]
@@ -173,6 +177,40 @@ def rgb_to_yuv420(rgb: np.ndarray):
     if rc != 0:
         raise ValueError(f"rgb_to_yuv420 failed: {rc}")
     return y, u, v
+
+
+WIRE_CAP_MB_MAX = 512  # the C++ expansion's per-MB value buffer
+
+
+def wire_expand_levels(bitmap: np.ndarray, vals4: np.ndarray, med_idx: np.ndarray,
+                       med_val: np.ndarray, nmb: int, cap_mb: int = None) -> np.ndarray:
+    """Dense int16 levels [nmb, 400] of one image's sparse wire (`ops/wire.py`):
+    bitmap uint8 [nmb * 50] (np.packbits order), vals4 uint8 [nmb, cap_mb / 2]
+    (two's-complement nibbles, the even rank low; cap_mb None: two per
+    byte of vals4), med_idx uint8 / med_val int8 [nmb, med_cap] (rank and
+    value of each |v| > 7, padding value 0).  Raises ValueError for a
+    cap_mb that is odd or above WIRE_CAP_MB_MAX, for arrays that do not fit,
+    and on the C++ codes: -1 an MB holds more nonzeros than cap_mb (the
+    image needs its dense row), -3 a med entry past its MB's count."""
+    bitmap = np.ascontiguousarray(bitmap, np.uint8)
+    vals4 = np.ascontiguousarray(vals4, np.uint8)
+    med_idx = np.ascontiguousarray(med_idx, np.uint8)
+    med_val = np.ascontiguousarray(med_val, np.int8)
+    if cap_mb is None:
+        cap_mb = 2 * vals4.shape[1]
+    if not 0 < cap_mb <= WIRE_CAP_MB_MAX or cap_mb % 2:
+        raise ValueError(f"cap_mb must be even and in 2..{WIRE_CAP_MB_MAX}, got {cap_mb}")
+    if (bitmap.size != nmb * 50 or vals4.shape != (nmb, cap_mb // 2)
+            or med_idx.shape != med_val.shape or med_idx.shape[0] != nmb):
+        raise ValueError(f"wire arrays {bitmap.shape} {vals4.shape} {med_idx.shape} "
+                         f"{med_val.shape} do not fit {nmb} MBs")
+    out = np.zeros((nmb, 400), np.int16)
+    rc = load().wire_expand_levels(
+        _p(bitmap, ctypes.c_uint8), _p(vals4, ctypes.c_uint8), _p(med_idx, ctypes.c_uint8),
+        _p(med_val, ctypes.c_int8), nmb, cap_mb, med_val.shape[1], _p(out, ctypes.c_int16))
+    if rc != 0:
+        raise ValueError(f"wire_expand_levels failed: {rc}")
+    return out
 
 
 def vp8_token_stats(levels: np.ndarray, meta: np.ndarray):

@@ -14,11 +14,12 @@ The counterparts of `webp_tpu/parallel/pipeline.py`:
   tables may also be one set shared by all images, or the whole batch's,
   of which each rank takes its rows (`EncParams.rows`, `EncTables.rows`).
 
-Each step takes the port's own forms: the decode the upload of
-`decode.device.to_device_batch`, the two-pass encode's second pass the
-dense per-MB arrays (the JAX package's int8 prepack is a transfer form of
-its TPU host link and is not ported), whose finished payloads are those of
-the unsharded flow.
+Each step takes the port's own input forms (the decode the upload of
+`decode.device.to_device_batch`) and returns what the JAX package's step
+returns: the two-pass factory's second step runs K5 then K18 and returns
+the rank's int8 prepack 5-tuple, as `_prepack_batch_pertbl` does
+(`ops/wire.py`); `ops.wire.unpack_analysis` turns its rows into the arrays
+that finish into the unsharded flow's payloads.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..ops import token_ops
 from ..ops.banded import check_bands, filter_banded_, recon_banded_
 from ..ops.boolenc2 import Lanes
 from ..ops.encode_wavefront import encode_analysis_batch
+from ..ops.wire import prepack
 
 
 def decode_wavefront_banded(residuals, luma_mode, bpred, chroma_mode, level, interior, hev,
@@ -129,14 +131,15 @@ def make_encode_analysis_sharded(mesh, mbw: int, mbh: int, n_try: int, do_trelli
 def make_encode_twopass_sharded(mesh, mbw: int, mbh: int, n_try1: int, n_try: int,
                                 do_trellis: bool):
     """Data-parallel two-pass encode kernels, with per-image segment
-    parameters, segment ids and tables: (stats_step, pass2_step).
+    parameters, segment ids and tables: (stats_step, prepack_step).
 
     stats_step(y, u, v, P, tables, sid=None): pass 1, K5 at `n_try1` with no
     trellis, then K6 -> this rank's (totals, ones) [B, 4, 8, 3, 11] int32.
-    pass2_step(y, u, v, P, tables, sid=None): pass 2, K5 at `n_try` with the
-    trellis if `do_trellis` -> this rank's dense per-MB arrays.  The host
-    half (probability adaptation, K7's tables, the finisher) is the
-    unsharded flow's (`encode/device.py`)."""
+    prepack_step(y, u, v, P, tables, sid=None): pass 2, K5 at `n_try` with
+    the trellis if `do_trellis`, then K18 -> this rank's (lv8, meta8,
+    esc_pos, esc_val, overflow) (`ops.wire.prepack`).  The host half
+    (probability adaptation, K7's tables, `ops.wire.unpack_analysis`, the
+    finisher) is the unsharded flow's (`encode/device.py`)."""
 
     def stats_step(y, u, v, P, tables, sid=None):
         B = _planes_fit(y, mbw, mbh)
@@ -144,13 +147,13 @@ def make_encode_twopass_sharded(mesh, mbw: int, mbh: int, n_try1: int, n_try: in
         return encode_analysis_stats_batch(y, u, v, local_rows(P, mesh, B),
                                            local_rows(tables, mesh, B), n_try1, sid)
 
-    def pass2_step(y, u, v, P, tables, sid=None):
+    def prepack_step(y, u, v, P, tables, sid=None):
         B = _planes_fit(y, mbw, mbh)
         _on_mesh(mesh, y, u, v)
-        return encode_analysis_batch(y, u, v, local_rows(P, mesh, B),
-                                     local_rows(tables, mesh, B), n_try, do_trellis, sid)
+        return prepack(encode_analysis_batch(y, u, v, local_rows(P, mesh, B),
+                                             local_rows(tables, mesh, B), n_try, do_trellis, sid))
 
-    return stats_step, pass2_step
+    return stats_step, prepack_step
 
 
 def make_encode_tokens_sharded(mesh, mbw: int, mbh: int, nparts: int):
