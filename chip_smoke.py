@@ -159,6 +159,19 @@ PARALLEL_KERNELS = [
      "webp_tpu/parallel/pipeline.py:60 (+ :37 _band_shifts)"),
 ]
 N_BANDS = (2, 4, 8)  # CTAs per image of the banded decode; 4 is the kernels line's
+FLAT_KERNELS = [
+    ("pack_flat", "webp_tpu_torch/csrc/sparse.cu", "webp_tpu/ops/sparse.py:42"),
+    ("expand_flat", "webp_tpu_torch/csrc/sparse.cu", "webp_tpu/ops/sparse.py:110"),
+]
+FLAT_NAMES = [k for k, _, _ in FLAT_KERNELS]
+FLAT_SEED = 41  # tests/sparse_inputs.py's arrays
+# K5 where its row CTAs outnumber the card's resident ones (images of
+# 32 x 128, 8 MB rows), at mbw = 1 and at mbh = 1, pass 1 (n_try 3) and
+# pass 2 (n_try 4, trellis); and the pass 2 of methods 5-6 (n_try 10,
+# trellis) on 3 x 3 MBs: (w, h, images or None, n_try of each leg).  The
+# twin's time goes with the wavefront's steps, w / 16 + 2 (h / 16 - 1).
+K5_PROBES = ((32, 128, None, (3, 4)), (16, 160, 3, (3, 4)), (160, 16, 3, (3, 4)),
+             (48, 48, 3, (10,)))
 LOSSLESS_KERNELS = [
     ("subtract_green", "webp_tpu_torch/csrc/vp8l.cu", "webp_tpu/ops/vp8l_device.py:45"),
     ("color_transform", "webp_tpu_torch/csrc/vp8l.cu", "webp_tpu/ops/vp8l_device.py:51"),
@@ -326,6 +339,24 @@ def ptxas_report() -> list:
     return out
 
 
+def off_path(counts, keep: dict) -> None:
+    """Adds K21's and K22's launches in one main-path run (`counts`, read
+    just after it) to keep["flat_launches"], the kernels line's count for
+    them: no path calls them."""
+    total = keep.setdefault("flat_launches", dict.fromkeys(FLAT_NAMES, 0))
+    for k in total:
+        total[k] += counts[k]
+
+
+def phase(name: str, fn, *args):
+    """fn(*args), with its wall time printed: the run must end well inside
+    its time limit, and the plain twins' host time sets most of it."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[{name}] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def max_abs_err(got, want) -> int:
     import torch
 
@@ -374,6 +405,7 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
             for simple in (False, True) for out in ("rgb", "yuv")}
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    off_path(launches, keep)
     missing = [name for name, _, _ in DECODE_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"main path launched no {missing} kernel: {launches}")
@@ -679,6 +711,7 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     n_try, trellis = edev.n_try_for(method), method >= 4
     kernels = [k for k, _, _ in ENCODE_KERNELS + WIRE_KERNELS if segments or k != "analysis"]
     wire_on = {k: 1 for k, _, _ in WIRE_KERNELS}
+    flat_off = dict.fromkeys(FLAT_NAMES, 0)
     flagship = (method, segments) == ENCODES[-1]
 
     # 1. Inputs: two distinct frames tiled into a batch of 8, and the plain
@@ -696,19 +729,22 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     launches = {k: 0 for k in kernels}
     payloads = {}
     edev.WIRE_BRANCHES.update(dict.fromkeys(edev.WIRE_BRANCHES, 0))
-    for two_pass, expect in ((True, {"enc": 2, "token_stats": 1, "enc_tables": 1, **wire_on}),
-                             (False, {"enc": 1, "token_stats": 0, "enc_tables": 0, **wire_on})):
+    for two_pass, expect in ((True, {"enc": 2, "token_stats": 1, "enc_tables": 1, **wire_on,
+                                     **flat_off}),
+                             (False, {"enc": 1, "token_stats": 0, "enc_tables": 0, **wire_on,
+                                      **flat_off})):
         if segments:
             expect["analysis"] = 1
         _build.reset_launches()
         got = encode_frames_lossy_batch(rgbs, QUALITY, method, two_pass, segments,
                                         num_partitions=PARTITIONS, device=dev)
         torch.cuda.synchronize()
-        counts = {k: _build.LAUNCHES[k] for k in kernels}
+        counts = {k: _build.LAUNCHES[k] for k in [*kernels, *FLAT_NAMES]}
         if counts != expect:
             raise AssertionError(f"two_pass={two_pass} launched {counts}, expected {expect}")
-        for k, n in counts.items():
-            launches[k] += n
+        off_path(counts, keep)
+        for k in kernels:
+            launches[k] += counts[k]
         for i, p in enumerate(got):
             if p != ref[two_pass][1][i % len(distinct)]:
                 raise AssertionError(f"image {i} (two_pass={two_pass}) differs from the plain "
@@ -720,7 +756,8 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
 
     # The device-token flow, counted: the same payloads as the host finisher.
     expect = {"enc": 2, "token_stats": 1, "enc_tables": 1, "coeff_tokens": 1, "mb_headers": 1,
-              "bool_lanes": 0, **dict.fromkeys(wire_on, 0), **({"analysis": 1} if segments else {})}
+              "bool_lanes": 0, **dict.fromkeys(wire_on, 0), **flat_off,
+              **({"analysis": 1} if segments else {})}
     _build.reset_launches()
     got = encode_frames_lossy_batch(rgbs, QUALITY, method, True, segments,
                                     num_partitions=PARTITIONS, device=dev, device_tokens=True)
@@ -728,6 +765,7 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     counts = {k: _build.LAUNCHES[k] for k in expect}
     if counts != expect:
         raise AssertionError(f"device_tokens launched {counts}, expected {expect}")
+    off_path(counts, keep)
     if got != payloads[True]:
         raise AssertionError("the device-token payloads differ from the host finisher's")
     for k in kernels:
@@ -1112,6 +1150,163 @@ def token_phase(dev, card: str, name: str, pass2, probs, sid, segs, mbw: int, mb
                 "library_ms": None} for k, _, _ in TOKEN_KERNELS}
 
 
+# Integer operations a slot of K21 / K22 (`csrc/sparse.cu`): the load and
+# compare or bit test, the byte's shift and or, its share of the popcount
+# and the block scan, the rank and the store.
+OPS_FLAT_SLOT = 6
+
+
+def flat_sparse_phase(dev, card: str, keep: dict) -> dict:
+    """K21 pack_flat and K22 expand_flat (no path calls them) against their
+    twins at batch 8 x 768x512 (N = 614,400 slots an image, cap =
+    cap_for(1536)): on the flagship's pass-2 levels (K18's lv8, flattened)
+    and on `tests/sparse_inputs.py`'s arrays (densities 0 to 1, exactly at
+    the cap, over it, +-127 and -128), the expansion over all bits and over
+    the first N - 5; the round trip returns each image within its cap.
+    Timed on the flagship's levels beside the twins, one PyTorch call per
+    image (pack: masked_select and the pad; expand: masked_scatter_ with
+    the bool mask made before) and the bound.  Its launches are those of
+    every main-path run before it (keep["flat_launches"]).  name -> kernel
+    record."""
+    import torch
+
+    from sparse_inputs import flat_cases
+    from webp_tpu_torch.ops import sparse, wire
+
+    nmb = ((WIDTH + 15) // 16) * ((HEIGHT + 15) // 16)
+    N, cap = nmb * wire.SLOTS, sparse.cap_for(nmb)
+    lv8 = wire.prepack(keep["flagship"]["pass2"])[0].reshape(BATCH, N).contiguous()
+    inputs = {"flagship lv8": lv8}
+    for k, (a, c) in flat_cases(BATCH, nmb, FLAT_SEED).items():
+        assert c == cap
+        inputs[k] = torch.from_numpy(a).to(dev)
+    err = {"pack_flat": 0, "expand_flat": 0}
+    over = {}
+    for k, flat in inputs.items():
+        got = sparse.pack_levels(flat, cap)
+        want = sparse.pack_levels_plain(flat, cap)
+        err["pack_flat"] = max([err["pack_flat"]] + [max_abs_err(g, w) for g, w in zip(got, want)])
+        for n in (N, N - 5):
+            err["expand_flat"] = max(err["expand_flat"], max_abs_err(
+                sparse.expand_levels(got[0], got[1], n), sparse.expand_levels_plain(*want[:2], n)))
+        within = ~got[2]
+        if not torch.equal(sparse.expand_levels(got[0], got[1], N)[within], flat[within]):
+            raise AssertionError(f"{k}: the round trip does not return the input within the cap")
+        over[k] = int(got[2].sum())
+    torch.cuda.synchronize()
+    bad = {k: e for k, e in err.items() if e != 0}
+    if bad:
+        raise AssertionError(f"flat sparse kernels differ from their plain twins: {bad}")
+    if over["at_cap"] or over["over_cap"] != BATCH or over["density_1"] != BATCH:
+        raise AssertionError(f"overflow flags {over}")
+    print(f"[flat sparse] K21 / K22 vs plain twins (bit-exact, tolerance 0; batch {BATCH}, N "
+          f"{N}, cap {cap}; {len(inputs)} inputs, the expansion also at n = N - 5; round trip "
+          f"exact within the cap; images over the cap {over}): {err}", flush=True)
+
+    # Timings on the flagship's levels (within the cap).
+    bitmap, vals, flags = sparse.pack_levels(lv8, cap)
+    if flags.any():
+        raise AssertionError("the flagship's levels overflow the flat cap")
+    mask = lv8 != 0
+    count = mask.sum(1).tolist()
+
+    def pack_library():
+        out = torch.zeros((BATCH, cap), dtype=torch.int8, device=dev)
+        for b in range(BATCH):
+            nz = torch.masked_select(lv8[b], mask[b])
+            out[b, : nz.numel()] = nz[:cap]
+        return out
+
+    def expand_library():
+        out = torch.zeros((BATCH, N), dtype=torch.int8, device=dev)
+        for b in range(BATCH):
+            out[b].masked_scatter_(mask[b], vals[b, : count[b]])
+        return out
+
+    if not torch.equal(pack_library(), vals) or not torch.equal(expand_library(), lv8):
+        raise AssertionError("the library calls disagree with K21 / K22")
+    calls = {"pack_flat": lambda: sparse.pack_levels(lv8, cap),
+             "expand_flat": lambda: sparse.expand_levels(bitmap, vals, N)}
+    names = {"pack_flat": ["tile_count_kernel", "tile_scan_kernel", "pack_flat_kernel"],
+             "expand_flat": ["tile_count_kernel", "tile_scan_kernel", "expand_flat_kernel"]}
+    ms = {k: time_ms(fn, 20) for k, fn in calls.items()}
+    library_ms = {"pack_flat": time_ms(pack_library, 20), "expand_flat": time_ms(expand_library, 20)}
+    plain_ms = {}
+    _, plain_ms["pack_flat"] = timed(lambda: sparse.pack_levels_plain(lv8, cap))
+    _, plain_ms["expand_flat"] = timed(lambda: sparse.expand_levels_plain(bitmap, vals, N))
+    dev_ms = {k: {} for k in calls}
+    try:
+        dev_ms = {k: device_ms(fn, 20, names[k]) for k, fn in calls.items()}
+    except Exception as e:  # the profiler is a measurement aid, not a check
+        print(f"[flat sparse] torch.profiler gave no device times: {e!r}", flush=True)
+    # The pack reads the levels and writes the bitmap, the capped values and
+    # the flags; the expansion reads the bitmap and each image's `count`
+    # values and writes the levels.
+    moved = {"pack_flat": nbytes(lv8, bitmap, vals, flags),
+             "expand_flat": nbytes(lv8, bitmap) + sum(count) * vals.element_size()}
+    bounds = {k: bound(moved[k], BATCH * N * OPS_FLAT_SLOT) for k in calls}
+    shape = f"batch {BATCH} at {WIDTH}x{HEIGHT}, N {N}, cap {cap}; {card}"
+    for k in calls:
+        kernel_ms = ", ".join(f"{n} " + ("not measured" if t is None else f"{t:.4f} ms")
+                              for n, t in dev_ms[k].items()) or "not measured"
+        print(f"[flat sparse] {k}: {ms[k]:.4f} ms kernel (the call), device time {kernel_ms} "
+              f"(profiler), {plain_ms[k]:.4f} ms plain, {library_ms[k]:.4f} ms library (one "
+              f"call per image), bound {bounds[k]['bound_ms']:.4f} ms by {bounds[k]['bound_by']} "
+              f"({shape})", flush=True)
+    return {k: {"launches": keep["flat_launches"][k], "max_abs_err": err[k], "ms": ms[k],
+                "plain_ms": plain_ms[k], **bounds[k], "library_ms": library_ms[k]} for k in calls}
+
+
+def k5_probe_phase(dev, card: str) -> int:
+    """K5 against its twin on the card, pass 1 (n_try 3, default tables),
+    pass 2 (n_try 4, trellis, per-image random tables) and the pass 2 of
+    methods 5-6 (n_try 10, trellis, per-image random tables), with segment ids,
+    at K5_PROBES: the first has more row CTAs than the card keeps resident
+    (the occupancy API's count).  Returns the largest error (0)."""
+    import numpy as np
+    import torch
+
+    from synthetic_rgb import synthetic_frame
+    from webp_tpu_torch.common import vp8_tables as T
+    from webp_tpu_torch.encode import device as edev
+    from webp_tpu_torch.encode.quant import SegmentParams, quality_to_quant_index
+    from webp_tpu_torch.ops import encode_wavefront as ew
+    from webp_tpu_torch.ops.enc_params import EncParams, EncTables
+
+    resident = max(ew.resident_rows(t, dev) for t in (False, True))
+    worst, seen = 0, []
+    for w, h, images, legs in K5_PROBES:
+        mbh = h // 16
+        B = images or resident // mbh + 2
+        nmb = (w // 16) * mbh
+        y, u, v = edev.upload(edev.rgb_to_planes([synthetic_frame(w, h, 60 + i)
+                                                   for i in range(B)]), dev)
+        rng = np.random.RandomState(w + h)
+        lists = [[SegmentParams(quality_to_quant_index(q + 5 * (i % 3))) for q in (30, 50, 70, 85)]
+                 for i in range(B)]
+        P = EncParams.from_segments(lists, dev)
+        sid = torch.from_numpy(rng.randint(0, 4, (B, nmb)).astype(np.uint8)).to(dev)
+        probs = rng.randint(1, 256, (B, 4, 8, 3, 11)).astype(np.uint8)
+        for n_try in legs:
+            trellis = n_try > 3
+            tbl = EncTables.from_probs(probs if trellis else T.COEFF_PROBS_DEFAULT, dev)
+            args = (y, u, v, P, tbl, n_try, trellis, sid)
+            got = ew.encode_analysis_batch(*args)
+            want = ew.encode_analysis_batch_plain(*args)
+            worst = max([worst] + [max_abs_err(got[k], want[k]) for k in want])
+            n_i4 = int((want["luma_mode"] == 4).sum())
+            if not 0 < n_i4 < B * nmb:
+                raise AssertionError(f"probe {w}x{h} n_try {n_try}: {n_i4} I4 MBs of {B * nmb}")
+        seen.append(f"{B} x {w}x{h} ({B * mbh} row CTAs; n_try {legs})")
+    torch.cuda.synchronize()
+    if worst:
+        raise AssertionError(f"K5 differs from its twin on the probes: max_abs_err {worst}")
+    print(f"[k5 probe] K5 vs its twin on the card (bit-exact, tolerance 0; pass 1 at n_try 3, "
+          f"pass 2 with the trellis at n_try 4 and 10, segment ids): {', '.join(seen)}; the card "
+          f"keeps {resident} row CTAs resident ({card})", flush=True)
+    return worst
+
+
 def lossless_inputs(width: int, height: int):
     """(the two distinct source images, their VP8L streams): a photo as
     [subtract-green, predictor 2, colour 3], a 12-colour image as [palette,
@@ -1145,7 +1340,7 @@ def predictor_ops(modes, size_bits: int, width: int, height: int) -> int:
     return int((per_block * pixels_y[None, :, None] * pixels_x[None, None, :]).sum())
 
 
-def lossless_phase(dev, card: str) -> dict:
+def lossless_phase(dev, card: str, keep: dict) -> dict:
     """The lossless decode path, counted, checked and timed; name -> kernel
     record."""
     import numpy as np
@@ -1185,6 +1380,7 @@ def lossless_phase(dev, card: str) -> dict:
         counts = {k: _build.LAUNCHES[k] for k in launches}
         if counts != expect[name]:
             raise AssertionError(f"{name} batch launched {counts}, expected {expect[name]}")
+        off_path(_build.LAUNCHES, keep)
         for k, n in counts.items():
             launches[k] += n
         if name != "mixed" and got.device.type != torch.device(dev).type:
@@ -1416,6 +1612,7 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
             raise AssertionError("gathered lanes' bytes differ from fetch_tokens'")
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
+        off_path(launches, keep)
         fields = lanes.fields()
         gather_ms = time_ms(lambda: (parallel.pipeline.all_gather(mesh, fields),
                                      parallel.pipeline.all_gather(mesh, lanes.data)), 20)
@@ -1536,17 +1733,22 @@ def main() -> int:
         print(f"card: {card}", flush=True)
 
         keep = {}
-        records = decode_phase(dev, card, keep)
-        records.update(lossless_phase(dev, card))
+        records = phase("decode", decode_phase, dev, card, keep)
+        records.update(phase("lossless", lossless_phase, dev, card, keep))
         for job in ENCODES:
             # A kernel on both encode paths: launches and errors over both,
             # the times of the flagship's (the last) path.
-            for k, r in encode_phase(dev, card, *job, refs[job], keep).items():
+            for k, r in phase(f"encode m{job[0]}", encode_phase, dev, card, *job, refs[job],
+                              keep).items():
                 if k in records:
                     r["launches"] += records[k]["launches"]
                     r["max_abs_err"] = max(r["max_abs_err"], records[k]["max_abs_err"])
                 records[k] = r
-    records.update(parallel_phase(dev, card, keep))
+    records["enc"]["max_abs_err"] = max(records["enc"]["max_abs_err"],
+                                        phase("k5 probe", k5_probe_phase, dev, card))
+    records.update(phase("parallel", parallel_phase, dev, card, keep))
+    # After every main path: it reports their counts.
+    records.update(phase("flat sparse", flat_sparse_phase, dev, card, keep))
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "webp_tpu"))
     if leaked:
@@ -1555,7 +1757,8 @@ def main() -> int:
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces, **records[name]}
         for name, source, replaces in (DECODE_KERNELS + ENCODE_KERNELS + TOKEN_KERNELS
-                                       + LOSSLESS_KERNELS + PARALLEL_KERNELS + WIRE_KERNELS)
+                                       + LOSSLESS_KERNELS + PARALLEL_KERNELS + WIRE_KERNELS
+                                       + FLAT_KERNELS)
     ]}
     print(json.dumps(record), flush=True)
     print(smi, flush=True)

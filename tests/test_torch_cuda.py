@@ -36,10 +36,12 @@ from webp_tpu_torch.encode.quant import SegmentParams, quality_to_quant_index
 from webp_tpu_torch.ops.analysis import analyze_alphas_batch, analyze_alphas_batch_plain
 from webp_tpu_torch.ops.enc_params import EncParams, EncTables
 from webp_tpu_torch.ops.enc_tables import enc_tables, enc_tables_plain
+from webp_tpu_torch.ops import encode_wavefront as ew
 from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch, encode_analysis_batch_plain
 from webp_tpu_torch.ops.token_stats import token_stats, token_stats_plain
 from webp_tpu_torch.io import native
 from webp_tpu_torch.ops import banded, boolenc2, residual, token_ops, wire
+from webp_tpu_torch.ops import sparse
 from webp_tpu_torch.ops.sparse import pack_levels_mb, pack_levels_mb_plain
 from webp_tpu_torch.ops import vp8l_device as L
 from webp_tpu_torch.ops.loopfilter import loop_filter_, loop_filter_plain_
@@ -47,6 +49,7 @@ from webp_tpu_torch.ops.wavefront import recon_, recon_plain_
 from webp_tpu_torch.ops.yuv import fancy_yuv420_to_rgb, fancy_yuv420_to_rgb_plain
 
 from random_vp8 import random_keyframe
+from sparse_inputs import flat_cases
 from random_vp8l import PALETTE, SUBTRACT_GREEN, color, predictor, quantize, vp8l_stream, with_alpha
 from synthetic_rgb import synthetic_frame
 from token_inputs import CARRY_PATTERNS, header_inputs, prefix_coders, token_arrays
@@ -158,12 +161,9 @@ def test_yuv2rgb_kernel_matches_plain(cuda, width, height):
 def test_slice_on_card_matches_scalar(cuda, payloads, out):
     _build.reset_launches()
     got = tdev.dispatch_decode_batch(payloads, out=out, device=cuda).cpu()
-    assert _build.LAUNCHES == {"residual": 1, "recon": 1, "loopfilter": 1,
-                               "yuv2rgb": int(out == "rgb"),
-                               "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0,
-                               "subtract_green": 0, "color_transform": 0, "color_indexing": 0,
-                               "predictor": 0, "coeff_tokens": 0, "mb_headers": 0,
-                               "bool_lanes": 0, "recon_banded": 0, "filter_banded": 0}
+    want = dict.fromkeys(_build.LAUNCHES, 0)  # every other kernel: no launch
+    want.update(residual=1, recon=1, loopfilter=1, yuv2rgb=int(out == "rgb"))
+    assert _build.LAUNCHES == want
     for i, p in enumerate(payloads):
         np.testing.assert_array_equal(got[i].numpy(), scalar_decode(p)[0 if out == "rgb" else 1])
 
@@ -342,6 +342,36 @@ def test_trellis_more_mb_rows_than_wavefront_warps(cuda):
     rgbs = [synthetic_frame(40, 630, 6)]
     want = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 4, device="cpu")
     assert webp_tpu_torch.encode_frames_lossy_batch(rgbs, 75, 4, device=cuda) == want
+
+
+@pytest.mark.parametrize("geometry", ["more_rows_than_resident", "one_mb_column", "one_mb_row"])
+@pytest.mark.parametrize("n_try,trellis", [(3, False), (4, True), (10, True)],
+                         ids=["pass1", "pass2", "pass2_n_try10"])
+def test_enc_kernel_geometries_match_plain(cuda, geometry, n_try, trellis):
+    """K5's row CTAs where the card cannot hold them all at once (more
+    images of 32 MB rows than the occupancy API's resident CTAs), at mbw = 1
+    and at mbh = 1, against the twin; segment ids and per-image tables."""
+    if geometry == "more_rows_than_resident":
+        resident = ew.resident_rows(trellis, cuda)
+        w, h, B = 32, 512, resident // 32 + 2
+        assert B * (h // 16) > resident
+    else:
+        (w, h), B = ((16, 320) if geometry == "one_mb_column" else (320, 16)), 3
+    rgbs = [synthetic_frame(w, h, 20 + i) for i in range(B)]
+    planes = edev.rgb_to_planes(rgbs)
+    nmb = (w // 16) * (h // 16)
+    probs = _random_probs(17, B)
+    lists = [[SegmentParams(quality_to_quant_index(q + 5 * i)) for q in (30, 50, 70, 85)]
+             for i in range(B)]
+    sid = torch.from_numpy(np.random.RandomState(5).randint(0, 4, (B, nmb)).astype(np.uint8))
+    want = encode_analysis_batch_plain(*edev.upload(planes, "cpu"), EncParams.from_segments(lists),
+                                       EncTables.from_probs(probs), n_try, trellis, sid)
+    got = encode_analysis_batch(*edev.upload(planes, cuda), EncParams.from_segments(lists, cuda),
+                                EncTables.from_probs(probs, cuda), n_try, trellis, sid.to(cuda))
+    torch.cuda.synchronize()
+    assert (want["luma_mode"] == 4).any() and (want["luma_mode"] != 4).any()
+    for k, w_ in want.items():
+        assert torch.equal(got[k].cpu(), w_), k
 
 
 # ---- lossless: K9 subtract_green, K10 color_transform, K11 color_indexing, K12 predictor
@@ -661,3 +691,31 @@ def test_encode_through_the_wire_on_card(cuda, two_pass):
     assert {k: edev.WIRE_BRANCHES[k] - n for k, n in before.items()} == {
         "sparse": 1, "dense_row": 1, "dense_arrays": 0}
     assert got == want
+
+
+# ---- the image-flat sparse format: K21 pack_flat, K22 expand_flat ----------
+
+
+@pytest.mark.parametrize("B,nmb", [(3, 40), (2, 6000)], ids=["40_mbs", "6000_mbs"])
+@pytest.mark.parametrize("name", list(flat_cases(1, 8, 0)))
+def test_flat_sparse_kernels_match_plain(cuda, name, B, nmb):
+    """K21 and K22 bit-exact to their twins on `sparse_inputs.py`'s arrays
+    (at 6,000 MBs an image spans 1,172 tiles, more than one pass of the tile
+    scan), the expansion over all bits and over the first n - 5; one launch
+    each; the round trip returns the input within the cap."""
+    flat, cap = flat_cases(B, nmb, nmb)[name]
+    cpu = torch.from_numpy(flat)
+    before = {k: _build.LAUNCHES[k] for k in ("pack_flat", "expand_flat")}
+    got = sparse.pack_levels(cpu.to(cuda), cap)
+    full = sparse.expand_levels(got[0], got[1], flat.shape[1])
+    torch.cuda.synchronize()
+    assert {k: _build.LAUNCHES[k] - n for k, n in before.items()} == {
+        "pack_flat": 1, "expand_flat": 1}
+    want = sparse.pack_levels_plain(cpu, cap)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    for n in (flat.shape[1], flat.shape[1] - 5):
+        assert torch.equal(sparse.expand_levels(got[0], got[1], n).cpu(),
+                           sparse.expand_levels_plain(want[0], want[1], n))
+    within = (flat != 0).sum(1) <= cap
+    assert torch.equal(full.cpu()[within], cpu[within])

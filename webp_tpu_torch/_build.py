@@ -71,7 +71,8 @@ _SIGNATURES = {
         _P, _L, _P, _L, _P, _L,   # cls, eob, init cost tables (+ batch strides)
         _I, _I, _I, _I, _I,  # mbw, mbh, batch, n_try, do_trellis
         _P, _P, _P, _P, _P, _P,   # luma_mode, chroma_mode, bpred, y, y2, uv levels out
-        _P, _P, _P,          # reconstruction, diffusion-error and nnz-mask scratch
+        _P, _P, _P,          # edge-row, diffusion-error and nnz-mask scratch
+        _P,                  # row progress counters and ticket (zeroed)
         _P,
     ],
     "webp_analysis": [
@@ -163,6 +164,18 @@ _SIGNATURES = {
         _P, _P,              # med-list overflow scratch [B] int32 (zeroed), wire rows out
         _P,
     ],
+    "webp_pack_flat": [
+        _P, _L, _I, _I,      # flat int8 [B, N], N, batch, cap
+        _P,                  # tile counts scratch [B, ceil(N / 2048)] int32
+        _P, _P, _P,          # bitmap, vals (zeroed), overflow out
+        _P,
+    ],
+    "webp_expand_flat": [
+        _P, _L, _P, _I,      # bitmap [B, nb], nb, vals [B, cap], cap
+        _L, _I,              # n, batch
+        _P, _P,              # tile counts scratch, int8 [B, n] out
+        _P,
+    ],
 }
 
 # Kernel name -> launches since the last reset_launches().  Each wrapper
@@ -172,7 +185,7 @@ LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "yuv2rgb": 0,
             "subtract_green": 0, "color_transform": 0, "color_indexing": 0, "predictor": 0,
             "coeff_tokens": 0, "mb_headers": 0, "bool_lanes": 0,
             "recon_banded": 0, "filter_banded": 0,
-            "prepack": 0, "pack_levels": 0, "wire": 0}
+            "prepack": 0, "pack_levels": 0, "wire": 0, "pack_flat": 0, "expand_flat": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -264,6 +277,8 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.webp_enc_resident.argtypes = [_I]
+        lib.webp_enc_resident.restype = ctypes.c_int
         lib.webp_banded_max_clusters.argtypes = [_I, _I, _P]
         lib.webp_banded_max_clusters.restype = ctypes.c_int
         lib.webp_error_string.argtypes = [ctypes.c_int]

@@ -1,5 +1,5 @@
 // The trellis quantization of kernel K5: rate-distortion optimal levels of
-// one 4x4 block on one thread.
+// one 4x4 block, on one thread (trellis_dp) or on a half-warp (trellis_dp_half).
 //
 // Replaces webp_tpu/ops/trellis2.py:110 trellis_par and :325 trellis_spec3
 // (libwebp VP8TrellisQuantizeBlock).  Each zigzag position from `first` to
@@ -108,6 +108,97 @@ __device__ TrellisPath trellis_dp(const TrellisBlock& tb, const int* q, const in
         pc1 = nc[1];
     }
     return p;
+}
+
+// The DP of trellis_dp spread over a half-warp: its 16 lanes call it for
+// one block and get the same path (both halves of the warp call it, each
+// with its own block and terms).  Lane n brings position n's a = |c| +
+// sharpen (an), position n - 1's (ap) and the block's last position.  The
+// terms of node (n, d) (its level, whether it is valid, its distortion, its
+// rate under each predecessor's token context and the EOB after it) do not
+// depend on the path, since a node's context is set by its predecessor's
+// level: lane n computes them for d = 0, 1 into terms[.][2n + d] (shared
+// memory of the half).  What stays serial is the chain of 16 steps of
+// int64 adds and compares, which every lane runs from shared memory.
+__device__ TrellisPath trellis_dp_half(int an, int ap, int last, const int* q, const int* iq,
+                                       int lam_i, int first, int ctx0, const int* cls,
+                                       const int* eob, const int* init, const uint16_t* fixed,
+                                       int lane, long long (*terms)[32]) {
+    const long long lam = lam_i;
+    const int n = lane & 15;
+    const int l0 = min((an * iq[n]) >> 17, 2047);
+    const int tl = min((an * iq[n] + kTrellisTBias) >> 17, 2047);
+    int pc0 = ctx0, pc1 = ctx0;
+    if (n > first) {
+        const int lp = min((ap * iq[n - 1]) >> 17, 2047);
+        pc0 = min(lp, 2);
+        pc1 = min(lp + 1, 2);
+    }
+    int wz = 0;  // kWeightTrellisZz[n], without a lane-indexed constant load
+#pragma unroll
+    for (int k = 0; k < 16; ++k) wz = k == n ? kWeightTrellisZz[k] : wz;
+    unsigned live = 0, ends = 0;  // this lane's two nodes
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+        const int lvl = l0 + d;
+        const bool valid = n >= first && n <= last && lvl <= tl;
+        const long long err = an - static_cast<long long>(lvl) * q[n];
+        const long long base = 256LL * wz * (err * err - static_cast<long long>(an) * an);
+        const int k = trellis_class(min(lvl, 67));
+        const int lvf = fixed[min(lvl, 2047)] + (lvl > 0 ? 256 : 0);
+        terms[0][2 * n + d] = lam * (cls[(n * 3 + pc0) * 11 + k] + lvf) + base;  // from (n - 1, 0)
+        terms[1][2 * n + d] = lam * (cls[(n * 3 + pc1) * 11 + k] + lvf) + base;  // from (n - 1, 1)
+        terms[2][2 * n + d] = n < 15 ? lam * eob[(n + 1) * 3 + min(lvl, 2)] : 0;
+        live |= static_cast<unsigned>(valid) << d;
+        ends |= static_cast<unsigned>(valid && lvl != 0) << d;  // an EOB may follow
+    }
+    // Node (m, d)'s flags at bit m of the d-th mask, gathered over the half.
+    const int shift = lane & 16;
+    const unsigned v0 = __ballot_sync(0xffffffffu, live & 1) >> shift;
+    const unsigned v1 = __ballot_sync(0xffffffffu, live & 2) >> shift;
+    const unsigned e0 = __ballot_sync(0xffffffffu, ends & 1) >> shift;
+    const unsigned e1 = __ballot_sync(0xffffffffu, ends & 2) >> shift;
+    __syncwarp();
+    long long best = lam * eob[first * 3 + ctx0];  // skip: EOB at `first`
+    TrellisPath p = {-1, 0, 0u};
+    long long s0 = ctx0 == 0 ? lam * init[first * 3] : 0, s1 = s0;
+#pragma unroll 1  // unrolled, the terms' loads are hoisted into more registers than there are
+    for (int m = first; m < 16; ++m) {
+        long long ns[2];
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+            const int j = 2 * m + d;
+            const long long c0 = s0 + terms[0][j], c1 = s1 + terms[1][j];
+            const bool take1 = c1 < c0;
+            const long long bs = take1 ? c1 : c0;
+            p.prev |= static_cast<unsigned>(take1) << j;
+            ns[d] = ((d ? v1 : v0) >> m) & 1 ? bs : kTrellisBig;
+            const long long term = bs + terms[2][j];
+            if (((d ? e1 : e0) >> m) & 1 && term < best) {
+                best = term;
+                p.best_n = m;
+                p.best_d = d;
+            }
+        }
+        s0 = ns[0];
+        s1 = ns[1];
+    }
+    __syncwarp();  // terms is rewritten by the next call
+    return p;
+}
+
+// The level offset d (0 or 1, over level0) of each position n on a path,
+// at bit n: the unwind's chain of predecessor choices.
+__device__ __forceinline__ unsigned trellis_path_bits(const TrellisPath& p, int first) {
+    unsigned bits = 0;
+    int cur = p.best_d;
+#pragma unroll
+    for (int n = 15; n >= 0; --n) {
+        if (n < first || n > p.best_n) continue;
+        bits |= static_cast<unsigned>(cur) << n;
+        cur = (p.prev >> (2 * n + cur)) & 1;
+    }
+    return bits;
 }
 
 // The levels (zigzag) of a path.  A path has a nonzero level iff best_n >= 0.

@@ -382,7 +382,10 @@ def encode_analysis_batch_plain(y, u, v, P: EncParams, tbl: EncTables, n_try: in
     # DC/V/H/TM -> B_DC/B_VE/B_HE/B_TM
     bmode_of = torch.tensor([0, 2, 3, 1], dtype=torch.int32, device=dev)
     for t in range(mbw + 2 * (mbh - 1)):
-        R = torch.tensor([r for r in range(mbh) if 0 <= t - 2 * r < mbw], device=dev)
+        R = torch.tensor([r for r in range(mbh) if 0 <= t - 2 * r < mbw], dtype=torch.int64,
+                         device=dev)
+        if len(R) == 0:  # at mbw = 1 every other diagonal is empty
+            continue
         X = t - 2 * R
         M = R * mbw + X
         n = len(R)
@@ -498,9 +501,10 @@ def _enc_kernel(y, u, v, P: EncParams, tbl: EncTables, n_try: int, do_trellis: b
         ("luma_mode", (), torch.uint8), ("chroma_mode", (), torch.uint8),
         ("bpred", (16,), torch.uint8), ("y_levels", (16, 16), torch.int16),
         ("y2_levels", (16,), torch.int16), ("uv_levels", (8, 16), torch.int16))}
-    recon = torch.empty((B, H * W * 3 // 2), dtype=torch.uint8, device=dev)
-    errs = torch.empty((B, nmb, 8), dtype=torch.int32, device=dev)
+    edge = torch.empty((B, mbh, 2 * W), dtype=torch.uint8, device=dev)  # each MB row's bottom pixels
+    errs = torch.empty((B, nmb, 4), dtype=torch.int32, device=dev)
     nnz = torch.empty((B, nmb), dtype=torch.int32, device=dev)
+    prog = torch.zeros(B * mbh + 1, dtype=torch.int32, device=dev)  # per row, then the ticket
     params = P.packed(dev)
     params = params.expand(B, *params.shape[1:])
     consts = _build.device_constant("enc_consts", CONSTS_NP, dev)
@@ -516,6 +520,16 @@ def _enc_kernel(y, u, v, P: EncParams, tbl: EncTables, n_try: int, do_trellis: b
         *_build.table(tbl.init_cost, B, (4, 16, 3)),
         mbw, mbh, B, n_try, int(do_trellis),
         *(out[k].data_ptr() for k in OUT_FIELDS),
-        recon.data_ptr(), errs.data_ptr(), nnz.data_ptr(),
+        edge.data_ptr(), errs.data_ptr(), nnz.data_ptr(), prog.data_ptr(),
     )
     return out
+
+
+def resident_rows(do_trellis: bool, device) -> int:
+    """Row CTAs of the K5 kernel that `device` keeps resident at once."""
+    lib = _build.load()
+    with torch.cuda.device(device):
+        n = lib.webp_enc_resident(int(do_trellis))
+    if n < 0:
+        raise RuntimeError("webp_enc_resident: occupancy query failed")
+    return n

@@ -3,10 +3,12 @@
 Per image (flat level vector of nmb*S slots, S = 400 per macroblock):
   bitmap: uint8 [nmb*S/8]     one bit per slot, np.packbits order (MSB first)
   vals:   int8  [nmb, cap_mb] MB m's nonzero levels in slot order, zero padded
+or, in the image-flat form, vals int8 [cap] holding the image's nonzero
+levels in slot order, zero padded (`cap_for`).
 
-`host_pack_levels_mb` and `host_expand_levels_mb` are the numpy host pack and
-expansion of `webp_tpu/ops/sparse.py`, copied here because that module
-imports jax.  `expand_levels_mb` is the plain torch expansion; the CUDA
+`cap_for`, `host_pack_levels`, `host_expand_levels`, `host_pack_levels_mb`
+and `host_expand_levels_mb` are the numpy host helpers of
+`webp_tpu/ops/sparse.py`, copied here because that module imports jax.  `expand_levels_mb` is the plain torch expansion; the CUDA
 kernel in `csrc/residual.cu` expands the same format in shared memory.
 
 Kernel K19, `pack_levels_mb`, is the device pack of the encode wire
@@ -16,6 +18,15 @@ Kernel K19, `pack_levels_mb`, is the device pack of the encode wire
 per MB; the CUDA kernel (`csrc/wire.cu`) ranks each MB's nonzeros with warp
 ballots, in integers.  `pack_levels_mb_plain` is its torch twin, run for CPU
 tensors.
+
+Kernels K21 `pack_levels` and K22 `expand_levels` (`csrc/sparse.cu`) are the
+image-flat pack and expansion: they replace `webp_tpu/ops/sparse.py:42`
+`device_pack_levels` (a cumsum and a searchsorted per value) and `:110`
+`device_expand_levels` (a cumsum and a take_along_axis), bit for bit.  No
+path of either package calls them; `chip_smoke.py` holds them to their
+twins `pack_levels_plain` and `expand_levels_plain`.  The flat expansion
+differs from the host one on an image over its cap: a set slot of rank r
+takes vals[min(r, cap - 1)], where `host_expand_levels` raises.
 """
 
 from __future__ import annotations
@@ -24,6 +35,33 @@ import numpy as np
 import torch
 
 from .. import _build
+
+
+def cap_for(nmb: int) -> int:
+    """Static nonzero budget of the image-flat form: 128 level slots per MB."""
+    return nmb * 128
+
+
+def host_pack_levels(flat_i8: np.ndarray, cap: int):
+    """[N] int8 -> (bitmap, vals, ok). ok=False when nonzeros exceed cap."""
+    mask = flat_i8 != 0
+    bitmap = np.packbits(mask)
+    nz = flat_i8[mask]
+    if len(nz) > cap:
+        return bitmap, None, False
+    vals = np.zeros(cap, np.int8)
+    vals[: len(nz)] = nz
+    return bitmap, vals, True
+
+
+def host_expand_levels(bitmap: np.ndarray, vals: np.ndarray, n: int) -> np.ndarray:
+    """(bitmap uint8 [n/8], vals int8 [cap]) -> dense int8 [n] (raises when
+    the bitmap holds more than cap nonzeros)."""
+    bits = np.unpackbits(bitmap)[:n]
+    out = np.zeros(n, np.int8)
+    idx = np.nonzero(bits)[0]
+    out[idx] = vals[: len(idx)]
+    return out
 
 
 def host_pack_levels_mb(flat_i8: np.ndarray, nmb: int, S: int, cap_mb: int):
@@ -138,3 +176,86 @@ def expand_levels_mb(bitmap: torch.Tensor, vals: torch.Tensor, nmb: int, S: int)
     rank = torch.cumsum(mask.to(torch.int32), dim=-1) - 1
     picked = torch.gather(vals.to(torch.int16), 2, rank.clamp(0, cap - 1).to(torch.int64))
     return torch.where(mask & (rank < cap), picked, torch.zeros_like(picked))
+
+
+def pack_levels_plain(flat_i8: torch.Tensor, cap: int):
+    """Torch twin of kernel K21 (any device)."""
+    mask = flat_i8 != 0
+    (vals,), over = compact(mask, cap, flat_i8)
+    return pack_bits(mask), vals, over
+
+
+def pack_levels(flat_i8: torch.Tensor, cap: int):
+    """int8 levels [B, N] (N % 8 == 0) -> (bitmap uint8 [B, N/8], vals int8
+    [B, cap], overflow bool [B]): vals[b, k] is the (k+1)-th nonzero of image
+    b in slot order, zero past its count; nonzeros beyond `cap` are dropped
+    and set overflow[b] (a count of exactly `cap` does not)."""
+    if flat_i8.dtype != torch.int8 or flat_i8.dim() != 2:
+        raise ValueError(f"levels must be int8 [B, N], got {flat_i8.dtype} {tuple(flat_i8.shape)}")
+    B, N = flat_i8.shape
+    if N % 8 != 0 or not 0 < N < 2**31:
+        raise ValueError(f"N must be a positive multiple of 8 below 2^31, got {N}")
+    if not 0 <= cap < 2**31:
+        raise ValueError(f"cap must be in 0..2^31-1, got {cap}")
+    if flat_i8.device.type == "cpu":
+        return pack_levels_plain(flat_i8, cap)
+    return _pack_flat_kernel(flat_i8, cap)
+
+
+def _tiles(B: int, nbytes: int, dev) -> torch.Tensor:
+    """Scratch of the flat kernels: one count per 256 bitmap bytes."""
+    return torch.empty((B, -(-nbytes // 256)), dtype=torch.int32, device=dev)
+
+
+def _pack_flat_kernel(flat_i8: torch.Tensor, cap: int):
+    dev = flat_i8.device
+    B, N = flat_i8.shape
+    bitmap = torch.empty((B, N // 8), dtype=torch.uint8, device=dev)
+    vals = torch.zeros((B, cap), dtype=torch.int8, device=dev)  # the pad past the count
+    over = torch.empty(B, dtype=torch.bool, device=dev)
+    _build.launch("pack_flat", "webp_pack_flat", dev,
+                  _build.dense(flat_i8, torch.int8, (B, N)), N, B, cap,
+                  _tiles(B, N // 8, dev).data_ptr(),
+                  bitmap.data_ptr(), vals.data_ptr(), over.data_ptr())
+    return bitmap, vals, over
+
+
+def expand_levels_plain(bitmap: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
+    """Torch twin of kernel K22 (any device)."""
+    B = bitmap.shape[0]
+    cap = vals.shape[-1]
+    shifts = torch.tensor(_BIT_SHIFTS, dtype=torch.int32, device=bitmap.device)
+    mask = (((bitmap.to(torch.int32)[..., None] >> shifts) & 1).reshape(B, -1)[:, :n]) != 0
+    rank = torch.cumsum(mask.to(torch.int32), dim=-1) - 1
+    picked = torch.gather(vals, 1, rank.clamp(0, cap - 1).to(torch.int64))
+    return torch.where(mask, picked, torch.zeros_like(picked))
+
+
+def expand_levels(bitmap: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
+    """(bitmap uint8 [B, nb], vals int8 [B, cap]) -> int8 [B, n], n <= 8 nb:
+    of the bitmap's first n bits, a set slot of image-wide rank r takes
+    vals[b, min(r, cap - 1)] (past the cap the last value repeats), an unset
+    slot 0."""
+    if bitmap.dtype != torch.uint8 or bitmap.dim() != 2:
+        raise ValueError(f"bitmap must be uint8 [B, nb], got {bitmap.dtype} {tuple(bitmap.shape)}")
+    B, nb = bitmap.shape
+    if vals.dtype != torch.int8 or vals.dim() != 2 or vals.shape[0] != B or vals.shape[1] < 1:
+        raise ValueError(f"vals must be int8 [{B}, cap >= 1], got {vals.dtype} {tuple(vals.shape)}")
+    if not 0 < n <= 8 * nb or n >= 2**31:
+        raise ValueError(f"n must be in 1..{8 * nb} (and below 2^31), got {n}")
+    _build.same_device(bitmap, vals)
+    if bitmap.device.type == "cpu":
+        return expand_levels_plain(bitmap, vals, n)
+    return _expand_flat_kernel(bitmap, vals, n)
+
+
+def _expand_flat_kernel(bitmap: torch.Tensor, vals: torch.Tensor, n: int) -> torch.Tensor:
+    dev = bitmap.device
+    B, nb = bitmap.shape
+    cap = vals.shape[1]
+    out = torch.empty((B, n), dtype=torch.int8, device=dev)
+    _build.launch("expand_flat", "webp_expand_flat", dev,
+                  _build.dense(bitmap, torch.uint8, (B, nb)), nb,
+                  _build.dense(vals, torch.int8, (B, cap)), cap, n, B,
+                  _tiles(B, -(-n // 8), dev).data_ptr(), out.data_ptr())
+    return out
