@@ -15,9 +15,14 @@ decodes a batch of 8 of each kind (`dispatch_decode_batch`, out="rgb" and
 out="yuv").  The output must be bit-exact with the port's plain torch
 decode of the same payloads on the CPU (which the tests hold to the JAX
 package and its scalar decoder), the RGB also with the host's C++
-YUV->RGB conversion of the YUV output.  K1 residual, K2 recon, K3 loop
-filter (both kinds) and K4 yuv2rgb are each held bit-exact to their plain
-twins on the same card inputs.
+YUV->RGB conversion of the YUV output.  Each batch takes one launch of
+K1 residual, of K2 + K3 fused (recon_filter) and, for RGB, of K4 yuv2rgb;
+K2 recon and K3 loopfilter alone, none.  K1, K2, K3 (both kinds), the
+fused kernel (both kinds; also against the main path's planes) and K4 are
+each held bit-exact to their plain twins on the same card inputs.  The
+three row-CTA kernels are timed beside the one-block-per-image K2 / K3
+they replaced, per wavefront step, and beside the chain floor: T MB
+hand-overs between rows, timed on chains of CTAs.
 
 Encode, twice: method 3 with segments off, then the flagship, method 4
 (trellis) with segments on.  Two distinct seeded synthetic frames
@@ -67,7 +72,7 @@ unpacked 200-colour index image, beside one PyTorch indexing call.
 Scale-out, last.  The decode batches of both filter kinds go through
 `parallel.decode_wavefront_banded` at 2, 4 and 8 bands an image (K16
 recon_banded and K17 filter_banded, one cluster of that many CTAs per
-image): planes byte-equal to K2 + K3's of the same run; K16 and K17 held
+image): planes byte-equal to the fused K2 + K3's of the same run; K16 and K17 held
 bit-exact to their twins (bands held apart, halo rows handed over each
 step) at 4 bands, and timed at each band count beside K2 and K3, with the
 card's largest number of resident clusters.  Then a one-rank NCCL process
@@ -124,10 +129,18 @@ PEAK_INT_OPS = 64 * 132 * 1.98e9
 DECODE_KERNELS = [
     # name, source, replaced TPU kernel (file:line)
     ("residual", "webp_tpu_torch/csrc/residual.cu", "webp_tpu/decode/device.py:509"),
-    ("recon", "webp_tpu_torch/csrc/recon.cu", "webp_tpu/ops/wavefront2.py:152"),
-    ("loopfilter", "webp_tpu_torch/csrc/loopfilter.cu", "webp_tpu/ops/loopfilter2.py:192"),
+    ("recon", "webp_tpu_torch/csrc/wavefront_rows.cu", "webp_tpu/ops/wavefront2.py:152"),
+    ("loopfilter", "webp_tpu_torch/csrc/wavefront_rows.cu", "webp_tpu/ops/loopfilter2.py:192"),
+    ("recon_filter", "webp_tpu_torch/csrc/wavefront_rows.cu", "webp_tpu/ops/wavefront2.py:274"),
     ("yuv2rgb", "webp_tpu_torch/csrc/yuv2rgb.cu", "webp_tpu/ops/jax_ops.py:189"),
 ]
+# The one-block-per-image K2 / K3 that the row-CTA kernels replaced (commit
+# c28384d, this script at batch 8 x 768x512 on an H100 80GB HBM3 at 700 W):
+# ms a batch, and decode_core's ms an image.
+ONE_BLOCK_MS = {"recon": 1.3841, "loopfilter": 1.6936, "decode_core": 0.3983}
+HANDOFF_CHAINS = (1024, 4096)  # CTAs of the two hand-over chains
+# The row-CTA kernel's instances: name -> (recon, filter).
+ROW_KERNELS = {"recon": (True, False), "loopfilter": (False, True), "recon_filter": (True, True)}
 ENCODE_KERNELS = [
     ("analysis", "webp_tpu_torch/csrc/analysis.cu", "webp_tpu/ops/analysis2.py:128"),
     ("enc", "webp_tpu_torch/csrc/enc.cu",
@@ -320,12 +333,43 @@ OPS_WIRE_VALUE = 6
 OPS_LIST_SLOT = 12
 
 
-def ptxas_report() -> list:
-    """K5's (both instances), K8's and K13-K15's registers, shared memory
-    and spills, from the build's ptxas report."""
+def handoff_ms(dev) -> float:
+    """One hand-over between row CTAs, in ms: chains of CTAs (HANDOFF_CHAINS)
+    in which each waits for the one before with the row kernels' poll
+    (ld.acquire.gpu) and then publishes as they do (fence + st.release.gpu);
+    the longer chain's time less the shorter's over the CTAs between them,
+    so that the launch cancels."""
+    import torch
+
     from webp_tpu_torch import _build
 
-    names = {"enc_kernelILb0E": "enc<no trellis>", "enc_kernelILb1E": "enc<trellis>",
+    lib = _build.load()
+    times = []
+    for n in HANDOFF_CHAINS:
+        flags = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+
+        def run():
+            rc = lib.webp_handoff_chain(n, flags.data_ptr(),
+                                        torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"webp_handoff_chain launch failed: CUDA error {rc}")
+
+        times.append(time_ms(run, 20, flags.zero_))
+        if int(flags[:n].sum()) != n:
+            raise AssertionError(f"the hand-over chain of {n} CTAs did not finish")
+    (n0, n1), (t0, t1) = HANDOFF_CHAINS, times
+    return (t1 - t0) / (n1 - n0)
+
+
+def ptxas_report() -> list:
+    """The row-CTA kernel's three instances', K5's (both instances), K8's and
+    K13-K15's registers, shared memory and spills, from the build's ptxas
+    report."""
+    from webp_tpu_torch import _build
+
+    names = {"rows_kernelILb1ELb0E": "recon", "rows_kernelILb0ELb1E": "loopfilter",
+             "rows_kernelILb1ELb1E": "recon_filter",
+             "enc_kernelILb0E": "enc<no trellis>", "enc_kernelILb1E": "enc<trellis>",
              "analysis_kernel": "analysis", "coeff_tokens_kernel": "coeff_tokens",
              "mb_headers_kernel": "mb_headers", "bool_lanes_kernel": "bool_lanes"}
     if not _build.PTXAS_REPORT.exists():  # a library built before the report was kept
@@ -374,6 +418,7 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
     from webp_tpu_torch.decode import device as tdev
     from webp_tpu_torch.ops import residual
     from webp_tpu_torch.ops.loopfilter import loop_filter_, loop_filter_plain_
+    from webp_tpu_torch.ops.recon_filter import recon_filter_, recon_filter_plain_, resident_rows
     from webp_tpu_torch.ops.wavefront import recon_, recon_plain_
     from webp_tpu_torch.ops.yuv import fancy_yuv420_to_rgb, fancy_yuv420_to_rgb_plain
 
@@ -406,9 +451,12 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     off_path(launches, keep)
-    missing = [name for name, _, _ in DECODE_KERNELS if launches[name] == 0]
-    if missing:
-        raise AssertionError(f"main path launched no {missing} kernel: {launches}")
+    # One fused recon + filter launch a batch; K2 and K3 alone are off the path.
+    expect = {"residual": len(outs), "recon_filter": len(outs), "recon": 0, "loopfilter": 0,
+              "yuv2rgb": len(outs) // 2}
+    counts = {k: launches[k] for k in expect}
+    if counts != expect:
+        raise AssertionError(f"main path launched {counts}, expected {expect}")
     mbw, mbh = (WIDTH + 15) // 16, (HEIGHT + 15) // 16
     for (simple, out), got in outs.items():
         if got.device.type != "cuda":
@@ -453,16 +501,23 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
     err["recon"] = max(max_abs_err(a, b) for a, b in zip(rec, rec_p))
 
     lf_args = (f["level"], f["interior"], f["hev"], do_sub)
-    err["loopfilter"] = 0
+    err["loopfilter"] = err["recon_filter"] = 0
     filtered = None
+    main_planes = tdev.split_planes(outs[(simple, "yuv")], mbw, mbh)
     for kind in (simple, not simple):
-        got = [p.clone() for p in rec]
-        want = [p.clone() for p in rec]
+        got = [p.clone() for p in rec_p]
+        want = [p.clone() for p in rec_p]
         loop_filter_(*got, *lf_args, kind)
-        loop_filter_plain_(*want, *lf_args, kind)
+        loop_filter_plain_(*want, *lf_args, kind)  # the fused kernel's twin: K2's, then K3's
         err["loopfilter"] = max(err["loopfilter"], *(max_abs_err(a, b) for a, b in zip(got, want)))
+        fused = planes()
+        recon_filter_(*fused, *recon_args, *lf_args, kind)
+        err["recon_filter"] = max(err["recon_filter"],
+                                  *(max_abs_err(a, b) for a, b in zip(fused, want)))
         if kind == simple:
             filtered = got
+            err["recon_filter"] = max(err["recon_filter"],
+                                      *(max_abs_err(a, b) for a, b in zip(fused, main_planes)))
     out = fancy_yuv420_to_rgb(*filtered, width, height)
     out_p = fancy_yuv420_to_rgb_plain(*filtered, width, height)
     err["yuv2rgb"] = max(max_abs_err(out, out_p), max_abs_err(out, outs[(False, "rgb")]))
@@ -484,6 +539,7 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
         "residual": time_ms(lambda: residual.residuals_sparse(*k1_args), 50),
         "recon": time_ms(lambda: recon_(*target, *recon_args), 20),
         "loopfilter": time_ms(lambda: loop_filter_(*work, *lf_args, simple), 20, fresh),
+        "recon_filter": time_ms(lambda: recon_filter_(*target, *recon_args, *lf_args, simple), 20),
         "yuv2rgb": time_ms(lambda: fancy_yuv420_to_rgb(*filtered, width, height), 50),
     }
     plain_ms = {
@@ -492,6 +548,9 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
         "loopfilter": time_ms(lambda: loop_filter_plain_(*work, *lf_args, simple), 1, fresh),
         "yuv2rgb": time_ms(lambda: fancy_yuv420_to_rgb_plain(*filtered, width, height), 5),
     }
+    # The fused kernel's twin is K2's then K3's, both warmed up just above.
+    plain_ms["recon_filter"] = timed(lambda: recon_filter_plain_(
+        *target_p, *recon_args, *lf_args, simple))[1]
     for name, _, _ in DECODE_KERNELS:
         print(f"{name}: {ms[name]:.4f} ms kernel, {plain_ms[name]:.4f} ms plain "
               f"(batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
@@ -504,8 +563,8 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
     def plain_core():
         r, ds = residual.residuals_sparse_plain(*k1_args)
         p = planes()
-        recon_plain_(*p, r, f["luma_mode"], f["bpred"], f["chroma_mode"])
-        loop_filter_plain_(*p, f["level"], f["interior"], f["hev"], ds, simple)
+        recon_filter_plain_(*p, r, f["luma_mode"], f["bpred"], f["chroma_mode"], f["level"],
+                            f["interior"], f["hev"], ds, simple)
         return fancy_yuv420_to_rgb_plain(*p, width, height)
 
     core_ms = time_ms(lambda: tdev.decode_core(d, "rgb"), 20)
@@ -516,7 +575,8 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
         tdev.dispatch_decode_batch(batches[False], out="rgb", device=dev)
     torch.cuda.synchronize()
     e2e_ms = (time.perf_counter() - t0) * 1000 / reps
-    print(f"decode_core (device, uploaded batch): {core_ms / BATCH:.4f} ms/img kernels, "
+    print(f"decode_core (device, uploaded batch): {core_ms / BATCH:.4f} ms/img kernels "
+          f"(one-block K2 + K3: {ONE_BLOCK_MS['decode_core']:.4f}), "
           f"{core_plain_ms / BATCH:.4f} ms/img plain twins ({card})", flush=True)
     print(f"dispatch_decode_batch (host parse + upload + kernels, host clock): "
           f"{e2e_ms / BATCH:.4f} ms/img ({card})", flush=True)
@@ -525,14 +585,31 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
     # operations (K1: dequant + inverse transform per block; K2: prediction,
     # add and clip per pixel; K3: ~20 per pixel over its edge filters; K4:
     # upsampling and conversion per output pixel).  No single PyTorch call
-    # computes any of the four.
+    # computes any of them.  The row kernels also have a floor of T MB
+    # hand-overs between rows, each timed on a chain of CTAs that wait and
+    # publish as the kernels do.
     pixels = BATCH * nmb * 384
     bounds = {
         "residual": bound(nbytes(*k1_args, res, do_sub), BATCH * nmb * 25 * (16 + 96)),
         "recon": bound(nbytes(*recon_args, *rec), pixels * 8),
         "loopfilter": bound(2 * nbytes(*rec) + nbytes(*lf_args), pixels * 20),
+        "recon_filter": bound(nbytes(*recon_args, *lf_args, *rec), pixels * 28),
         "yuv2rgb": bound(nbytes(*filtered, out), BATCH * width * height * 25),
     }
+    steps = mbw + 2 * (mbh - 1)
+    hand_ms = handoff_ms(dev)
+    resident = ({k: resident_rows(dev, *v) for k, v in ROW_KERNELS.items()}
+                if torch.device(dev).type == "cuda" else "n/a")
+    print(f"row hand-over (ld.acquire poll -> st.release, chains of {HANDOFF_CHAINS} CTAs): "
+          f"{hand_ms * 1e3:.3f} us; chain floor T x hand-over = {steps} x that = "
+          f"{steps * hand_ms:.4f} ms ({card})", flush=True)
+    for name in ROW_KERNELS:
+        before = f", one-block kernel {ONE_BLOCK_MS[name]:.4f} ms" if name in ONE_BLOCK_MS else ""
+        print(f"{name}: {ms[name]:.4f} ms{before}; {ms[name] / steps * 1e3:.2f} us a wavefront "
+              f"step (T = {steps}); bound {bounds[name]['bound_ms']:.4f} ms "
+              f"({bounds[name]['bound_by']}), chain floor {steps * hand_ms:.4f} ms; "
+              f"resident row CTAs {resident if isinstance(resident, str) else resident[name]} "
+              f"for {BATCH * mbh} ({card})", flush=True)
     return {name: {"launches": launches[name], "max_abs_err": err[name], "ms": ms[name],
                    "plain_ms": plain_ms[name], **bounds[name], "library_ms": None}
             for name, _, _ in DECODE_KERNELS}
@@ -1511,7 +1588,7 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
 
     Banded decode: the decode phase's batches (both filter kinds) through
     `parallel.decode_wavefront_banded` at every n_band of N_BANDS, byte-equal
-    to K2 + K3's planes of the same run; K16 and K17 against their twins at
+    to the fused K2 + K3's planes of the same run; K16 and K17 against their twins at
     n_band 4 and timed beside K2 and K3.  Then the four data-parallel
     factories on a process group of one rank (NCCL on a card, gloo on the
     CPU), each byte-equal to the unsharded path of this run: the decode's
@@ -1620,12 +1697,13 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
     finally:
         dist.destroy_process_group()
     needed = [k for k, _, _ in PARALLEL_KERNELS] + [
-        "residual", "recon", "loopfilter", "yuv2rgb", "enc", "token_stats", "enc_tables",
+        "residual", "recon_filter", "yuv2rgb", "enc", "token_stats", "enc_tables",
         "prepack", "coeff_tokens"]
     missing = [k for k in needed if launches[k] == 0]
     if missing:
         raise AssertionError(f"the scale-out path launched no {missing} kernel: {launches}")
-    print(f"[parallel] main path: banded decode byte-equal to K2 + K3 at n_band {N_BANDS} "
+    print(f"[parallel] main path: banded decode byte-equal to the fused K2 + K3 at n_band "
+          f"{N_BANDS} "
           f"(2 x {BATCH} images, both filter kinds); on a one-rank {backend} group (init "
           f"{init_s:.1f} s) the sharded decode, one-pass analysis, two-pass prepack and "
           f"payloads, and gathered token lanes equal the unsharded path; launches "

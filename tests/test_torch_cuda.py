@@ -45,10 +45,12 @@ from webp_tpu_torch.ops import sparse
 from webp_tpu_torch.ops.sparse import pack_levels_mb, pack_levels_mb_plain
 from webp_tpu_torch.ops import vp8l_device as L
 from webp_tpu_torch.ops.loopfilter import loop_filter_, loop_filter_plain_
+from webp_tpu_torch.ops.recon_filter import recon_filter_, recon_filter_plain_, resident_rows
 from webp_tpu_torch.ops.wavefront import recon_, recon_plain_
 from webp_tpu_torch.ops.yuv import fancy_yuv420_to_rgb, fancy_yuv420_to_rgb_plain
 
 from random_vp8 import random_keyframe
+from recon_inputs import random_inputs
 from sparse_inputs import flat_cases
 from random_vp8l import PALETTE, SUBTRACT_GREEN, color, predictor, quantize, vp8l_stream, with_alpha
 from synthetic_rgb import synthetic_frame
@@ -134,12 +136,17 @@ def test_recon_and_filter_kernels_match_plain(uploaded, cuda, simple):
         rng.randint(0, 3, shape).astype(np.uint8),
         rng.rand(*shape) < 0.6,
     )]
+    fused = _planes(cuda)
+    recon_filter_(*fused, res, f["luma_mode"], f["bpred"], f["chroma_mode"], *params, simple)
     loop_filter_(*got, *params, simple)
     loop_filter_plain_(*want, *params, simple)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["recon"] == before["recon"] + 1
     assert _build.LAUNCHES["loopfilter"] == before["loopfilter"] + 1
+    assert _build.LAUNCHES["recon_filter"] == before["recon_filter"] + 1
     for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(fused, want):
         assert torch.equal(g, w)
 
 
@@ -161,8 +168,8 @@ def test_yuv2rgb_kernel_matches_plain(cuda, width, height):
 def test_slice_on_card_matches_scalar(cuda, payloads, out):
     _build.reset_launches()
     got = tdev.dispatch_decode_batch(payloads, out=out, device=cuda).cpu()
-    want = dict.fromkeys(_build.LAUNCHES, 0)  # every other kernel: no launch
-    want.update(residual=1, recon=1, loopfilter=1, yuv2rgb=int(out == "rgb"))
+    want = dict.fromkeys(_build.LAUNCHES, 0)  # every other kernel (K2, K3 alone): no launch
+    want.update(residual=1, recon_filter=1, yuv2rgb=int(out == "rgb"))
     assert _build.LAUNCHES == want
     for i, p in enumerate(payloads):
         np.testing.assert_array_equal(got[i].numpy(), scalar_decode(p)[0 if out == "rgb" else 1])
@@ -188,10 +195,73 @@ def test_mixed_geometry_and_dense_overflow_on_card(cuda, payloads):
 
 
 def test_more_mb_rows_than_wavefront_warps(cuda):
-    """66 MB rows: each of the block's 32 warps walks several rows per step."""
+    """66 MB rows (more than the 32 warps of a one-block-per-image
+    wavefront): one row CTA each, in one fused recon + filter launch."""
     ps = mixed_payloads(40, 1050, seeds=(44,))
+    before = _build.LAUNCHES["recon_filter"]
     got = tdev.decode_vp8_batch_device(ps, device=cuda)
+    assert _build.LAUNCHES["recon_filter"] == before + 1
     np.testing.assert_array_equal(got[0], scalar_decode(ps[0])[0])
+
+
+def _row_kernels_vs_twins(cuda, inputs, mbw, mbh, simple):
+    """K2, K3 and the fused kernel against their twins on `inputs` (CPU
+    tensors), one launch each; the twins run on the CPU."""
+    B = inputs[0].shape[0]
+
+    def planes(device):
+        return [torch.zeros((B, mbh * n, mbw * n), dtype=torch.uint8, device=device)
+                for n in (16, 8, 8)]
+
+    dev_in = [a.to(cuda) for a in inputs]
+    before = {k: _build.LAUNCHES[k] for k in ("recon", "loopfilter", "recon_filter")}
+    rec, rec_p = planes(cuda), planes("cpu")
+    recon_(*rec, *dev_in[:4])
+    recon_plain_(*rec_p, *inputs[:4])
+    filt = [p.to(cuda) for p in rec_p]
+    loop_filter_(*filt, *dev_in[4:], simple)
+    fused = planes(cuda)
+    recon_filter_(*fused, *dev_in, simple)
+    want = [p.clone() for p in rec_p]
+    loop_filter_plain_(*want, *inputs[4:], simple)
+    torch.cuda.synchronize()
+    assert {k: _build.LAUNCHES[k] - n for k, n in before.items()} == {
+        "recon": 1, "loopfilter": 1, "recon_filter": 1}
+    for g, w in zip(rec, rec_p):
+        assert torch.equal(g.cpu(), w), "recon"
+    for g, w in zip(filt, want):
+        assert torch.equal(g.cpu(), w), "loopfilter"
+    for g, w in zip(fused, want):
+        assert torch.equal(g.cpu(), w), "recon_filter"
+
+
+@pytest.mark.parametrize("simple", [False, True], ids=["normal", "simple"])
+@pytest.mark.parametrize("mbw,mbh", [(1, 1), (1, 6), (6, 1), (5, 3), (3, 40)],
+                         ids=["1x1", "column", "row", "5x3", "40_rows"])
+def test_row_kernels_match_plain(cuda, mbw, mbh, simple):
+    """K2, K3 and K2 + K3 fused, bit-exact to the twins, at one MB, one MB
+    column, one MB row and more MB rows than a block has warps, on seeded
+    modes, residues and filter parameters with level-0 MBs."""
+    _row_kernels_vs_twins(cuda, random_inputs(mbw, mbh, seed=mbw * 100 + mbh), mbw, mbh, simple)
+
+
+@pytest.mark.parametrize("simple", [False, True], ids=["normal", "simple"])
+def test_row_kernels_with_more_row_ctas_than_resident(cuda, simple):
+    """A batch whose row CTAs (images x MB rows) outnumber those the card
+    keeps resident for each instance: the row ticket hands rows out in
+    height order, so no CTA waits on one that is not running."""
+    resident = max(resident_rows(cuda, *kind) for kind in ((True, False), (False, True),
+                                                          (True, True)))
+    mbw, mbh = 2, 40
+    batch = resident // mbh + 1
+    _row_kernels_vs_twins(cuda, random_inputs(mbw, mbh, seed=77, batch=batch), mbw, mbh, simple)
+
+
+def test_row_kernels_are_resident_on_every_sm(cuda):
+    """Each instance keeps at least one row CTA on each of the card's SMs."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for kind in ((True, False), (False, True), (True, True)):
+        assert resident_rows(cuda, *kind) >= sms, kind
 
 
 def test_wrappers_reject_bad_layouts(cuda):
@@ -592,7 +662,7 @@ def test_device_tokens_slice_on_card_matches_cpu(cuda, method, segments, size):
 @pytest.mark.parametrize("simple", [False, True], ids=["normal", "simple"])
 def test_banded_kernels_match_unbanded_and_plain(cuda, simple):
     """64x256 random keyframes (16 MB rows) at every band count that divides
-    them: planes byte-equal to K2 + K3's, one K16 and one K17 launch per
+    them: planes byte-equal to the fused K2 + K3's, one K16 and one K17 launch per
     call; at 4 bands also equal to the twins on CPU copies."""
     payloads = [random_keyframe(64, 256, s, simple=simple)[0] for s in (51, 52)]
     d = tdev.to_device_batch(tdev.parse_levels_batch(payloads), cuda)

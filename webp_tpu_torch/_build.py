@@ -50,14 +50,26 @@ _SIGNATURES = {
         _P, _L, _P, _L, _P, _L,   # luma_mode, bpred, chroma_mode (+ batch strides)
         _I, _I, _I,          # mbw, mbh, batch
         _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides)
+        _P, _P,              # edge-row scratch, row progress counters and ticket (zeroed)
         _P,
     ],
     "webp_loopfilter": [
         _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides), in place
         _P, _L, _P, _L, _P, _L, _P, _L,  # level, interior, hev, do_sub
         _I, _I, _I, _I,      # mbw, mbh, batch, simple
+        _P,                  # row progress counters and ticket (zeroed)
         _P,
     ],
+    "webp_recon_filter": [
+        _P,                  # residuals
+        _P, _L, _P, _L, _P, _L,   # luma_mode, bpred, chroma_mode (+ batch strides)
+        _P, _L, _P, _L, _P, _L, _P, _L,  # level, interior, hev, do_sub
+        _I, _I, _I, _I,      # mbw, mbh, batch, simple
+        _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides), out
+        _P, _P,              # edge-row scratch, row progress counters and ticket (zeroed)
+        _P,
+    ],
+    "webp_handoff_chain": [_I, _P, _P],  # CTAs, flags [n + 1] (zeroed)
     "webp_yuv2rgb": [
         _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides)
         _I, _I, _I, _I, _I,  # mbw, mbh, width, height, batch
@@ -180,7 +192,7 @@ _SIGNATURES = {
 
 # Kernel name -> launches since the last reset_launches().  Each wrapper
 # counts here, and only when its kernel was launched.
-LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "yuv2rgb": 0,
+LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "recon_filter": 0, "yuv2rgb": 0,
             "enc": 0, "token_stats": 0, "enc_tables": 0, "analysis": 0,
             "subtract_green": 0, "color_transform": 0, "color_indexing": 0, "predictor": 0,
             "coeff_tokens": 0, "mb_headers": 0, "bool_lanes": 0,
@@ -279,6 +291,8 @@ def load():
             fn.restype = ctypes.c_int
         lib.webp_enc_resident.argtypes = [_I]
         lib.webp_enc_resident.restype = ctypes.c_int
+        lib.webp_recon_filter_resident.argtypes = [_I, _I]
+        lib.webp_recon_filter_resident.restype = ctypes.c_int
         lib.webp_banded_max_clusters.argtypes = [_I, _I, _P]
         lib.webp_banded_max_clusters.restype = ctypes.c_int
         lib.webp_error_string.argtypes = [ctypes.c_int]

@@ -1,5 +1,6 @@
 // filter_mb_lane: the VP8 loop filter of one MB, by one warp, in place in
-// the planes.  Shared by K3 (loopfilter.cu) and K17 (banded.cu).
+// the planes: K17's (banded.cu).  filter_w is shared with K3
+// (wavefront_rows.cu), which filters lines held in registers.
 #pragma once
 
 #include "common.cuh"
@@ -24,59 +25,53 @@ __device__ __forceinline__ bool high_edge_variance(const int* w, int threshold) 
     return abs(w[2] - w[3]) > threshold || abs(w[5] - w[4]) > threshold;
 }
 
-// The 4-tap adjust of p0/q0; returns the rounded step a applied to q0.
-__device__ __forceinline__ int common_adjust(int* w, bool use_outer) {
-    const int p1 = w[2] - 128, p0 = w[3] - 128, q0 = w[4] - 128, q1 = w[5] - 128;
-    const int a = c8((use_outer ? c8(p1 - q1) : 0) + 3 * (q0 - p0));
-    const int b = c8(a + 3) >> 3;
-    const int a4 = c8(a + 4) >> 3;
-    w[4] = u8(q0 - a4);
-    w[3] = u8(p0 + b);
-    return a4;
-}
-
 enum EdgeKind { kMbEdge, kSubEdge };
 
-// Filter one line of 8 pixels p3 p2 p1 p0 | q0 q1 q2 q3 (RFC 6386 15.2-15.3,
-// webp_tpu/ops/loopfilter.py), `step` apart in memory, in place.
+// Filter one line of 8 pixels w = p3 p2 p1 p0 | q0 q1 q2 q3 (RFC 6386
+// 15.2-15.3, webp_tpu/ops/loopfilter.py) in place; false when the line
+// fails the threshold and stays as it was.  Branch-free: every variant's
+// values are formed and the edge's kind, the simple flag and hev select
+// among them, so the lanes of a warp do not diverge on hev.
+__device__ __forceinline__ bool filter_w(int* w, EdgeKind kind, bool simple, int hev_t,
+                                         int interior, int limit) {
+    const bool mask = simple ? simple_threshold(w, limit) : should_filter(w, interior, limit);
+    const bool hev = !simple && high_edge_variance(w, hev_t);
+    const int p2 = w[1] - 128, p1 = w[2] - 128, p0 = w[3] - 128;
+    const int q0 = w[4] - 128, q1 = w[5] - 128, q2 = w[6] - 128;
+    const int outer = c8(p1 - q1), d = 3 * (q0 - p0);
+    // The 4-tap adjust of p0/q0 (step a4 to q0, b3 to p0): with the outer
+    // taps except on an inner edge of the normal filter without high edge
+    // variance.
+    const bool use_outer = simple || kind == kMbEdge || hev;
+    const int a = c8((use_outer ? outer : 0) + d);
+    const int a4 = c8(a + 4) >> 3, b3 = c8(a + 3) >> 3;
+    // Without high edge variance the normal filter widens: on an MB edge
+    // (then a == c8(outer + d)) to p2..q2, on an inner edge to p1 and q1.
+    const bool wide = !simple && !hev && kind == kMbEdge;
+    const bool inner = !simple && !hev && kind == kSubEdge;
+    const int a0 = c8((27 * a + 63) >> 7);
+    const int a1 = c8((18 * a + 63) >> 7);
+    const int a2 = c8((9 * a + 63) >> 7);
+    const int s1 = (a4 + 1) >> 1;
+    const int n1 = wide ? u8(p2 + a2) : w[1];
+    const int n2 = wide ? u8(p1 + a1) : inner ? u8(p1 + s1) : w[2];
+    const int n3 = wide ? u8(p0 + a0) : u8(p0 + b3);
+    const int n4 = wide ? u8(q0 - a0) : u8(q0 - a4);
+    const int n5 = wide ? u8(q1 - a1) : inner ? u8(q1 - s1) : w[5];
+    const int n6 = wide ? u8(q2 - a2) : w[6];
+    if (mask) {
+        w[1] = n1; w[2] = n2; w[3] = n3; w[4] = n4; w[5] = n5; w[6] = n6;
+    }
+    return mask;
+}
+
+// filter_w on the line whose q0 lies at q0p, its pixels `step` apart.
 __device__ void filter_line(uint8_t* q0p, int step, EdgeKind kind, bool simple,
                             int hev_t, int interior, int limit) {
     int w[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) w[k] = q0p[(k - 4) * step];
-    if (simple) {
-        if (!simple_threshold(w, limit)) return;
-        common_adjust(w, true);
-    } else {
-        if (!should_filter(w, interior, limit)) return;
-        const bool hev = high_edge_variance(w, hev_t);
-        if (kind == kMbEdge) {
-            if (hev) {
-                common_adjust(w, true);
-            } else {
-                const int p2 = w[1] - 128, p1 = w[2] - 128, p0 = w[3] - 128;
-                const int q0 = w[4] - 128, q1 = w[5] - 128, q2 = w[6] - 128;
-                const int wv = c8(c8(p1 - q1) + 3 * (q0 - p0));
-                const int a0 = c8((27 * wv + 63) >> 7);
-                const int a1 = c8((18 * wv + 63) >> 7);
-                const int a2 = c8((9 * wv + 63) >> 7);
-                w[4] = u8(q0 - a0);
-                w[3] = u8(p0 + a0);
-                w[5] = u8(q1 - a1);
-                w[2] = u8(p1 + a1);
-                w[6] = u8(q2 - a2);
-                w[1] = u8(p2 + a2);
-            }
-        } else {
-            const int p1 = w[2] - 128, q1 = w[5] - 128;
-            const int a = common_adjust(w, hev);
-            if (!hev) {
-                const int a1 = (a + 1) >> 1;
-                w[5] = u8(q1 - a1);
-                w[2] = u8(p1 + a1);
-            }
-        }
-    }
+    if (!filter_w(w, kind, simple, hev_t, interior, limit)) return;
 #pragma unroll
     for (int k = 1; k < 7; ++k) q0p[(k - 4) * step] = static_cast<uint8_t>(w[k]);
 }

@@ -1,5 +1,6 @@
 // recon_mb: one MB's intra prediction + residue, by one warp, in place in
-// the output planes.  Shared by K2 (recon.cu) and K16 (banded.cu).
+// the output planes, neighbours read back from the planes.  K16's
+// (banded.cu); K2 (wavefront_rows.cu) keeps its MB in shared memory.
 #pragma once
 
 #include "common.cuh"

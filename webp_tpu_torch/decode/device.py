@@ -2,10 +2,11 @@
 
 The host runs the serial entropy pass (the C++ levels-mode parser of
 `native/vp8_entropy.cpp`, bound in `io/native.py`) into packed batch
-buffers; `to_device_batch` uploads them, and `decode_core` runs the four
-kernels: K1 levels -> residuals (`ops/residual.py`), K2 prediction +
-residue (`ops/wavefront.py`), K3 loop filter (`ops/loopfilter.py`) and K4
-fancy upsampling + YUV -> RGB (`ops/yuv.py`).  Bit-exact with the scalar
+buffers; `to_device_batch` uploads them, and `decode_core` runs three
+launches: K1 levels -> residuals (`ops/residual.py`), K2 prediction +
+residue fused with K3's loop filter (`ops/recon_filter.py`, as the JAX
+package's `decode_frames_fused_v2`) and K4 fancy upsampling + YUV -> RGB
+(`ops/yuv.py`).  Bit-exact with the scalar
 `Vp8Decoder` of the JAX package and with its `webp_tpu/decode/device.py`,
 whose host half is rebuilt here; nothing here imports that package.
 
@@ -23,10 +24,9 @@ import numpy as np
 import torch
 
 from ..io import native
-from ..ops.loopfilter import loop_filter_
+from ..ops.recon_filter import recon_filter_
 from ..ops.residual import SLOTS, residuals_dense, residuals_sparse
 from ..ops.sparse import host_pack_levels_mb
-from ..ops.wavefront import recon_
 from ..ops.yuv import fancy_yuv420_to_rgb
 
 N_ESC_DEC = 4096  # per-image escape budget of the sparse upload (|level| > 127)
@@ -263,8 +263,7 @@ def decode_core(dev_batch, out: str = "rgb"):
     B = res.shape[0]
     packed = torch.empty((B, mbw * mbh * 384), dtype=torch.uint8, device=res.device)
     y, u, v = split_planes(packed, mbw, mbh)
-    recon_(y, u, v, res, lm, bp, cm)
-    loop_filter_(y, u, v, level, interior, hev, do_sub, simple)
+    recon_filter_(y, u, v, res, lm, bp, cm, level, interior, hev, do_sub, simple)
     if out == "yuv":
         return packed
     return fancy_yuv420_to_rgb(y, u, v, width, height)

@@ -6,8 +6,9 @@ Filtering MB (x, y) reads pixels that (x-1, y), (x, y-1) and (x+1, y-1)
 have filtered, so MBs run in anti-diagonal order t = x + 2y; the MBs of a
 diagonal touch disjoint pixels.
 
-The CUDA kernel is `csrc/loopfilter.cu`; `loop_filter_plain_` is its torch
-twin, vectorised over the MBs of a diagonal and the batch, with the filter
+The CUDA kernel is `csrc/wavefront_rows.cu` (the `<no recon, filter>`
+instance of the row-CTA kernel that `ops/recon_filter.py` fuses with the
+recon); `loop_filter_plain_` is its torch twin, vectorised over the MBs of a diagonal and the batch, with the filter
 math of `webp_tpu/ops/loopfilter2.py` (RFC 6386 15.2-15.3).
 """
 
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .wavefront import diagonal
+from .wavefront import diagonal, row_scratch
 
 
 def _c(v):
@@ -152,7 +153,10 @@ def loop_filter_plain_(y, u, v, level, interior, hev, do_sub, simple: bool) -> N
     work = [(F.pad(p.to(torch.int32), (4, 0, 4, 0)), n) for p, n in planes]
     params = filter_params(level, interior, hev, do_sub)
     for t in range(mbw + 2 * (mbh - 1)):
-        R, X = (a.to(dev) for a in diagonal(t, range(mbh), mbw))
+        rows = diagonal(t, range(mbh), mbw)
+        if rows is None:  # one MB column: odd diagonals are empty
+            continue
+        R, X = (a.to(dev) for a in rows)
         M = R * mbw + X
         filter_mbs_(work, R, X, R > 0, [p[:, M] for p in params], simple)
     for (p, _), (pw, _) in zip(planes, work):
@@ -173,4 +177,6 @@ def loop_filter_(y, u, v, level, interior, hev, do_sub, simple: bool) -> None:
             *_build.plane(v, B, mbh * 8, mbw * 8)]
     for f in (level, interior, hev, do_sub):
         args += _build.mb_field(f, B, nmb)
-    _build.launch("loopfilter", "webp_loopfilter", dev, *args, mbw, mbh, B, int(simple))
+    _, prog = row_scratch(B, mbh, mbw, dev, edge=False)
+    _build.launch("loopfilter", "webp_loopfilter", dev, *args, mbw, mbh, B, int(simple),
+                  prog.data_ptr())

@@ -6,10 +6,12 @@ output planes hold the UNFILTERED reconstruction: prediction reads
 unfiltered neighbours, and the loop filter (`ops/loopfilter.py`) runs over
 the finished planes afterwards.
 
-The CUDA kernel is `csrc/recon.cu`; `recon_plain_` is its torch twin.  It
-walks the anti-diagonals t = x + 2y in Python, vectorised over the MBs of
-a diagonal and the batch, and builds each MB's bordered workspace the way
-`webp_tpu/ops/predict.py` `create_border_luma` does.
+The CUDA kernel is `csrc/wavefront_rows.cu` (the `<recon, no filter>`
+instance of the row-CTA kernel that `ops/recon_filter.py` fuses with the
+filter); `recon_plain_` is its torch twin.  It walks the anti-diagonals
+t = x + 2y in Python, vectorised over the MBs of a diagonal and the batch,
+and builds each MB's bordered workspace the way `webp_tpu/ops/predict.py`
+`create_border_luma` does.
 """
 
 from __future__ import annotations
@@ -135,11 +137,13 @@ def _bordered(p: torch.Tensor) -> torch.Tensor:
     return w
 
 
-def recon_mbs_(Yw, Uw, Vw, R, X, M, has_above, res, lm_all, bp_all, cm_all) -> None:
+def recon_mbs_(Yw, Uw, Vw, R, X, M, has_above, res, lm_all, bp_all, cm_all,
+               has_left=None) -> None:
     """Reconstruct MBs of one diagonal into int32 workspaces with a border
     row above and column left (`_bordered`): R [n] their rows in the
     workspaces, X [n] their columns, M [n] their MB indices in the per-MB
-    arrays and has_above [n] whether the frame has a row above them."""
+    arrays, has_above [n] whether the frame has a row above them and
+    has_left [n] one left of them (default X > 0)."""
     B, W = Yw.shape[0], Yw.shape[2] - 1
     dev = Yw.device
     k16 = torch.arange(16, device=dev)
@@ -148,7 +152,8 @@ def recon_mbs_(Yw, Uw, Vw, R, X, M, has_above, res, lm_all, bp_all, cm_all) -> N
     n = len(R)
     lm, cm = lm_all[:, M], cm_all[:, M]
     rs = res[:, M]  # [B, n, 24, 16]
-    has_left = X > 0
+    if has_left is None:
+        has_left = X > 0
 
     # Luma workspace [B, n, 17, 21] as in create_border_luma.
     top = (R * 16)[:, None]
@@ -210,10 +215,22 @@ def recon_plain_(y, u, v, residuals, luma_mode, bpred, chroma_mode) -> None:
     Yw, Uw, Vw = _bordered(y), _bordered(u), _bordered(v)
     args = (residuals.to(torch.int32), luma_mode.long(), bpred.long(), chroma_mode.long())
     for t in range(mbw + 2 * (mbh - 1)):
-        R, X = (a.to(dev) for a in diagonal(t, range(mbh), mbw))
+        rows = diagonal(t, range(mbh), mbw)
+        if rows is None:  # one MB column: odd diagonals are empty
+            continue
+        R, X = (a.to(dev) for a in rows)
         recon_mbs_(Yw, Uw, Vw, R, X, R * mbw + X, R > 0, *args)
     for p, w in ((y, Yw), (u, Uw), (v, Vw)):
         p.copy_(w[:, 1:, 1:].to(torch.uint8))
+
+
+def row_scratch(batch: int, mbh: int, mbw: int, device, edge: bool = True):
+    """The row-CTA kernels' scratch, zeroed: the rows' unfiltered bottom
+    pixels [B, mbh, 2 * 16 mbw] uint8 (luma, then U and V; None without
+    `edge`) and the rows' progress counters [B * mbh] then the row ticket,
+    int32."""
+    rows = torch.zeros((batch, mbh, 32 * mbw), dtype=torch.uint8, device=device) if edge else None
+    return rows, torch.zeros(batch * mbh + 1, dtype=torch.int32, device=device)
 
 
 def recon_(y, u, v, residuals, luma_mode, bpred, chroma_mode) -> None:
@@ -227,6 +244,7 @@ def recon_(y, u, v, residuals, luma_mode, bpred, chroma_mode) -> None:
     B, H, W = y.shape
     mbh, mbw = H // 16, W // 16
     nmb = mbw * mbh
+    edge, prog = row_scratch(B, mbh, mbw, dev)
     _build.launch(
         "recon", "webp_recon", dev,
         _build.dense(residuals, torch.int32, (B, nmb, 24, 16)),
@@ -235,4 +253,5 @@ def recon_(y, u, v, residuals, luma_mode, bpred, chroma_mode) -> None:
         mbw, mbh, B,
         *_build.plane(y, B, mbh * 16, mbw * 16), *_build.plane(u, B, mbh * 8, mbw * 8),
         *_build.plane(v, B, mbh * 8, mbw * 8),
+        edge.data_ptr(), prog.data_ptr(),
     )
