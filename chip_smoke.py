@@ -67,7 +67,11 @@ and the host C++ full decode (`vp8l_decode`).  K9 subtract_green, K10
 color_transform, K11 color_indexing and K12 predictor are each held
 bit-exact to their plain twins on the phase's own card inputs, the
 inverse transforms stepped in stream order reversed; K11 also on an
-unpacked 200-colour index image, beside one PyTorch indexing call.
+unpacked 200-colour index image, beside one PyTorch indexing call.  K12,
+the row-band kernel, is timed on the photo and on the packed palette
+image at batch 8 and batch 1, beside its chain floor: the image's pixel
+steps times one step (a one-band chain at two widths) plus a row
+hand-over between each two of its CTAs.
 
 Scale-out, last.  The decode batches of both filter kinds go through
 `parallel.decode_wavefront_banded` at 2, 4 and 8 bands an image (K16
@@ -117,6 +121,7 @@ ENCODES = ((3, False), (4, True))
 
 LOSSLESS_SEEDS = (21, 22)
 LOSSLESS_COLOURS = 12  # the palette signature: two indices to a byte
+K12_STEP_WIDTHS = (2048, 8192)  # widths of the one-band chains that time a K12 pixel step
 
 # The card's peaks for the kernels' bounds (NVIDIA H100 SXM): HBM bytes/s
 # (data sheet), and INT32 operations/s outside the tensor cores, which is
@@ -362,16 +367,17 @@ def handoff_ms(dev) -> float:
 
 
 def ptxas_report() -> list:
-    """The row-CTA kernel's three instances', K5's (both instances), K8's and
-    K13-K15's registers, shared memory and spills, from the build's ptxas
-    report."""
+    """The row-CTA kernel's three instances', K5's (both instances), K8's,
+    K12's and K13-K15's registers, shared memory and spills, from the
+    build's ptxas report."""
     from webp_tpu_torch import _build
 
     names = {"rows_kernelILb1ELb0E": "recon", "rows_kernelILb0ELb1E": "loopfilter",
              "rows_kernelILb1ELb1E": "recon_filter",
              "enc_kernelILb0E": "enc<no trellis>", "enc_kernelILb1E": "enc<trellis>",
              "analysis_kernel": "analysis", "coeff_tokens_kernel": "coeff_tokens",
-             "mb_headers_kernel": "mb_headers", "bool_lanes_kernel": "bool_lanes"}
+             "mb_headers_kernel": "mb_headers", "bool_lanes_kernel": "bool_lanes",
+             "predictor_rows_kernel": "predictor"}
     if not _build.PTXAS_REPORT.exists():  # a library built before the report was kept
         return []
     out, name = [], None
@@ -597,7 +603,7 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
         "yuv2rgb": bound(nbytes(*filtered, out), BATCH * width * height * 25),
     }
     steps = mbw + 2 * (mbh - 1)
-    hand_ms = handoff_ms(dev)
+    hand_ms = keep["handoff_ms"] = handoff_ms(dev)
     resident = ({k: resident_rows(dev, *v) for k, v in ROW_KERNELS.items()}
                 if torch.device(dev).type == "cuda" else "n/a")
     print(f"row hand-over (ld.acquire poll -> st.release, chains of {HANDOFF_CHAINS} CTAs): "
@@ -1417,6 +1423,57 @@ def predictor_ops(modes, size_bits: int, width: int, height: int) -> int:
     return int((per_block * pixels_y[None, :, None] * pixels_x[None, None, :]).sum())
 
 
+def pixel_step_us(dev) -> float:
+    """One pixel step of K12, in us: one 32-row band (one warp, one CTA) of
+    seeded residuals and modes 0-13 at the two widths K12_STEP_WIDTHS; the
+    longer band's time less the shorter's over the steps between them, so
+    that the launch cancels."""
+    import numpy as np
+    import torch
+
+    from webp_tpu_torch.ops import vp8l_device as K
+
+    rng = np.random.RandomState(LOSSLESS_SEEDS[0])
+    times = []
+    for w in K12_STEP_WIDTHS:
+        src = torch.from_numpy(rng.randint(0, 256, (1, K.BAND, w, 4)).astype(np.uint8)).to(dev)
+        modes = torch.from_numpy(rng.randint(0, 14, (1, K.BAND // 4, w // 4)).astype(np.uint8))
+        modes = modes.to(dev)
+        work = src.clone()
+        times.append(time_ms(lambda: K.inverse_predictor_(work, modes, 2), 20,
+                             lambda: work.copy_(src)))
+    (w0, w1), (t0, t1) = K12_STEP_WIDTHS, times
+    return (t1 - t0) / (w1 - w0) * 1e3
+
+
+def k12_phase(dev, card: str, steps: dict, hand_ms: float) -> None:
+    """K12 on the photo and the packed palette image at batch 8 and batch 1,
+    beside its chain floor: (w + 2(h - 1)) pixel steps (`pixel_step_us`)
+    plus a row hand-over (`handoff_ms`) between each two of an image's
+    CTAs; and the CTAs the card keeps resident."""
+    from webp_tpu_torch.ops import vp8l_device as K
+
+    step_us = pixel_step_us(dev)
+    resident = K.resident_ctas(dev)
+    print(f"[lossless] predictor pixel step (one 32-row band at widths {K12_STEP_WIDTHS}): "
+          f"{step_us:.4f} us; resident CTAs {resident} ({card})", flush=True)
+    for name in ("photo", "palette"):
+        _, inp, (modes, size_bits), _ = steps[(name, "predictor")]
+        h, w = inp.shape[1:3]
+        ctas = K.predictor_bands(h)
+        floor = (w + 2 * (h - 1)) * step_us / 1e3 + (ctas - 1) * hand_ms
+        times = {}
+        for n in (BATCH, 1):
+            src, m = inp[:n].contiguous(), modes[:n].contiguous()
+            work = src.clone()
+            times[n] = time_ms(lambda: K.inverse_predictor_(work, m, size_bits), 20,
+                               lambda: work.copy_(src))
+        print(f"[lossless] predictor ({name}, {w}x{h}): batch {BATCH} {times[BATCH]:.4f} ms "
+              f"({BATCH * ctas} CTAs), batch 1 {times[1]:.4f} ms ({ctas} CTAs); chain floor "
+              f"{floor:.4f} ms = {w + 2 * (h - 1)} steps x {step_us:.4f} us + {ctas - 1} "
+              f"hand-overs x {hand_ms * 1e3:.3f} us ({card})", flush=True)
+
+
 def lossless_phase(dev, card: str, keep: dict) -> dict:
     """The lossless decode path, counted, checked and timed; name -> kernel
     record."""
@@ -1542,6 +1599,7 @@ def lossless_phase(dev, card: str, keep: dict) -> dict:
               f"({card})", flush=True)
         if kname not in records:  # the photo's predictor, the full width
             records[kname] = {"ms": t, "plain_ms": t_plain, **b}
+    k12_phase(dev, card, steps, keep["handoff_ms"])
     u_ms = time_ms(lambda: K.color_indexing(px_u, table_u, 200, WIDTH), 20)
     u_plain = time_ms(lambda: K.color_indexing_plain(px_u, table_u, 200, WIDTH), 5)
     u_lib = time_ms(lambda: table_u[b_idx, idx_u], 20)

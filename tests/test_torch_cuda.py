@@ -482,11 +482,15 @@ def test_vp8l_pointwise_kernels_match_plain(cuda, kernel, param):
                          [(2, 8, 8, 14, 2), (2, 13, 29, 14, 2), (3, 17, 40, 14, 2),
                           (4, 31, 65, 14, 2), (2, 1, 7, 14, 2), (2, 5, 1, 14, 2),
                           (3, 20, 33, 16, 2), (9, 40, 70, 14, 2), (2, 1500, 5, 14, 1),
-                          (2, 300, 2100, 14, 1), (2, 512, 768, 14, 8)])
+                          (2, 300, 2100, 14, 1), (2, 512, 768, 14, 8), (2, 512, 768, 14, 1),
+                          (2, 5, 16384, 16, 1), (2, 4096, 1, 14, 1), (2, 4096, 4, 14, 2),
+                          (2, 512, 384, 14, 8)])
 def test_vp8l_predictor_kernel_matches_plain(cuda, size_bits, h, w, n_modes, batch):
-    """Modes 14 and 15 (n_modes 16) add zero; h = 1500 and w = 2100 (more
-    active rows than the block's 256 threads) stride the threads over rows;
-    768x512 at batch 8 is the main path's shape."""
+    """Modes 14 and 15 (n_modes 16) add zero; h = 1500 stacks 12 CTAs of 128
+    rows and w = 2100 and 16,384 turn the shared rings many times; w = 1
+    and 4 at h = 4096 make the chain almost all band hand-overs (32 CTAs an
+    image); 768x512 at batch 8 and 1 is the main path's shape, 384 wide its
+    packed palette width."""
     px = _bytes(5, batch, h, w, 4)
     modes = torch.from_numpy(np.random.RandomState(6).randint(
         0, n_modes, (batch, L.subsample(h, size_bits), L.subsample(w, size_bits))).astype(np.uint8))
@@ -496,6 +500,28 @@ def test_vp8l_predictor_kernel_matches_plain(cuda, size_bits, h, w, n_modes, bat
     torch.cuda.synchronize()
     assert _build.LAUNCHES["predictor"] == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+def test_vp8l_predictor_kernel_on_packed_palette_image(cuda):
+    """K12 on the entropy pass's own residuals of a 12-colour 96x80 image
+    coded as [palette, predictor 2]: the predictor runs on the packed width
+    (two indices a byte, 48 pixels), 1 CTA an image; and on the same image
+    at 200 rows (2 CTAs)."""
+    from webp_tpu_torch.decode import vp8l_device as ldev
+
+    for width, height in ((96, 80), (96, 200)):
+        src = quantize(with_alpha(synthetic_frame(width, height, 7), 7), 12, 7)
+        stream = vp8l_stream(src, 7, (PALETTE, predictor(2)))
+        results = ldev.entropy_batch([stream, stream], width, height)
+        sig = ldev.signature(results[0][1], results[0][0].shape[1])
+        params = ldev.stack_params(results, [0, 1], sig, height)
+        (ttype, size_bits, _), modes = sig[1], params[1]
+        assert ttype == 0 and results[0][0].shape[1] == width // 2
+        px = torch.from_numpy(np.stack([r[0] for r in results]))
+        want = L.inverse_predictor_plain_(px.clone(), torch.from_numpy(modes), size_bits)
+        got = L.inverse_predictor_(px.to(cuda), torch.from_numpy(modes).to(cuda), size_bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
 
 
 _LOSSLESS = {

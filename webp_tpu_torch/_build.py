@@ -120,6 +120,7 @@ _SIGNATURES = {
     "webp_vp8l_predictor": [
         _P, _P,              # pixels (in place), modes [B, bh, bw]
         _I, _I, _I, _I,      # size_bits, w, h, batch
+        _P, _P,              # edge-row scratch [B, bands, w], band progress and ticket (zeroed)
         _P,
     ],
     "webp_coeff_tokens": [
@@ -293,6 +294,8 @@ def load():
         lib.webp_enc_resident.restype = ctypes.c_int
         lib.webp_recon_filter_resident.argtypes = [_I, _I]
         lib.webp_recon_filter_resident.restype = ctypes.c_int
+        lib.webp_vp8l_predictor_resident.argtypes = []
+        lib.webp_vp8l_predictor_resident.restype = ctypes.c_int
         lib.webp_banded_max_clusters.argtypes = [_I, _I, _P]
         lib.webp_banded_max_clusters.restype = ctypes.c_int
         lib.webp_error_string.argtypes = [ctypes.c_int]

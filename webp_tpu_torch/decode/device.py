@@ -128,18 +128,14 @@ def narrow_levels(levels, nmb):
     return bitmap, vals, esc_pos, esc_val
 
 
-def parse_levels_batch(payloads):
-    """Run the C++ levels-mode entropy pass over a same-geometry batch.
-
-    Returns numpy arrays: i16buf [B, nmb*400 + 1600] (levels, then the
-    dequant table qtab [4 segments, 25 blocks, 16]), u8buf [B, nmb*24]
-    (per-MB fields, `u8_fields`), headers [B, 16], segs [B, 4, 8], and the
-    sparse form bitmap [B, nmb*50], vals [B, nmb, 256], esc_pos / esc_val
-    [B, 4096], qtab [B, 1600].  bitmap and vals are None when any image
-    overflows the sparse caps; the dense i16buf is then the upload.
-    """
+def _parse_levels(payloads):
+    """The levels-mode entropy pass over payloads of one frame size, each
+    image's frame header as it was coded (`parse_levels_batch`)."""
     B = len(payloads)
-    w, h = native.parse_dims(payloads[0])
+    dims = [native.parse_dims(p) for p in payloads]
+    if len(set(dims)) > 1:  # the buffers below are sized for image 0
+        raise ValueError(f"mixed frame sizes in decode batch: {sorted(set(dims))}")
+    w, h = dims[0]
     mbw, mbh = (w + 15) // 16, (h + 15) // 16
     nmb = mbw * mbh
 
@@ -188,18 +184,44 @@ def parse_levels_batch(payloads):
 
     with ThreadPoolExecutor(max_workers=max(1, min(B, os.cpu_count() or 1))) as pool:
         list(pool.map(one, range(B)))
-    sparse = bool(sparse_ok.all())
+    return dict(i16buf=i16buf, bitmap=bitmap, vals=vals, esc_pos=esc_pos, esc_val=esc_val,
+                u8buf=u8buf, headers=headers, segs=segs, sparse_ok=sparse_ok)
+
+
+def _finish(parsed, idxs=None):
+    """The batch of `parse_levels_batch` from `_parse_levels`'s arrays, of
+    the images `idxs` (all when None)."""
+    if idxs is not None:
+        parsed = {k: v[idxs] for k, v in parsed.items()}
+    geometry(parsed["headers"])
+    sparse = bool(parsed["sparse_ok"].all())
+    nmb = parsed["vals"].shape[1]
     return dict(
-        i16buf=i16buf,
-        bitmap=bitmap if sparse else None,
-        vals=vals if sparse else None,
-        esc_pos=esc_pos,
-        esc_val=esc_val,
-        qtab=i16buf[:, nmb * SLOTS :].copy(),
-        u8buf=u8buf,
-        headers=headers,
-        segs=segs,
+        i16buf=parsed["i16buf"],
+        bitmap=parsed["bitmap"] if sparse else None,
+        vals=parsed["vals"] if sparse else None,
+        esc_pos=parsed["esc_pos"],
+        esc_val=parsed["esc_val"],
+        qtab=parsed["i16buf"][:, nmb * SLOTS :].copy(),
+        u8buf=parsed["u8buf"],
+        headers=parsed["headers"],
+        segs=parsed["segs"],
     )
+
+
+def parse_levels_batch(payloads):
+    """Run the C++ levels-mode entropy pass over a batch of one frame: the
+    same width, height and loop filter type in every image (ValueError
+    otherwise, `geometry`).
+
+    Returns numpy arrays: i16buf [B, nmb*400 + 1600] (levels, then the
+    dequant table qtab [4 segments, 25 blocks, 16]), u8buf [B, nmb*24]
+    (per-MB fields, `u8_fields`), headers [B, 16], segs [B, 4, 8], and the
+    sparse form bitmap [B, nmb*50], vals [B, nmb, 256], esc_pos / esc_val
+    [B, 4096], qtab [B, 1600].  bitmap and vals are None when any image
+    overflows the sparse caps; the dense i16buf is then the upload.
+    """
+    return _finish(_parse_levels(payloads))
 
 
 def to_device_batch(batch, device):
@@ -218,9 +240,22 @@ def to_device_batch(batch, device):
     return out
 
 
+# Header fields that one batch shares: width, height, mbw, mbh and the loop
+# filter type (0 normal, 1 simple), the frame header's fields 0-4.
+FRAME_FIELDS = slice(0, 5)
+
+
 def geometry(headers):
-    """(mbw, mbh, simple, width, height) of a batch, from its first header."""
-    h0 = headers[0]
+    """(mbw, mbh, simple, width, height) of a batch whose headers [B, 16]
+    agree on them; ValueError when an image's differ from image 0's."""
+    h = np.asarray(headers)
+    mixed = (h[:, FRAME_FIELDS] != h[:1, FRAME_FIELDS]).any(axis=1)
+    if mixed.any():
+        b = int(np.flatnonzero(mixed)[0])
+        raise ValueError(f"decode batch mixes frames: image {b} has (width, height, mbw, mbh, "
+                         f"simple) {tuple(h[b, FRAME_FIELDS])}, image 0 "
+                         f"{tuple(h[0, FRAME_FIELDS])}")
+    h0 = h[0]
     return int(h0[2]), int(h0[3]), bool(h0[4]), int(h0[0]), int(h0[1])
 
 
@@ -284,16 +319,24 @@ def decode_vp8_batch_device(payloads, device="cuda", device_out: bool = False):
 
 
 def decode_vp8_batch_device_mixed(payloads, device="cuda", device_out: bool = False):
-    """Payloads of mixed geometries: one batched decode per (w, h) bucket,
-    results in input order."""
-    groups = {}
+    """Payloads of mixed frames: one batched decode per (width, height,
+    filter type), results in input order.  The filter type is coded in the
+    first partition, so each frame size is parsed once and its batch then
+    split by the parsed headers."""
+    by_dims = {}
     for i, p in enumerate(payloads):
-        groups.setdefault(native.parse_dims(p), []).append(i)
+        by_dims.setdefault(native.parse_dims(p), []).append(i)
     out = [None] * len(payloads)
-    for idxs in groups.values():
-        rgb = decode_vp8_batch_device([payloads[i] for i in idxs], device, device_out)
-        for j, i in enumerate(idxs):
-            out[i] = rgb[j]
+    for idxs in by_dims.values():
+        parsed = _parse_levels([payloads[i] for i in idxs])
+        by_filter = {}
+        for j, simple in enumerate(parsed["headers"][:, 4]):
+            by_filter.setdefault(int(simple), []).append(j)
+        for js in by_filter.values():
+            rgb = decode_core(to_device_batch(_finish(parsed, js), device), "rgb")
+            rgb = rgb if device_out else rgb.cpu().numpy()
+            for k, j in enumerate(js):
+                out[idxs[j]] = rgb[k]
     return out
 
 

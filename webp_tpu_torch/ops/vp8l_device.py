@@ -8,16 +8,26 @@ each `*_plain` function beside its wrapper is the kernel's torch twin.
 Pixels are uint8 [B, h, w, 4] in R, G, B, A byte order, contiguous.  K9,
 K10 and K12 work in place (the JAX functions return new arrays); K11
 returns a new, wider tensor.  A wrapper takes its twin for CPU tensors and
-launches its kernel for CUDA tensors.
+launches its kernel for CUDA tensors.  K12 has a second twin,
+`inverse_predictor_rows_plain_`, that walks the kernel's schedule of row
+bands and hand-overs.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build
 
 _MODE_ZERO = 14  # predictor modes 14 and 15 (and any larger) add zero
+
+# K12's schedule (csrc/vp8l.cu): a warp runs a band of BAND rows, one lane a
+# row; a CTA stacks WARPS bands; a band stages its tiles CHUNK steps at a
+# time, hands its bottom row on every SUB steps and trails the band above by
+# LAG sub-chunks; the shared edge rings hold EDGE_RING columns.
+BAND, WARPS, CHUNK, SUB, LAG, EDGE_RING = 32, 4, 32, 8, 8, 256
+SPAN = 2 * (BAND - 1)  # steps from a band's top lane to its bottom lane
 
 
 def subsample(size: int, bits: int) -> int:
@@ -201,12 +211,159 @@ def inverse_predictor_plain_(px: torch.Tensor, modes: torch.Tensor, size_bits: i
     return px
 
 
+def predictor_bands(h: int, warps: int = WARPS) -> int:
+    """K12's CTAs for an image of h rows: bands of warps * BAND rows."""
+    return -(-h // (warps * BAND))
+
+
+def inverse_predictor_rows_plain_(px: torch.Tensor, modes: torch.Tensor, size_bits: int,
+                                  seed: int = 0, lag: int = LAG, warps: int = WARPS,
+                                  resident: int | None = None) -> torch.Tensor:
+    """K12's schedule on the host, in place: the kernel's units (each CTA's
+    band warps, its inbound and its outbound warp) run sub-chunk by
+    sub-chunk in an order drawn from numpy RandomState(seed), each waiting
+    where the kernel waits.  A band's lanes step together (lane r at pixel
+    s - 2r) and take their neighbours where the kernel does: the left from
+    the lane's own history, the top-right, top and top-left from lane r - 1's
+    (`__shfl_up_sync`), lane 0's from the shared edge ring of the band above,
+    which for band 0 of a CTA the inbound warp fills from the global edge row
+    that the outbound warp of the CTA above publishes.  A band publishes its
+    bottom row's columns after every SUB steps; its sub-chunk at step sq
+    starts once the row above has SUB * (sq / SUB + lag + 1) - SPAN columns
+    (capped at w), and a writer stays a ring ahead of its reader at most.
+    CTAs start in ticket order, at most `resident` at once.  The rings start
+    zeroed, so a read ahead of the writer shows.  Equals
+    `inverse_predictor_plain_` for every seed at the kernel's lag."""
+    B, h, w = px.shape[:3]
+    dev = px.device
+    nb = predictor_bands(h, warps)
+    rng = np.random.RandomState(seed)
+    lane = torch.arange(BAND, device=dev)
+    bidx = torch.arange(B, device=dev)[:, None]
+    mode_map = modes.to(torch.int64)
+    gedge = torch.zeros((B, nb, w, 4), dtype=torch.int32, device=dev)
+    prog = [0] * nb
+
+    def shfl_up(t):  # lane r takes lane r - 1's value; lane 0 keeps its own
+        return torch.cat([t[:, :1], t[:, :-1]], 1)
+
+    def cta(j: int):
+        edge = torch.zeros((warps + 1, B, EDGE_RING, 4), dtype=torch.int32, device=dev)
+        made, used = [0] * (warps + 1), [0] * (warps + 1)
+
+        def band(k: int):
+            y0 = (j * warps + k) * BAND
+            if y0 >= h:
+                return
+            rows = min(BAND, h - y0)
+            y = y0 + lane
+            yc = y.clamp(max=h - 1)
+            live = lane < rows
+            feeds = y0 + BAND < h if k + 1 < warps else j + 1 < nb
+            n_chunks = -(-(w + 2 * (rows - 1)) // CHUNK)
+            h1 = h2 = h3 = first = torch.zeros((B, BAND, 4), dtype=torch.int32, device=dev)
+            te = tle = torch.zeros((B, 4), dtype=torch.int32, device=dev)
+            ev = torch.zeros((B, SUB, 4), dtype=torch.int32, device=dev)
+            for c in range(n_chunks):
+                s0 = CHUNK * c
+                if y0 > 0 and c > 0:
+                    used[k] = min(w, s0 + 1)
+                if feeds:
+                    hi = min(w, s0 + CHUNK - SPAN)
+                    yield lambda: hi <= used[k + 1] + EDGE_RING
+                for sq in range(s0, s0 + CHUNK, SUB):
+                    if y0 > 0:
+                        need = min(w, sq + SUB * (lag + 1) - SPAN)
+                        yield lambda: made[k] >= need
+                        if sq == 0:
+                            te = edge[k][:, 0].clone()
+                        ev = edge[k][:, (sq + 1 + torch.arange(SUB, device=dev)) % EDGE_RING]
+                    else:
+                        yield lambda: True
+                    for i in range(SUB):
+                        s = sq + i
+                        x = s - 2 * lane
+                        tr_e = ev[:, i]
+                        up_tr, up_t, up_tl = shfl_up(h1), shfl_up(h2), shfl_up(h3)
+                        top = (lane > 0)[None, :, None]
+                        T = torch.where(top, up_t, te[:, None])
+                        TL = torch.where(top, up_tl, tle[:, None])
+                        TR = torch.where((x + 1 < w)[None, :, None],
+                                         torch.where(top, up_tr, tr_e[:, None]), first)
+                        tle, te = te, tr_e
+                        xc = x.clamp(0, w - 1)
+                        res = px[bidx, yc[None], xc[None]].to(torch.int32)
+                        mode = mode_map[bidx, (yc >> size_bits)[None], (xc >> size_bits)[None]]
+                        mode = torch.where((y == 0)[None], torch.where((x == 0)[None], 0, 1),
+                                           torch.where((x == 0)[None], 2, mode))
+                        out = (res + predict(mode, h1, T, TL, TR)) & 0xFF
+                        ok = live & (x >= 0) & (x < w)
+                        px[bidx, yc[ok][None], xc[ok][None]] = out[:, ok].to(torch.uint8)
+                        if feeds and ok[BAND - 1]:
+                            edge[k + 1][:, int(x[BAND - 1]) % EDGE_RING] = out[:, BAND - 1]
+                        first = torch.where((x == 0)[None, :, None], out, first)
+                        h1, h2, h3 = out, h1, h2
+                    if feeds:
+                        made[k + 1] = max(0, min(w, sq + SUB - SPAN))
+
+        def inbound():
+            if j == 0:
+                return
+            done = 0
+            while done < w:
+                yield lambda: min(prog[j - 1], used[0] + EDGE_RING) > done
+                avail = min(prog[j - 1], used[0] + EDGE_RING)
+                cols = torch.arange(done, avail, device=dev)
+                edge[0][:, cols % EDGE_RING] = gedge[:, j - 1, cols]
+                made[0] = done = avail
+
+        def outbound():
+            if j + 1 >= nb:
+                return
+            done = 0
+            while done < w:
+                yield lambda: made[warps] > done
+                avail = made[warps]
+                cols = torch.arange(done, avail, device=dev)
+                gedge[:, j, cols] = edge[warps][:, cols % EDGE_RING]
+                used[warps] = prog[j] = done = avail
+
+        return [band(k) for k in range(warps)] + [inbound(), outbound()]
+
+    units = []  # [generator, its wait, its CTA]
+
+    def advance(u) -> bool:
+        try:
+            u[1] = next(u[0])
+            return True
+        except StopIteration:
+            return False
+
+    next_cta = 0
+    while next_cta < nb or units:
+        active = {u[2] for u in units}
+        options = [u for u in units if u[1]()]
+        can_start = next_cta < nb and (resident is None or len(active) < resident)
+        if not options and not can_start:
+            raise RuntimeError("K12's schedule waits on itself")
+        pick = rng.randint(len(options) + can_start)
+        if pick == len(options):
+            fresh = [[g, None, next_cta] for g in cta(next_cta)]
+            units += [u for u in fresh if advance(u)]
+            next_cta += 1
+        elif not advance(options[pick]):
+            units.remove(options[pick])
+    return px
+
+
 def inverse_predictor_(px: torch.Tensor, modes: torch.Tensor, size_bits: int) -> torch.Tensor:
     """Inverse predictor transform, in place: px holds the residuals, modes
     [B, bh, bw] uint8 the predictor image's green channel (2 <= size_bits
     <= 9).  Pixel (0, 0) adds opaque black, the rest of row 0 its left
     neighbour, the rest of column 0 its top; the last column's top-right is
-    the first pixel of its own row."""
+    the first pixel of its own row.  On a card the row-band kernel runs
+    B * predictor_bands(h) CTAs, with a global edge row and a progress
+    counter for each (and the ticket) as scratch."""
     B, h, w = _pixels(px)
     if not 2 <= size_bits <= 9:
         raise ValueError(f"size_bits {size_bits} outside 2..9")
@@ -216,6 +373,20 @@ def inverse_predictor_(px: torch.Tensor, modes: torch.Tensor, size_bits: int) ->
         if tuple(modes.shape) != shape:
             raise ValueError(f"predictor modes must be {shape}, got {tuple(modes.shape)}")
         return inverse_predictor_plain_(px, modes, size_bits)
+    nb = predictor_bands(h)
+    gedge = torch.empty(B * nb * w if nb > 1 else 1, dtype=torch.int32, device=dev)
+    prog = torch.zeros(B * nb + 1, dtype=torch.int32, device=dev)
     _build.launch("predictor", "webp_vp8l_predictor", dev, px.data_ptr(),
-                  _build.dense(modes, torch.uint8, shape), size_bits, w, h, B)
+                  _build.dense(modes, torch.uint8, shape), size_bits, w, h, B,
+                  gedge.data_ptr(), prog.data_ptr())
     return px
+
+
+def resident_ctas(device) -> int:
+    """K12 CTAs that `device` keeps resident at once (the occupancy API)."""
+    lib = _build.load()
+    with torch.cuda.device(device):
+        n = lib.webp_vp8l_predictor_resident()
+    if n < 0:
+        raise RuntimeError("webp_vp8l_predictor_resident: occupancy query failed")
+    return n

@@ -102,7 +102,8 @@ def make_decode_batch_sharded(mesh, mbw: int, mbh: int, simple: bool, width: int
     """Data-parallel batched decode: step(dev_batch, out="rgb") runs K1-K4
     (`decode_core`) on this rank's upload (`to_device_batch`) of its own
     payloads and returns its images (RGB [B, height, width, 3], or packed
-    planes with out="yuv")."""
+    planes with out="yuv").  It refuses (ValueError, `geometry`) a batch
+    whose images differ in frame, or whose frame is not the step's."""
     want = (mbw, mbh, bool(simple), width, height)
 
     def step(dev_batch, out: str = "rgb"):
