@@ -48,13 +48,18 @@ image) and unpack it on the host; in both phases the three kernels are held
 bit-exact to their plain twins on the card's pass-2 arrays and on seeded
 arrays that set each of the wire's flags (`tests/wire_inputs.py`;
 `fetch_packed` must return those arrays exactly through each branch), and
-the wire path is timed beside the dense fetch of the same arrays.  In the
-flagship phase K13 coeff_tokens and K14 mb_headers
-are held bit-exact to their plain twins on the card's own pass-2 arrays,
-K15 bool_lanes on adversarial carry streams (`tests/token_inputs.py`), and
-the host C++ coders (`vp8_token_encode`, `vp8_mbheader_encode`) are timed
-on the same arrays as the yardstick; both phases time the end to end with
-and without device tokens in alternating runs.
+the wire path is timed beside the dense fetch of the same arrays.  In both
+phases K13 coeff_tokens (three producer warps and a coder warp a lane) is
+held bit-exact to its plain twin on the card's own pass-2 arrays.  In the
+flagship phase K14 mb_headers is too, K15 bool_lanes on adversarial carry
+streams and on streams steered to carry through 0xFF runs and past a
+continued lane's first byte (`tests/token_inputs.py`), and the host C++
+coders (`vp8_token_encode`, `vp8_mbheader_encode`) are timed on the same
+arrays as the yardstick; K13 is timed at batch 8 and batch 1 beside its
+chain floor (the longest lane's ops times one coder step, timed on a
+one-warp chain of ops in shared memory, `webp_coder_chain`), with the CTAs
+the card keeps resident; both phases time the end to end with and
+without device tokens in alternating runs.
 
 Lossless (VP8L) decode.  Two distinct seeded synthetic frames with seeded
 alpha (`tests/synthetic_rgb.py`, `tests/random_vp8l.py`) are written by
@@ -170,6 +175,8 @@ WIRE_KERNELS = [
      "webp_tpu/ops/encode_wavefront2.py:1200 (+ :1178, :1149)"),
 ]
 WIRE_SEED = 31  # the overflow case's arrays (tests/wire_inputs.py)
+STEERED_SEED = 20  # tests/token_inputs.py steered_lanes: 6 streams that carry
+CHAIN_SEED, CHAIN_PASSES = 7, (4, 16)  # the coder-step chain: seeded ops, passes over the ring
 PARALLEL_KERNELS = [
     ("recon_banded", "webp_tpu_torch/csrc/banded.cu",
      "webp_tpu/parallel/pipeline.py:60 (+ :37 _band_shifts)"),
@@ -319,7 +326,8 @@ def enc_ops(n_mb: int, n_i4: int, n_try: int, trellis: bool) -> float:
 
 
 # Integer operations of one coder step (`csrc/boolenc.cuh` put: the split,
-# the update, ~1.5 doublings of 5 operations and a byte store every 8 bits),
+# the update, the closed-form renormalisation by a count of leading zeros,
+# and a byte store every 8 bits or so),
 # and of generating one op in K13 and K14 (the class or symbol, the table
 # lookups of its node and probability); K13 also scans each MB's 400 levels
 # once and its blocks' neighbours for the contexts.
@@ -377,6 +385,7 @@ def ptxas_report() -> list:
              "enc_kernelILb0E": "enc<no trellis>", "enc_kernelILb1E": "enc<trellis>",
              "analysis_kernel": "analysis", "coeff_tokens_kernel": "coeff_tokens",
              "mb_headers_kernel": "mb_headers", "bool_lanes_kernel": "bool_lanes",
+             "coder_chain_kernel": "coder_chain",
              "predictor_rows_kernel": "predictor"}
     if not _build.PTXAS_REPORT.exists():  # a library built before the report was kept
         return []
@@ -384,7 +393,7 @@ def ptxas_report() -> list:
     for line in _build.PTXAS_REPORT.read_text().splitlines():
         if "Compiling entry function" in line:
             name = next((v for k, v in names.items() if k in line), None)
-        elif name and ("spill" in line or "registers" in line):
+        elif name and ("spill" in line or "registers" in line or "smem" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
 
@@ -993,8 +1002,14 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
         tok = token_phase(dev, card, name, pass2, probs, sid, segs, mbw, mbh)
         for k, r in tok.items():
             records[k] = {"launches": token_launches[k], **r}
-    else:  # the payloads above checked what these kernels computed
+    else:  # K13 on this phase's arrays; the payloads above checked K14 and K15
         records.update({k: {"launches": n, "max_abs_err": 0} for k, n in token_launches.items()})
+        err, plain, _ = coeff_tokens_vs_twin(pass2, probs, mbw, mbh)
+        if err != 0:
+            raise AssertionError(f"coeff_tokens differs from its plain twin by {err}")
+        records["coeff_tokens"]["max_abs_err"] = err
+        print(f"[{name}] coeff_tokens vs plain twin on this phase's pass-2 arrays (bit-exact, "
+              f"tolerance 0): {err}; plain {plain:.4f} ms", flush=True)
     return records
 
 
@@ -1132,7 +1147,7 @@ def token_phase(dev, card: str, name: str, pass2, probs, sid, segs, mbw: int, mb
     import numpy as np
     import torch
 
-    from token_inputs import CARRY_PATTERNS
+    from token_inputs import CARRY_PATTERNS, steered_lanes
     from webp_tpu_torch.encode import device as edev
     from webp_tpu_torch.encode import vp8 as tvp8
     from webp_tpu_torch.encode.contexts import compute_contexts
@@ -1142,15 +1157,15 @@ def token_phase(dev, card: str, name: str, pass2, probs, sid, segs, mbw: int, mb
     nmb = mbw * mbh
     err, plain_ms, ms, bounds, ops = {}, {}, {}, {}, {}
     # K13 on pass 2's levels and the images' adapted probabilities.
-    tok_in = (pass2["luma_mode"], pass2["y2_levels"], pass2["y_levels"], pass2["uv_levels"],
-              probs.reshape(BATCH, -1))
-    lanes = token_ops.encode_coeff_partitions(*tok_in, mbw, mbh, PARTITIONS)
+    err["coeff_tokens"], plain_ms["coeff_tokens"], (tok_in, lanes) = coeff_tokens_vs_twin(
+        pass2, probs, mbw, mbh)
     width = lanes.data.shape[-1]
-    lanes_p, plain_ms["coeff_tokens"] = timed(
-        lambda: token_ops.encode_coeff_partitions_plain(*tok_in, mbw, mbh, PARTITIONS, width))
-    err["coeff_tokens"] = max(max_abs_err(a, b) for a, b in zip(lanes, lanes_p))
-    ms["coeff_tokens"] = time_ms(
-        lambda: token_ops._coeff_tokens_kernel(*tok_in, mbw, mbh, PARTITIONS, width), 10)
+    k13_ms = {}
+    for n in (BATCH, 1):
+        k13_in = [a[:n] for a in tok_in]
+        k13_ms[n] = time_ms(lambda: token_ops._coeff_tokens_kernel(*k13_in, mbw, mbh, PARTITIONS,
+                                                                   width), 10)
+    ms["coeff_tokens"] = k13_ms[BATCH]
     ops["coeff_tokens"] = lanes.n_ops
     bounds["coeff_tokens"] = bound(
         nbytes(*tok_in, lanes.fields()) + int(lanes.n_bytes.sum()),
@@ -1191,12 +1206,26 @@ def token_phase(dev, card: str, name: str, pass2, probs, sid, segs, mbw: int, mb
     ops["bool_lanes"] = k15.n_ops
     bounds["bool_lanes"] = bound(3 * steps * n_lanes + nbytes(k15.fields())
                                  + int(k15.n_bytes.sum()), int(k15.n_ops.sum()) * OPS_CODER_STEP)
+    # K15 on streams that carry, fresh and continued (a carry into `lead`).
+    steered = {}
+    for continued in (False, True):
+        *streams_s, state = steered_lanes(6, STEERED_SEED, continued)
+        dev_s = [torch.from_numpy(a).to(dev) for a in streams_s]
+        got = boolenc2.bool_encode_lanes(*dev_s, cap, state)
+        want = boolenc2.bool_encode_lanes_plain(*(torch.from_numpy(a) for a in streams_s), cap,
+                                                [torch.tensor(x) for x in state])
+        err["bool_lanes"] = max(err["bool_lanes"],
+                                max(max_abs_err(a.cpu(), b) for a, b in zip(got, want)))
+        steered[continued] = int(got.lead.sum())
     torch.cuda.synchronize()
     bad = {k: e for k, e in err.items() if e != 0}
     if bad:
         raise AssertionError(f"token kernels differ from their plain twins: {bad}")
     print(f"[{name}] token kernels vs plain twins (bit-exact, tolerance 0; K13 and K14 on the "
-          f"card's pass-2 arrays, K15 on {n_lanes} carry streams): {err}", flush=True)
+          f"card's pass-2 arrays, K15 on {n_lanes} carry streams and on 6 steered streams, fresh "
+          f"and continued, whose carries reach lead {steered[False]} / {steered[True]} times): "
+          f"{err}", flush=True)
+    k13_floor(dev, card, name, k13_ms, lanes)
 
     # The yardstick: the host C++ coders on the same arrays, one thread.
     host = edev.fetch(pass2)
@@ -1231,6 +1260,76 @@ def token_phase(dev, card: str, name: str, pass2, probs, sid, segs, mbw: int, mb
           f"vp8_mbheader_encode {host_hdr_ms:.4f} ms ({card})", flush=True)
     return {k: {"max_abs_err": err[k], "ms": ms[k], "plain_ms": plain_ms[k], **bounds[k],
                 "library_ms": None} for k, _, _ in TOKEN_KERNELS}
+
+
+def coeff_tokens_vs_twin(pass2, probs, mbw: int, mbh: int):
+    """K13 through its wrapper on pass 2's card arrays against the plain
+    twin on the same inputs: (max_abs_err over every Lanes field, the
+    twin's ms, (K13's inputs, K13's lanes))."""
+    from webp_tpu_torch.ops import token_ops
+
+    tok_in = (pass2["luma_mode"], pass2["y2_levels"], pass2["y_levels"], pass2["uv_levels"],
+              probs.reshape(BATCH, -1))
+    lanes = token_ops.encode_coeff_partitions(*tok_in, mbw, mbh, PARTITIONS)
+    width = lanes.data.shape[-1]
+    lanes_p, plain = timed(
+        lambda: token_ops.encode_coeff_partitions_plain(*tok_in, mbw, mbh, PARTITIONS, width))
+    return max(max_abs_err(a, b) for a, b in zip(lanes, lanes_p)), plain, (tok_in, lanes)
+
+
+def coder_step_ns(dev) -> float:
+    """One step of the coder of K13-K15, in ns: one warp codes CHAIN_PASSES
+    passes over K13's ring of seeded ops in shared memory
+    (`webp_coder_chain`); the longer chain's time less the shorter's over the
+    ops between them, so that the launch cancels."""
+    import numpy as np
+    import torch
+
+    from webp_tpu_torch import _build
+    from webp_tpu_torch.ops import boolenc2
+
+    lib = _build.load()
+    ring = lib.webp_coeff_tokens_ring()
+    rng = np.random.RandomState(CHAIN_SEED)
+    ops = torch.from_numpy((rng.randint(1, 256, ring) | rng.randint(0, 2, ring) << 8)
+                           .astype(np.int16)).to(dev)
+    cap = CHAIN_PASSES[-1] * ring  # ample: a byte takes several ops
+    data = torch.zeros(cap, dtype=torch.uint8, device=dev)
+    carries = torch.empty(boolenc2.carry_words(cap), dtype=torch.int32, device=dev)
+    info = torch.empty(6, dtype=torch.int64, device=dev)
+    times = []
+    for passes in CHAIN_PASSES:
+        def run():
+            rc = lib.webp_coder_chain(ops.data_ptr(), passes, cap, data.data_ptr(),
+                                      carries.data_ptr(), info.data_ptr(),
+                                      torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"webp_coder_chain launch failed: CUDA error {rc}")
+
+        times.append(time_ms(run, 10))
+        if int(info[5]) != passes * ring:
+            raise AssertionError(f"the coder chain coded {int(info[5])} ops, not {passes * ring}")
+    (p0, p1), (t0, t1) = CHAIN_PASSES, times
+    return (t1 - t0) / ((p1 - p0) * ring) * 1e6
+
+
+def k13_floor(dev, card: str, name: str, k13_ms: dict, lanes) -> None:
+    """K13 at batch 8 and 1 beside its chain floor: the longest lane's ops
+    times one coder step (`coder_step_ns`); ns an op of the longest lane,
+    and the CTAs the card keeps resident."""
+    from webp_tpu_torch import _build
+
+    step_ns = coder_step_ns(dev)
+    longest = int(lanes.n_ops.max())
+    longest_b1 = int(lanes.n_ops[0].max())
+    resident = _build.load().webp_coeff_tokens_resident()
+    print(f"[{name}] coeff_tokens: batch {BATCH} {k13_ms[BATCH]:.4f} ms ({lanes.n_ops.numel()} "
+          f"CTAs), batch 1 {k13_ms[1]:.4f} ms ({PARTITIONS} CTAs); coder step {step_ns:.3f} ns "
+          f"(one warp, ops in shared memory); chain floor {longest * step_ns / 1e6:.4f} ms = "
+          f"{longest} ops x the step (batch 1: {longest_b1 * step_ns / 1e6:.4f} ms); "
+          f"{k13_ms[BATCH] * 1e6 / longest:.1f} ns an op of the longest lane at batch {BATCH}, "
+          f"{k13_ms[1] * 1e6 / longest_b1:.1f} at batch 1; resident CTAs {resident} ({card})",
+          flush=True)
 
 
 # Integer operations a slot of K21 / K22 (`csrc/sparse.cu`): the load and

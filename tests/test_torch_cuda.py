@@ -54,7 +54,8 @@ from recon_inputs import random_inputs
 from sparse_inputs import flat_cases
 from random_vp8l import PALETTE, SUBTRACT_GREEN, color, predictor, quantize, vp8l_stream, with_alpha
 from synthetic_rgb import synthetic_frame
-from token_inputs import CARRY_PATTERNS, header_inputs, prefix_coders, token_arrays
+from token_inputs import (CARRY_PATTERNS, header_inputs, prefix_coders, steered_lanes,
+                          token_arrays)
 from torch_fixtures import encode_frame, force_escapes, mixed_payloads, scalar_decode
 from wire_inputs import wire_arrays
 
@@ -628,8 +629,10 @@ def test_mb_headers_kernel_matches_plain(cuda, write_segments):
 
 
 @pytest.mark.parametrize("init", ["fresh", "continued"])
-@pytest.mark.parametrize("case", ["carries", "random"])
+@pytest.mark.parametrize("case", ["carries", "random", "steered"])
 def test_bool_lanes_kernel_matches_plain(cuda, case, init):
+    """"steered": streams that carry through 0xFF runs and, continued, past
+    the lane's first byte (`token_inputs.carry_stream`)."""
     rng = np.random.RandomState(3)
     streams = CARRY_PATTERNS if case == "carries" else [
         (rng.randint(0, 2, n), rng.randint(1, 256, n)) for n in rng.randint(1, 4000, 9)]
@@ -641,6 +644,9 @@ def test_bool_lanes_kernel_matches_plain(cuda, case, init):
     if init == "continued":
         state = [torch.tensor([getattr(e, k) for e in prefix_coders(n_lanes, 5)])
                  for k in ("bottom", "range", "bit_num")]
+    if case == "steered":
+        bits, probs, valid, st = steered_lanes(6, 20, init == "continued")
+        state = [torch.tensor(x) for x in st]
     host = [torch.from_numpy(a) for a in (bits, probs, valid)]
     want = boolenc2.bool_encode_lanes(*host, 4096, state)
     before = _build.LAUNCHES["bool_lanes"]
@@ -648,6 +654,80 @@ def test_bool_lanes_kernel_matches_plain(cuda, case, init):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["bool_lanes"] == before + 1
     _same_lanes(got, want)
+
+
+def _dense_levels(mbw: int, mbh: int, seed: int):
+    """Every level at +-2048 (chroma +-2047), luma modes alternating B and
+    whole-MB: the most ops an MB can take, about 7.3K."""
+    rng = np.random.RandomState(seed)
+    nmb = mbw * mbh
+    lm = np.where(np.arange(nmb) % 2 == 0, 0, 4)[None].astype(np.uint8)
+    y2 = (2048 * rng.choice([-1, 1], (1, nmb, 16))).astype(np.int16)
+    y2[lm == 4] = 0
+    y = (2048 * rng.choice([-1, 1], (1, nmb, 16, 16))).astype(np.int16)
+    uv = (2047 * rng.choice([-1, 1], (1, nmb, 8, 16))).astype(np.int16)
+    probs = rng.randint(1, 256, (1, 1056)).astype(np.uint8)
+    return [torch.from_numpy(a) for a in (lm, y2, y, uv, probs)]
+
+
+@pytest.mark.parametrize("case", ["48x32_b1", "48x32_b8", "fewer_rows_than_parts", "dense",
+                                  "all_skipped"])
+def test_coeff_tokens_ring_kernel_matches_plain(cuda, case):
+    """K13's producer warps and coder warp at the flagship's geometry (48x32
+    MBs, 8 partitions, batch 1 and 8), at mbh < P (empty lanes), on MBs
+    with every level at +-2048 (more ops than K13's ring; the default
+    capacity overflows, so the wrapper launches twice), and on an image
+    with no nonzero level."""
+    launches, capacity = 1, None
+    if case.startswith("48x32"):  # denser than an encode's levels: an ample capacity
+        B = int(case[-1])
+        mbw, mbh, nparts = 48, 32, 8
+        inputs = _coeff_inputs(B, mbw, mbh, 48 + B)
+        capacity = 1 << 16
+    elif case == "fewer_rows_than_parts":
+        mbw, mbh, nparts = 5, 3, 8
+        inputs = _coeff_inputs(2, mbw, mbh, 11)
+    else:
+        mbw, mbh, nparts = 2, 2, 1
+        inputs = _dense_levels(mbw, mbh, 12)
+        launches = 2
+        if case == "all_skipped":
+            inputs = [torch.zeros_like(a) for a in inputs[:4]] + inputs[4:]
+            launches = 1
+    want = token_ops.encode_coeff_partitions(*inputs, mbw, mbh, nparts, capacity)
+    before = _build.LAUNCHES["coeff_tokens"]
+    got = token_ops.encode_coeff_partitions(*(a.to(cuda) for a in inputs), mbw, mbh, nparts,
+                                            capacity)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["coeff_tokens"] == before + launches
+    _same_lanes(got, want)
+    if case == "dense":
+        assert int(want.n_ops.max()) > token_ops.RING
+    if case == "all_skipped":
+        assert int(want.n_ops.sum()) == 0
+
+
+def test_coder_chain_matches_plain(cuda):
+    """`webp_coder_chain`, the coder step's latency probe, codes two passes
+    over its ring of seeded ops as the scalar twin does."""
+    rng = np.random.RandomState(8)
+    ops = (rng.randint(1, 256, token_ops.RING) | rng.randint(0, 2, token_ops.RING) << 8)
+    lib = _build.load()
+    assert lib.webp_coeff_tokens_ring() == token_ops.RING
+    cap = 1 << 14
+    data = torch.zeros(cap, dtype=torch.uint8, device=cuda)
+    carries = torch.empty(boolenc2.carry_words(cap), dtype=torch.int32, device=cuda)
+    info = torch.empty(6, dtype=torch.int64, device=cuda)
+    dev_ops = torch.from_numpy(ops.astype(np.int16)).to(cuda)
+    rc = lib.webp_coder_chain(dev_ops.data_ptr(), 2, cap, data.data_ptr(), carries.data_ptr(),
+                              info.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    both = np.concatenate([ops, ops])
+    want = boolenc2.lane_coder_plain(torch.from_numpy(both >> 8)[:, None],
+                                     torch.from_numpy(both & 0xFF)[:, None],
+                                     torch.ones((len(both), 1), dtype=torch.int64), cap)
+    _same_lanes(boolenc2.Lanes.from_fields(info[None], data[None]), want)
 
 
 def test_token_kernels_relaunch_on_overflow(cuda):

@@ -128,7 +128,12 @@ _SIGNATURES = {
         _P, _P, _P,          # y2, y, uv levels
         _P, _P, _I,          # probs [B, 1056], constant tables and their count
         _I, _I, _I, _I, _I,  # mbw, mbh, batch, partitions, byte capacity
-        _P, _P,              # bytes [B, P, cap], fields [B, P, 6] out
+        _P, _P, _P,          # bytes [B, P, cap], carry-mask scratch, fields [B, P, 6] out
+        _P,
+    ],
+    "webp_coder_chain": [
+        _P, _I, _I,          # ops uint16 [ring], passes over them, byte capacity
+        _P, _P, _P,          # bytes [cap], carry-mask scratch, fields [6] out
         _P,
     ],
     "webp_mb_headers": [
@@ -136,7 +141,7 @@ _SIGNATURES = {
         _P, _L, _P, _L,      # segment ids, skipped (+ batch strides)
         _P, _P, _I,          # per-image parameters [B, 8], constant tables and their count
         _I, _I, _I, _I,      # mbw, mbh, batch, byte capacity
-        _P, _P,              # bytes [B, cap], fields [B, 6] out
+        _P, _P, _P,          # bytes [B, cap], carry-mask scratch, fields [B, 6] out
         _P,
     ],
     "webp_recon_banded": [
@@ -155,7 +160,7 @@ _SIGNATURES = {
     "webp_bool_lanes": [
         _P, _P, _P, _I, _I,  # bits, probs, valid [T, L]; T, L
         _P, _I,              # initial states [L, 3], byte capacity
-        _P, _P,              # bytes [L, cap], fields [L, 6] out
+        _P, _P, _P,          # bytes [L, cap], carry-mask scratch, fields [L, 6] out
         _P,
     ],
     "webp_prepack": [
@@ -294,6 +299,10 @@ def load():
         lib.webp_enc_resident.restype = ctypes.c_int
         lib.webp_recon_filter_resident.argtypes = [_I, _I]
         lib.webp_recon_filter_resident.restype = ctypes.c_int
+        lib.webp_coeff_tokens_resident.argtypes = []
+        lib.webp_coeff_tokens_resident.restype = ctypes.c_int
+        lib.webp_coeff_tokens_ring.argtypes = []
+        lib.webp_coeff_tokens_ring.restype = ctypes.c_int
         lib.webp_vp8l_predictor_resident.argtypes = []
         lib.webp_vp8l_predictor_resident.restype = ctypes.c_int
         lib.webp_banded_max_clusters.argtypes = [_I, _I, _P]

@@ -1,4 +1,4 @@
-"""Kernel K15: the VP8 boolean coder over many lanes, and its plain twin.
+"""Kernel K15: the VP8 boolean coder over many lanes, and its plain twins.
 
 Replaces `webp_tpu/ops/boolenc2.py:89` `bool_encode_lanes` (with `_apply_op`
 :34).  Per lane, an op stream of (bit, prob, valid) steps is coded by the
@@ -10,18 +10,23 @@ carry-resolved bytes and their count `n_bytes`; the final (bottom, range,
 bit_num) registers; and `n_ops`, the valid steps.
 
 The coder itself is the `__device__` one of `csrc/boolenc.cuh`, which K13
-(coefficient partitions) and K14 (MB headers) run on ops they generate on
-the fly; K15 (`csrc/tokens.cu`) runs it alone on given streams, one thread
-per lane.  A lane whose output exceeds `max_bytes` keeps counting
-`n_bytes` and stops writing; its bytes are then not valid.
+(coefficient partitions) and K14 (MB headers) run on ops they generate;
+K15 (`csrc/tokens.cu`) runs it alone on given streams, one thread per
+lane.  A lane whose output exceeds `max_bytes` keeps counting `n_bytes`
+and stops writing; its bytes are then not valid.
 
-The plain twin follows the JAX form: one vectorised step per op over all
-lanes, whose outputs are a possibly emitted byte and a count of carries
-(no feedback into the bytes), then the carries resolved as base-256
-addition by carry lookahead.  A step's renormalisation is written in
-closed form: `s` doublings (range back to >= 128), at most one emitted
-byte when the bit counter reaches 0, and the carries are the bits that
-leave bottom's top before that byte.
+Two plain twins.  `bool_encode_lanes_plain` follows the JAX form: one
+vectorised step per op over all lanes, whose outputs are a possibly
+emitted byte and a count of carries (no feedback into the bytes), then the
+carries resolved as base-256 addition by carry lookahead.  A step's
+renormalisation is written in closed form: `s` doublings (range back to
+>= 128), at most one emitted byte when the bit counter reaches 0, and the
+carries are the bits that leave bottom's top before that byte.
+`lane_coder_plain` is the device step itself, one lane at a time in
+Python integers: the same closed form with s = clz(range) - 24, each byte
+stored as it leaves, a carry marked at the byte it precedes, and the marks
+applied after the lane's last op (latest first, to show that their order
+does not matter), as `resolve_carries` does on the card.
 """
 
 from __future__ import annotations
@@ -61,6 +66,12 @@ class Lanes(NamedTuple):
 
 
 INIT_STATE = (0, 255, 24)  # a fresh coder's (bottom, range, bit_num)
+
+
+def carry_words(cap: int) -> int:
+    """int32 words of a lane's carry mask at byte capacity `cap`
+    (`csrc/boolenc.cuh` carry_words)."""
+    return (cap >> 5) + 1
 
 
 def _apply_op(state, bit, prob, ok, norm, popcount):
@@ -140,6 +151,71 @@ def bool_encode_lanes_plain(bits, probs, valid, max_bytes: int, init_state=None)
     return Lanes(lead, data, n_bytes, *state, valid.sum(0))
 
 
+class LaneCoderPlain:
+    """One lane of `csrc/boolenc.cuh`'s coder in Python integers."""
+
+    def __init__(self, state, cap: int):
+        self.bottom, self.range, self.bit_num = (int(x) for x in state)
+        self.cap, self.n, self.ops = cap, 0, 0
+        self.out = bytearray(cap)
+        self.marks = []  # q: a carry into bytes [0, q)
+
+    def put(self, bit: int, prob: int) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        b2 = (self.bottom + split) & 0xFFFFFFFF if bit else self.bottom
+        r2 = self.range - split if bit else split
+        s = 8 - r2.bit_length()  # clz(r2) - 24 for r2 in 1..255
+        self.range = r2 << s
+        emit = self.bit_num <= s
+        j = self.bit_num if emit else s
+        t = (b2 << j) & 0xFFFFFFFF
+        if emit:
+            if self.n < self.cap:
+                self.out[self.n] = t >> 24
+            if b2 >> (32 - j) and self.n <= self.cap:
+                self.marks.append(self.n)
+            self.n += 1
+        self.bottom = ((t & 0xFFFFFF) if emit else t) << (s - j)
+        self.bit_num = self.bit_num + 8 - s if emit else self.bit_num - s
+        self.ops += 1
+
+    def finish(self):
+        """(lead, bytes, n_bytes, bottom, range, bit_num, n_ops) after the
+        carry marks are applied."""
+        lead = 0
+        for q in reversed(self.marks):
+            i = q - 1
+            while i >= 0 and self.out[i] == 0xFF:
+                self.out[i] = 0
+                i -= 1
+            if i >= 0:
+                self.out[i] += 1
+            else:
+                lead += 1
+        return lead, bytes(self.out), self.n, self.bottom, self.range, self.bit_num, self.ops
+
+
+def lane_coder_plain(bits, probs, valid, max_bytes: int, init_state=None) -> Lanes:
+    """The device coder's step as a scalar twin (CPU): streams [T, L] as
+    `bool_encode_lanes_plain` takes them, coded lane by lane."""
+    T, L = bits.shape
+    state = [torch.as_tensor(x).to(torch.int64).expand(L).tolist()
+             for x in (INIT_STATE if init_state is None else init_state)]
+    cols = [t.to(torch.int64).T.tolist() for t in (bits, probs, valid)]
+    fields, data = [], torch.zeros((L, max_bytes), dtype=torch.uint8)
+    for lane in range(L):
+        c = LaneCoderPlain([x[lane] for x in state], max_bytes)
+        for bit, prob, ok in zip(cols[0][lane], cols[1][lane], cols[2][lane]):
+            if ok:
+                c.put(bit, prob)
+        lead, out, *rest = c.finish()
+        fields.append([lead, *rest])
+        if max_bytes:
+            data[lane] = torch.frombuffer(bytearray(out), dtype=torch.uint8)
+    info = torch.tensor(fields, dtype=torch.int64).reshape(L, 6)
+    return Lanes.from_fields(info, data)
+
+
 def bool_encode_lanes(bits, probs, valid, max_bytes: int, init_state=None) -> Lanes:
     """Code per-lane op streams bits/probs/valid [T, L] (uint8 or wider;
     valid == 0 steps are no-ops) into at most `max_bytes` bytes a lane:
@@ -159,8 +235,9 @@ def _bool_lanes_kernel(bits, probs, valid, max_bytes: int, init_state) -> Lanes:
     streams = [t.to(torch.uint8).contiguous() for t in (bits, probs, valid != 0)]
     info = torch.empty((L, 6), dtype=torch.int64, device=dev)
     data = torch.zeros((L, max_bytes), dtype=torch.uint8, device=dev)
+    carries = torch.empty((L, carry_words(max_bytes)), dtype=torch.int32, device=dev)
     _build.launch("bool_lanes", "webp_bool_lanes", dev,
                   *(_build.dense(t, torch.uint8, (T, L)) for t in streams), T, L,
                   _build.dense(state, torch.int64, (L, 3)), max_bytes, data.data_ptr(),
-                  info.data_ptr())
+                  carries.data_ptr(), info.data_ptr())
     return Lanes.from_fields(info, data)

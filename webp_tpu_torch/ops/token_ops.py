@@ -17,11 +17,16 @@ with its MB headers: the segment id (when the frame writes the map), the
 skip flag, the luma mode, the 16 B modes under their top and left mode
 contexts, and the chroma mode.
 
-The kernels (`csrc/tokens.cu`) generate each op where it is coded; the
-plain twins follow the JAX form: `block_ops` and `header_ops` lay out every
-possible op slot with a valid mask, the valid ops of each lane are
-compacted, and `ops/boolenc2.bool_encode_lanes_plain` codes all lanes at
-once.  The wrappers take a byte capacity per lane (the JAX package's
+In K13 (`csrc/tokens.cu`) three producer warps generate a lane's ops, one
+block a warp lane, into a shared ring that one coder warp reads; K14
+generates each op where it is coded.  The plain twins follow the JAX
+form: `block_ops` and `header_ops` lay out every possible op slot with a
+valid mask, the valid ops of each lane are compacted, and
+`ops/boolenc2.bool_encode_lanes_plain` codes all lanes at once.  The
+schedule twin `encode_coeff_partitions_ring_plain` walks K13's order
+instead: its producers and its coder run as generators in seeded orders,
+meet only through the ring and its counters, and code with the device
+step (`ops/boolenc2.LaneCoderPlain`).  The wrappers take a byte capacity per lane (the JAX package's
 budgets by default); a lane over it makes the wrapper run once more with
 the capacity set to the largest count reported, and a second overflow
 raises.  The JAX package falls back to its host coders there; the port
@@ -36,7 +41,7 @@ import torch
 from .. import _build
 from ..common import vp8_tables as T
 from ..encode.boolenc import tree_paths
-from .boolenc2 import Lanes, bool_encode_lanes_plain
+from .boolenc2 import INIT_STATE, Lanes, LaneCoderPlain, bool_encode_lanes_plain, carry_words
 from .token_stats import compute_contexts
 
 # ---- static tables --------------------------------------------------------
@@ -276,6 +281,7 @@ def _coeff_tokens_kernel(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw, 
     B, nmb = luma_mode.shape
     info = torch.empty((B, nparts, 6), dtype=torch.int64, device=dev)
     data = torch.zeros((B, nparts, cap), dtype=torch.uint8, device=dev)
+    carries = torch.empty((B, nparts, carry_words(cap)), dtype=torch.int32, device=dev)
     consts = _build.device_constant("token_consts", TOKEN_CONSTS_NP, dev)
     _build.launch(
         "coeff_tokens", "webp_coeff_tokens", dev,
@@ -285,8 +291,197 @@ def _coeff_tokens_kernel(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw, 
         _build.dense(uv_levels, torch.int16, (B, nmb, 8, 16)),
         _build.dense(probs.reshape(B, -1), torch.uint8, (B, 1056)),
         _build.dense(consts, torch.int32, (consts.numel(),)), consts.numel(),
-        mbw, mbh, B, nparts, cap, data.data_ptr(), info.data_ptr(),
+        mbw, mbh, B, nparts, cap, data.data_ptr(), carries.data_ptr(), info.data_ptr(),
     )
+    return Lanes.from_fields(info, data)
+
+
+# ---- K13's schedule -------------------------------------------------------
+
+RING = 8192       # ops in K13's shared ring (`csrc/tokens.cu` kRing)
+PRODUCERS = 3     # K13's producer warps (kProducers)
+PUBLISH = 256     # the coder publishes its progress every this many ops (kPublish)
+_POISON = 0x1FF   # an unwritten ring slot: bit 1 at probability 255
+
+
+def _block_ops_scalar(lv, first: int, end: int, ctx: int, pp) -> list:
+    """One block's ops as K13's producer lane writes them (`block_ops` of
+    `csrc/tokens.cu`): prob | bit << 8, in stream order."""
+    lv = [int(x) for x in lv]
+    ops, ci, s2, lastv = [], ctx, 0, 0
+    for n in range(first, end):
+        level = lv[n]
+        v = abs(level)
+        cls = v + 1 if v <= 4 else 6 + (v >= 7) + (v >= 11) + (v >= 19) + (v >= 35) + (v >= 67)
+        p = pp[(_BANDS[n] * 3 + ci) * 11:]
+        for k in range(_TP_LEN[s2, cls]):
+            ops.append(int(p[_TP_NODE[s2, cls, k]]) | int(_TP_BIT[s2, cls, k]) << 8)
+        nb = int(_CAT_NBITS[cls])
+        extra = v - int(_CAT_BASE[cls])
+        for k in range(nb):
+            ops.append(int(_CAT_PROBS[cls, k]) | ((extra >> (nb - 1 - k)) & 1) << 8)
+        if cls != 1:
+            ops.append(128 | (level < 0) << 8)
+        s2, ci, lastv = int(v == 0), min(v, 2), v
+    if end < 16:
+        pos = min(max(first, end), 15)
+        eob_ctx = (1 if lastv == 1 else 2) if end > first else ctx
+        p = pp[(_BANDS[pos] * 3 + eob_ctx) * 11:]
+        for k in range(_TP_LEN[0, 0]):
+            ops.append(int(p[_TP_NODE[0, 0, k]]) | int(_TP_BIT[0, 0, k]) << 8)
+    return ops
+
+
+def _mb_block_ops(lm, y2, y, uv, pf, m: int, mx: int, my: int, mbw: int) -> list:
+    """The 25 blocks' op lists of MB m as K13's producer warp makes them
+    (lane 0 Y2, 1-16 Y, 17-24 UV): empty when the MB is skipped; the
+    contexts from the blocks in the MB, the neighbour MBs' levels across
+    its top and left edges, and the Y2 context's walk to the nearest MB
+    above and to the left that has a Y2 block."""
+    blocks = [y2[m]] + [y[m, s] for s in range(16)] + [uv[m, s] for s in range(8)]
+    if not any(b.any() for b in blocks):
+        return [[] for _ in blocks]
+    has_y2 = lm[m] != 4
+    first = [0] + [int(has_y2)] * 16 + [0] * 8
+
+    def y_nz(n, s):
+        return int(y[n, s, (1 if lm[n] != 4 else 0):].any())
+
+    def uv_nz(n, s):
+        return int(uv[n, s].any())
+
+    def y2_walk(step, count):
+        for k in range(1, count + 1):
+            if lm[m - k * step] != 4:
+                return int(y2[m - k * step].any())
+        return 0
+
+    out = [[] for _ in blocks]
+    if has_y2:
+        out[0] = _block_ops_scalar(blocks[0], 0, _end(blocks[0]), y2_walk(mbw, my) + y2_walk(1, mx),
+                                   pf[264:])
+    nz = [int(blocks[i][first[i]:].any()) for i in range(25)]
+    for s in range(16):
+        sy, sx = s >> 2, s & 3
+        up = nz[1 + s - 4] if sy > 0 else (y_nz(m - mbw, 12 + sx) if my > 0 else 0)
+        left = nz[s] if sx > 0 else (y_nz(m - 1, 4 * sy + 3) if mx > 0 else 0)
+        out[1 + s] = _block_ops_scalar(blocks[1 + s], first[1 + s], _end(blocks[1 + s]), up + left,
+                                       pf[(0 if has_y2 else 3) * 264:])
+    for s in range(8):
+        ch, q = s >> 2, s & 3
+        qy, qx = q >> 1, q & 1
+        up = nz[17 + s - 2] if qy > 0 else (uv_nz(m - mbw, ch * 4 + 2 + qx) if my > 0 else 0)
+        left = nz[17 + s - 1] if qx > 0 else (uv_nz(m - 1, ch * 4 + 2 * qy + 1) if mx > 0 else 0)
+        out[17 + s] = _block_ops_scalar(blocks[17 + s], 0, _end(blocks[17 + s]), up + left,
+                                        pf[2 * 264:])
+    return out
+
+
+def _end(block) -> int:
+    nz = np.flatnonzero(block)
+    return int(nz[-1]) + 1 if len(nz) else 0
+
+
+def _ring_lane(lm, y2, y, uv, pf, p: int, nparts: int, mbw: int, mbh: int, cap: int, rng,
+               ring: int, slots: int, wait: bool):
+    """One (image, partition) lane through K13's schedule: the fields and
+    bytes of `LaneCoderPlain.finish`.  `slots` is the ring's real size
+    (`ring` unless a test shrinks it); with wait=False the coder reads the
+    ring without waiting for `avail`."""
+    rows = (mbh - 1 - p) // nparts + 1 if p < mbh else 0
+    n_mb = rows * mbw
+    buf = [_POISON] * slots
+    st = {"counted": 0, "next": 0, "avail": 0, "consumed": 0}
+    coder = LaneCoderPlain(INIT_STATE, cap)
+    total = [None]  # the stream's length, for a coder that does not wait
+
+    def producer(w: int):
+        for k in range(w, n_mb, PRODUCERS):
+            mx, my = k % mbw, p + (k // mbw) * nparts
+            blocks = _mb_block_ops(lm, y2, y, uv, pf, my * mbw + mx, mx, my, mbw)
+            counts = [len(b) for b in blocks]
+            offsets = np.concatenate([[0], np.cumsum(counts)])  # the warp scan
+            yield lambda k=k: st["counted"] == k
+            start = st["next"]
+            st["next"] = start + int(offsets[-1])
+            st["counted"] = k + 1
+            for rs in range(start, st["next"], ring):  # rounds of at most a ring
+                re = min(start + int(offsets[-1]), rs + ring)
+                yield lambda re=re: st["consumed"] >= re - ring
+                for ops, off in zip(blocks, offsets):
+                    for i, op in enumerate(ops):
+                        if rs <= start + off + i < re:
+                            buf[(start + off + i) % slots] = op
+                    yield lambda: True
+                yield lambda rs=rs: st["avail"] == rs
+                st["avail"] = re
+
+    def consumer():
+        pos = 0
+        while True:
+            if wait:
+                yield lambda: (st["avail"] > pos
+                               or (st["counted"] == n_mb and st["next"] == pos))
+                if st["avail"] == pos:
+                    return
+                lim = st["avail"]
+            else:
+                yield lambda: True
+                if pos == total[0]:
+                    return
+                lim = min(total[0], pos + 8)
+            while pos < lim:
+                for q in range(pos, min(lim, (pos // 8 + 1) * 8)):  # one 8-op vector
+                    op = buf[q % slots]
+                    coder.put(op >> 8, op & 0xFF)
+                pos = min(lim, (pos // 8 + 1) * 8)
+                if pos % PUBLISH == 0:
+                    st["consumed"] = pos
+                yield lambda: True
+            st["consumed"] = pos
+
+    if not wait:  # the count a coder that does not wait codes up to
+        total[0] = sum(len(o) for k in range(n_mb) for o in _mb_block_ops(
+            lm, y2, y, uv, pf, (p + (k // mbw) * nparts) * mbw + k % mbw, k % mbw,
+            p + (k // mbw) * nparts, mbw))
+    units = [producer(w) for w in range(PRODUCERS)] + [consumer()]
+    ready = [next(u, None) for u in units]
+    while any(r is not None for r in ready):
+        live = [i for i, r in enumerate(ready) if r is not None and r()]
+        if not live:
+            raise RuntimeError("K13's schedule deadlocked")
+        i = live[rng.randint(len(live))]
+        ready[i] = next(units[i], None)
+    return coder.finish()
+
+
+
+def encode_coeff_partitions_ring_plain(luma_mode, y2_levels, y_levels, uv_levels, probs,
+                                       mbw: int, mbh: int, nparts: int, max_bytes: int,
+                                       seed: int = 0, ring: int = RING, slots: int = None,
+                                       wait: bool = True) -> Lanes:
+    """K13's schedule on the host (CPU tensors): each lane's producers and
+    coder run as generators in an order drawn from numpy RandomState(seed),
+    each waiting where the kernel waits; the coder reads its ops only from
+    the ring, whose unwritten slots hold a poison op.  Equals
+    `encode_coeff_partitions_plain` for every seed; a ring of `slots` <
+    `ring` (the producers' rule one short), or a coder that does not wait,
+    breaks it."""
+    B, nmb = luma_mode.shape
+    rng = np.random.RandomState(seed)
+    lm = luma_mode.numpy().astype(np.int64)
+    levels = [t.numpy().astype(np.int64) for t in (y2_levels, y_levels, uv_levels)]
+    pf = probs.reshape(B, -1).numpy().astype(np.int64)
+    fields, data = [], torch.zeros((B, nparts, max_bytes), dtype=torch.uint8)
+    for b in range(B):
+        for p in range(nparts):
+            lead, out, *rest = _ring_lane(lm[b], *(a[b] for a in levels), pf[b], p, nparts, mbw,
+                                          mbh, max_bytes, rng, ring,
+                                          ring if slots is None else slots, wait)
+            fields.append([lead, *rest])
+            if max_bytes:
+                data[b, p] = torch.frombuffer(bytearray(out), dtype=torch.uint8)
+    info = torch.tensor(fields, dtype=torch.int64).reshape(B, nparts, 6)
     return Lanes.from_fields(info, data)
 
 
@@ -401,6 +596,7 @@ def _mb_headers_kernel(luma_mode, bpred, chroma_mode, segment_ids, skipped, para
     B, nmb = luma_mode.shape
     info = torch.empty((B, 6), dtype=torch.int64, device=dev)
     data = torch.zeros((B, cap), dtype=torch.uint8, device=dev)
+    carries = torch.empty((B, carry_words(cap)), dtype=torch.int32, device=dev)
     consts = _build.device_constant("header_consts", HEADER_CONSTS_NP, dev)
     _build.launch(
         "mb_headers", "webp_mb_headers", dev,
@@ -409,6 +605,6 @@ def _mb_headers_kernel(luma_mode, bpred, chroma_mode, segment_ids, skipped, para
         *_build.mb_field(skipped, B, nmb),
         _build.dense(params, torch.int64, (B, 8)),
         _build.dense(consts, torch.int32, (consts.numel(),)), consts.numel(),
-        mbw, mbh, B, cap, data.data_ptr(), info.data_ptr(),
+        mbw, mbh, B, cap, data.data_ptr(), carries.data_ptr(), info.data_ptr(),
     )
     return Lanes.from_fields(info, data)
