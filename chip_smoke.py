@@ -49,17 +49,21 @@ bit-exact to their plain twins on the card's pass-2 arrays and on seeded
 arrays that set each of the wire's flags (`tests/wire_inputs.py`;
 `fetch_packed` must return those arrays exactly through each branch), and
 the wire path is timed beside the dense fetch of the same arrays.  In both
-phases K13 coeff_tokens (three producer warps and a coder warp a lane) is
-held bit-exact to its plain twin on the card's own pass-2 arrays.  In the
-flagship phase K14 mb_headers is too, K15 bool_lanes on adversarial carry
-streams and on streams steered to carry through 0xFF runs and past a
-continued lane's first byte (`tests/token_inputs.py`), and the host C++
-coders (`vp8_token_encode`, `vp8_mbheader_encode`) are timed on the same
-arrays as the yardstick; K13 is timed at batch 8 and batch 1 beside its
-chain floor (the longest lane's ops times one coder step, timed on a
-one-warp chain of ops in shared memory, `webp_coder_chain`), with the CTAs
-the card keeps resident; both phases time the end to end with and
-without device tokens in alternating runs.
+phases K13 coeff_tokens (three producer warps and a coder warp a lane) and
+K14 mb_headers (a CTA an image counts, scans and writes the header ops,
+then one warp codes them) are held bit-exact to their plain twins on the
+card's own pass-2 arrays, the segment map written in the flagship and not
+in the m3 phase.  In the flagship phase K15 bool_lanes is too, on
+adversarial carry streams and on streams steered to carry through 0xFF
+runs and past a continued lane's first byte (`tests/token_inputs.py`),
+and the host C++ coders (`vp8_token_encode`, `vp8_mbheader_encode`) are
+timed on the same arrays as the yardstick; K13 is timed at batch 8 and
+batch 1 beside its chain floor (the longest lane's ops times one coder
+step, timed on a one-warp chain of ops in shared memory,
+`webp_coder_chain`), with the CTAs the card keeps resident, and K14 the
+same way (its floor: the image with the most header ops times the step);
+both phases time the end to end with and without device tokens in
+alternating runs.
 
 Lossless (VP8L) decode.  Two distinct seeded synthetic frames with seeded
 alpha (`tests/synthetic_rgb.py`, `tests/random_vp8l.py`) are written by
@@ -1002,14 +1006,20 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
         tok = token_phase(dev, card, name, pass2, probs, sid, segs, mbw, mbh)
         for k, r in tok.items():
             records[k] = {"launches": token_launches[k], **r}
-    else:  # K13 on this phase's arrays; the payloads above checked K14 and K15
+    else:  # K13 and K14 on this phase's arrays; the payloads above checked K15
         records.update({k: {"launches": n, "max_abs_err": 0} for k, n in token_launches.items()})
-        err, plain, _ = coeff_tokens_vs_twin(pass2, probs, mbw, mbh)
-        if err != 0:
-            raise AssertionError(f"coeff_tokens differs from its plain twin by {err}")
+        err, plain, (_, lanes) = coeff_tokens_vs_twin(pass2, probs, mbw, mbh)
+        err_h, plain_h, (_, params, *_) = mb_headers_vs_twin(pass2, probs.cpu().numpy(), sid,
+                                                             segs, lanes, mbw, mbh)
+        if err != 0 or err_h != 0:
+            raise AssertionError(f"coeff_tokens / mb_headers differ from their plain twins by "
+                                 f"{err} / {err_h}")
         records["coeff_tokens"]["max_abs_err"] = err
-        print(f"[{name}] coeff_tokens vs plain twin on this phase's pass-2 arrays (bit-exact, "
-              f"tolerance 0): {err}; plain {plain:.4f} ms", flush=True)
+        records["mb_headers"]["max_abs_err"] = err_h
+        print(f"[{name}] coeff_tokens and mb_headers vs plain twins on this phase's pass-2 arrays "
+              f"(bit-exact, tolerance 0; segment map written in {int(params[:, 0].sum())} of "
+              f"{BATCH} images): {err}, {err_h}; "
+              f"plain {plain:.4f} / {plain_h:.4f} ms", flush=True)
     return records
 
 
@@ -1172,20 +1182,13 @@ def token_phase(dev, card: str, name: str, pass2, probs, sid, segs, mbw: int, mb
         int(lanes.n_ops.sum()) * (OPS_CODER_STEP + OPS_OP_GEN) + BATCH * nmb * 25 * OPS_CTX_BLOCK)
 
     # K14, continuing the frame headers the host writes for these images.
-    skipped = edev.skip_flags(pass2)
-    tokens = edev.fetch_tokens(pass2, skipped, lanes, sid)
     probs_h = probs.cpu().numpy()
-    coders = edev.header_coders(tokens, probs_h, QUALITY, segs)
-    params = edev.mb_header_params(tokens, coders, segs)
-    hdr_in = (pass2["luma_mode"], pass2["bpred"], pass2["chroma_mode"],
-              torch.zeros_like(pass2["luma_mode"]) if sid is None else sid, skipped)
-    heads = token_ops.encode_mb_headers(*hdr_in, params, mbw, mbh)
+    err["mb_headers"], plain_ms["mb_headers"], (hdr_in, params, heads, tokens, coders) = \
+        mb_headers_vs_twin(pass2, probs_h, sid, segs, lanes, mbw, mbh)
     hwidth = heads.data.shape[-1]
-    heads_p, plain_ms["mb_headers"] = timed(
-        lambda: token_ops.encode_mb_headers_plain(*hdr_in, params, mbw, mbh, hwidth))
-    err["mb_headers"] = max(max_abs_err(a, b) for a, b in zip(heads, heads_p))
-    ms["mb_headers"] = time_ms(
-        lambda: token_ops._mb_headers_kernel(*hdr_in, params, mbw, mbh, hwidth), 10)
+    k14_ms = {n: time_ms(lambda n=n: token_ops._mb_headers_kernel(
+        *(a[:n] for a in hdr_in), params[:n], mbw, mbh, hwidth), 10) for n in (BATCH, 1)}
+    ms["mb_headers"] = k14_ms[BATCH]
     ops["mb_headers"] = heads.n_ops
     bounds["mb_headers"] = bound(nbytes(*hdr_in, params, heads.fields()) + int(heads.n_bytes.sum()),
                                  int(heads.n_ops.sum()) * (OPS_CODER_STEP + OPS_OP_GEN))
@@ -1225,7 +1228,9 @@ def token_phase(dev, card: str, name: str, pass2, probs, sid, segs, mbw: int, mb
           f"card's pass-2 arrays, K15 on {n_lanes} carry streams and on 6 steered streams, fresh "
           f"and continued, whose carries reach lead {steered[False]} / {steered[True]} times): "
           f"{err}", flush=True)
-    k13_floor(dev, card, name, k13_ms, lanes)
+    step_ns = coder_step_ns(dev)
+    k13_floor(card, name, k13_ms, lanes, step_ns)
+    k14_floor(card, name, k14_ms, heads, step_ns)
 
     # The yardstick: the host C++ coders on the same arrays, one thread.
     host = edev.fetch(pass2)
@@ -1277,6 +1282,30 @@ def coeff_tokens_vs_twin(pass2, probs, mbw: int, mbh: int):
     return max(max_abs_err(a, b) for a, b in zip(lanes, lanes_p)), plain, (tok_in, lanes)
 
 
+def mb_headers_vs_twin(pass2, probs_h, sid, segs, lanes, mbw: int, mbh: int):
+    """K14 through its wrapper on pass 2's card arrays, continuing the frame
+    headers the host writes for these images (`lanes`: K13's, for the skip
+    probabilities), against the plain twin on the same inputs: (max_abs_err
+    over every Lanes field, the twin's ms, (K14's mode inputs, parameters,
+    lanes, the fetched tokens, the header coders))."""
+    import torch
+
+    from webp_tpu_torch.encode import device as edev
+    from webp_tpu_torch.ops import token_ops
+
+    skipped = edev.skip_flags(pass2)
+    tokens = edev.fetch_tokens(pass2, skipped, lanes, sid)
+    coders = edev.header_coders(tokens, probs_h, QUALITY, segs)
+    params = edev.mb_header_params(tokens, coders, segs)
+    hdr_in = (pass2["luma_mode"], pass2["bpred"], pass2["chroma_mode"],
+              torch.zeros_like(pass2["luma_mode"]) if sid is None else sid, skipped)
+    heads = token_ops.encode_mb_headers(*hdr_in, params, mbw, mbh)
+    heads_p, plain = timed(lambda: token_ops.encode_mb_headers_plain(
+        *hdr_in, params, mbw, mbh, heads.data.shape[-1]))
+    err = max(max_abs_err(a, b) for a, b in zip(heads, heads_p))
+    return err, plain, (hdr_in, params, heads, tokens, coders)
+
+
 def coder_step_ns(dev) -> float:
     """One step of the coder of K13-K15, in ns: one warp codes CHAIN_PASSES
     passes over K13's ring of seeded ops in shared memory
@@ -1313,13 +1342,12 @@ def coder_step_ns(dev) -> float:
     return (t1 - t0) / ((p1 - p0) * ring) * 1e6
 
 
-def k13_floor(dev, card: str, name: str, k13_ms: dict, lanes) -> None:
+def k13_floor(card: str, name: str, k13_ms: dict, lanes, step_ns: float) -> None:
     """K13 at batch 8 and 1 beside its chain floor: the longest lane's ops
     times one coder step (`coder_step_ns`); ns an op of the longest lane,
     and the CTAs the card keeps resident."""
     from webp_tpu_torch import _build
 
-    step_ns = coder_step_ns(dev)
     longest = int(lanes.n_ops.max())
     longest_b1 = int(lanes.n_ops[0].max())
     resident = _build.load().webp_coeff_tokens_resident()
@@ -1330,6 +1358,18 @@ def k13_floor(dev, card: str, name: str, k13_ms: dict, lanes) -> None:
           f"{k13_ms[BATCH] * 1e6 / longest:.1f} ns an op of the longest lane at batch {BATCH}, "
           f"{k13_ms[1] * 1e6 / longest_b1:.1f} at batch 1; resident CTAs {resident} ({card})",
           flush=True)
+
+
+def k14_floor(card: str, name: str, k14_ms: dict, heads, step_ns: float) -> None:
+    """K14 at batch 8 and 1 beside its chain floor: the image with the most
+    header ops times one coder step (its count and write phases come before
+    the chain); ns an op of that image."""
+    longest, longest_b1 = int(heads.n_ops.max()), int(heads.n_ops[0])
+    print(f"[{name}] mb_headers: batch {BATCH} {k14_ms[BATCH]:.4f} ms ({BATCH} CTAs), batch 1 "
+          f"{k14_ms[1]:.4f} ms; chain floor {longest * step_ns / 1e6:.4f} ms = {longest} ops x "
+          f"the step {step_ns:.3f} ns (batch 1: {longest_b1 * step_ns / 1e6:.4f} ms); "
+          f"{k14_ms[BATCH] * 1e6 / longest:.1f} ns an op of the longest lane at batch {BATCH}, "
+          f"{k14_ms[1] * 1e6 / longest_b1:.1f} at batch 1 ({card})", flush=True)
 
 
 # Integer operations a slot of K21 / K22 (`csrc/sparse.cu`): the load and

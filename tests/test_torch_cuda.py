@@ -617,15 +617,30 @@ def _header_args(B: int, mbw: int, mbh: int, write_segments: bool):
     return [torch.from_numpy(a) for a in (lm, bp, cm, sid, sk)] + [params], (mbw, mbh)
 
 
-@pytest.mark.parametrize("write_segments", [True, False], ids=["segment_map", "no_map"])
-def test_mb_headers_kernel_matches_plain(cuda, write_segments):
-    modes, args = _header_args(3, 7, 5, write_segments)
+@pytest.mark.parametrize("case", ["segment_map", "no_map", "48x32_b1", "48x32_b8", "all_b"])
+def test_mb_headers_kernel_matches_plain(cuda, case):
+    """Three 7x5-MB images with the segment map written and not; K14's CTA
+    (count, scan, write, then one coder warp) at the flagship's geometry,
+    48x32 MBs, batch 1 and 8; and a frame whose every MB is in B mode at
+    the longest paths with the segment map: 119 ops an MB, 182,784 in all.
+    Where the default byte capacity overflows, the wrapper launches once
+    more."""
+    if case in ("segment_map", "no_map"):
+        modes, args = _header_args(3, 7, 5, case == "segment_map")
+    else:
+        modes, args = _header_args(8 if case == "48x32_b8" else 1, 48, 32, case != "48x32_b8")
+    if case == "all_b":
+        lm, bp, cm = modes[:3]
+        modes[:3] = [torch.full_like(lm, 4), 8 + bp % 2, 2 + cm % 2]
     want = token_ops.encode_mb_headers(*modes, *args)
+    launches = 1 + int(int(want.n_bytes.max()) > token_ops.header_budget(args[0] * args[1]))
     before = _build.LAUNCHES["mb_headers"]
     got = token_ops.encode_mb_headers(*(a.to(cuda) for a in modes), *args)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["mb_headers"] == before + 1
+    assert _build.LAUNCHES["mb_headers"] == before + launches
     _same_lanes(got, want)
+    if case == "all_b":
+        assert int(want.n_ops[0]) == 48 * 32 * 119 >= 180_000
 
 
 @pytest.mark.parametrize("init", ["fresh", "continued"])

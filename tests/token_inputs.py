@@ -138,6 +138,29 @@ def _doublings(bits, probs) -> int:
     return k
 
 
+def carrying_state(bits, probs, seed: int):
+    """The (bottom, range, bit_num) of a host coder part-way through a
+    `carry_stream` (seeds seed, seed + 1, ...; from its `split` on, as its
+    steering brings the interval's low end up to just below a byte boundary
+    inside it): the first from which coding the ops (bits, probs) carries
+    into the bytes the host wrote, so that a lane continued from it reports
+    `lead` > 0."""
+    for s in range(seed, seed + 8):
+        b0, p0, split = carry_stream(s)
+        enc = BoolEncoder()
+        for k, (bit, prob) in enumerate(zip(b0, p0)):
+            if k >= split:
+                state, before = (enc.bottom, enc.range, enc.bit_num), bytes(enc.out)
+                trial = BoolEncoder()
+                trial.out, trial.bottom, trial.range, trial.bit_num = bytearray(before), *state
+                for b, p in zip(bits, probs):
+                    trial.write_bool(int(b), int(p))
+                if bytes(trial.out[:len(before)]) != before:
+                    return state
+            enc.write_bool(int(bit), int(prob))
+    raise ValueError("no steered prefix makes these ops carry into it")
+
+
 def steered_lanes(n: int, seed: int, continued: bool):
     """n `carry_stream`s (seeds seed, seed + 1, ...) as lanes: bits, probs,
     valid uint8 [T, n], and the coders' initial (bottom, range, bit_num),

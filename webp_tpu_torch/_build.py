@@ -141,7 +141,9 @@ _SIGNATURES = {
         _P, _L, _P, _L,      # segment ids, skipped (+ batch strides)
         _P, _P, _I,          # per-image parameters [B, 8], constant tables and their count
         _I, _I, _I, _I,      # mbw, mbh, batch, byte capacity
-        _P, _P, _P,          # bytes [B, cap], carry-mask scratch, fields [B, 6] out
+        _P, _P,              # bytes [B, cap], carry-mask scratch
+        _P, _I,              # op-stream scratch [B, op_cap] uint16, op_cap
+        _P,                  # fields [B, 6] out
         _P,
     ],
     "webp_recon_banded": [

@@ -32,7 +32,14 @@
 //   last op is coded, the CTA resolves the coder's carry marks.
 // K14 replaces webp_tpu/ops/token_ops.py:424 encode_mb_headers (with
 // header_ops :340): one lane per image continues its frame-header coder
-// state with every MB header, its ops generated by the coding thread.
+// state with every MB header.  Header ops depend only on the modes, never
+// on the coder, so as in the JAX form the whole stream is laid out first
+// and coded after: one CTA per image counts each MB's ops (a thread an
+// MB), scans the counts, and writes each MB's ops at its start in a
+// per-image op stream in global memory (at most kHeaderSlots an MB); then
+// one warp codes the stream in lockstep, eight ops a 16-byte load with
+// three vectors loaded ahead, so that no table, mode or probability load
+// is left on the coder's chain.
 // K15 replaces bool_encode_lanes as a kernel of its own: one lane per
 // stream of given [T, L] (bit, prob, valid) streams.
 //
@@ -43,7 +50,9 @@
 // the floor is the longest lane's op count times one step's latency
 // (`webp_coder_chain` times that step on ops held in shared memory).  The
 // producers keep the op generation and every memory round trip off that
-// chain.
+// chain.  K14 is bound the same way: its longest lane (the image with the
+// most header ops) times the step; its count and write phases come first
+// (~35 us for a 768x512 image on an H100, `tools/tokens_split.py --probe`).
 
 #include "boolenc.cuh"
 #include "common.cuh"
@@ -64,8 +73,8 @@ constexpr int kTokConsts = kBandsOff + 16;
 
 constexpr int kProbs = 4 * 8 * 3 * 11;  // an image's token probabilities
 constexpr int kPlaneProbs = 8 * 3 * 11;
-// K14 and K15: every lane is one warp's thread 0 (lanes sharing a warp
-// would diverge, and the warp would run them in turn).
+// K15: every lane is one warp's thread 0 (lanes sharing a warp would
+// diverge, and the warp would run them in turn).
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -89,22 +98,16 @@ constexpr int kBpOff = kUvProbs + 3;                   // 10 B modes, <= 7
 constexpr int kBpProbs = kBpOff + tree_size(10, 7);    // [10 above][10 left][9]
 constexpr int kImplied = kBpProbs + 10 * 10 * 9;       // [5]: a whole-MB mode's B context
 constexpr int kHdrConsts = kImplied + 5;
+constexpr int kHeaderSlots = 2 + 1 + 3 + 16 * 7 + 3;   // ops an MB at most (HEADER_SLOTS)
+
+// ---- K14's CTA ----
+constexpr int kHdrThreads = 1024;  // MBs counted and written at once; warp 0 then codes
+constexpr int kHdrWarps = kHdrThreads / kWarp;
 
 __device__ __forceinline__ int ld_volatile(const int* p) {
     return *static_cast<const volatile int*>(p);
 }
 __device__ __forceinline__ void st_volatile(int* p, int v) { *static_cast<volatile int*>(p) = v; }
-
-// Codes symbol `sym`'s path in the tree at `Off` of the header tables
-// `tab`, node k's probability probs[node].
-template <int Off, int NSym, int Max, typename P>
-__device__ __forceinline__ void put_path(LaneCoder& c, const int* tab, int sym, const P* probs) {
-    constexpr int kBit = Off + NSym, kNode = kBit + NSym * Max;
-    const int len = tab[Off + sym];
-    for (int k = 0; k < len; ++k) {
-        c.put(tab[kBit + sym * Max + k], probs[tab[kNode + sym * Max + k]]);
-    }
-}
 
 __device__ __forceinline__ void load_block(const int16_t* blk, int* lv) {
     const int4* q = reinterpret_cast<const int4*>(blk);
@@ -412,62 +415,224 @@ __global__ void __launch_bounds__(kWarp) coder_chain_kernel(
     if (lane == 0) c.finish(info, lead);
 }
 
-__global__ void __launch_bounds__(kWarp) mb_headers_kernel(
+// ---- K14: the MB headers ----
+
+__device__ __forceinline__ int byte_of(uint32_t w, int k) { return (w >> (8 * k)) & 0xFF; }
+
+// One image's per-MB uint8 fields.
+struct HeaderModes {
+    const uint8_t *lm, *bp, *cm, *sid, *sk;
+};
+
+// An MB's modes, each clamped to its alphabet (so that no input can make
+// an MB take more than kHeaderSlots ops), its B modes four to a word, and
+// the B-mode contexts across its top and left edges.
+struct MbModes {
+    int lm, cm, sid, sk;
+    uint32_t bp[4];  // sub-block s in byte s & 3 of bp[s >> 2]
+    uint32_t top;    // byte sx: the context above sub-block sx (0 on the frame's top row)
+    uint32_t left;   // byte sy: the context left of sub-block 4 sy (0 on its left column)
+    __device__ __forceinline__ int sub(int s) const { return byte_of(bp[s >> 2], s & 3); }
+};
+
+// The B-mode context a sub-block of luma mode lm and B mode bp gives its
+// neighbour: its own B mode, or the one its whole-MB luma mode implies.
+__device__ __forceinline__ int edge_context(int lm, int bp, const int* tab) {
+    lm = min(lm, 4);
+    return lm == 4 ? min(bp, 9) : tab[kImplied + lm];
+}
+
+// MB m's modes and edge contexts: every load issued at once, none waiting
+// on another.
+__device__ __forceinline__ MbModes load_modes(const HeaderModes& H, const int* tab, int m,
+                                              int mbw) {
+    const bool has_top = m >= mbw, has_left = m % mbw > 0;
+    const int lm = H.lm[m], cm = H.cm[m], sid = H.sid[m], sk = H.sk[m];
+    const int top_lm = has_top ? H.lm[m - mbw] : 0, left_lm = has_left ? H.lm[m - 1] : 0;
+    int own[16], top[4], left[4];
+#pragma unroll
+    for (int s = 0; s < 16; ++s) own[s] = H.bp[m * 16 + s];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        top[k] = has_top ? H.bp[(m - mbw) * 16 + 12 + k] : 0;
+        left[k] = has_left ? H.bp[(m - 1) * 16 + 4 * k + 3] : 0;
+    }
+    MbModes q;
+    q.lm = min(lm, 4);
+    q.cm = min(cm, 3);
+    q.sid = min(sid, 3);
+    q.sk = sk != 0;
+    q.top = q.left = 0;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+        q.bp[w] = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            q.bp[w] |= static_cast<uint32_t>(min(own[4 * w + k], 9)) << (8 * k);
+        }
+        if (has_top) q.top |= static_cast<uint32_t>(edge_context(top_lm, top[w], tab)) << (8 * w);
+        if (has_left) {
+            q.left |= static_cast<uint32_t>(edge_context(left_lm, left[w], tab)) << (8 * w);
+        }
+    }
+    return q;
+}
+
+// The MB's op count: the segment path (when the frame writes the map), the
+// skip flag, the luma mode's path, the 16 B modes' paths (lm == 4 only)
+// and the chroma mode's path.
+__device__ __forceinline__ int mb_op_count(const MbModes& q, const int* tab, bool write_segments) {
+    int n = (write_segments ? tab[kSegOff + q.sid] : 0) + 1 + tab[kYmOff + q.lm]
+            + tab[kUvOff + q.cm];
+    if (q.lm == 4) {
+#pragma unroll
+        for (int s = 0; s < 16; ++s) n += tab[kBpOff + q.sub(s)];
+    }
+    return n;
+}
+
+// Writes symbol `sym`'s path in the tree at `Off` of the header tables
+// `tab` as ops prob | bit << 8, node k's probability probs[node]; returns
+// the slot after the last.
+template <int Off, int NSym, int Max, typename P>
+__device__ __forceinline__ uint16_t* write_path(uint16_t* dst, const int* tab, int sym,
+                                                const P* probs) {
+    constexpr int kBit = Off + NSym, kNode = kBit + NSym * Max;
+    const int len = tab[Off + sym];
+#pragma unroll
+    for (int k = 0; k < Max; ++k) {
+        if (k < len) {
+            dst[k] = static_cast<uint16_t>(probs[tab[kNode + sym * Max + k]]
+                                           | tab[kBit + sym * Max + k] << 8);
+        }
+    }
+    return dst + len;
+}
+
+// MB m's ops from `dst` on, in the host writer's order: segment id, skip
+// flag, luma mode, the 16 B modes in raster order under their (top, left)
+// mode contexts, chroma mode.
+__device__ void write_mb(uint16_t* dst, const MbModes& q, const int* tab, const int* seg_probs,
+                         int skip_prob, bool write_segments) {
+    if (write_segments) dst = write_path<kSegOff, 4, 2>(dst, tab, q.sid, seg_probs);
+    *dst++ = static_cast<uint16_t>(skip_prob | q.sk << 8);
+    dst = write_path<kYmOff, 5, 3>(dst, tab, q.lm, tab + kYmProbs);
+    if (q.lm == 4) {
+#pragma unroll
+        for (int s = 0; s < 16; ++s) {
+            const int sy = s >> 2, sx = s & 3;
+            const int top = sy > 0 ? q.sub(s - 4) : byte_of(q.top, sx);
+            const int left = sx > 0 ? q.sub(s - 1) : byte_of(q.left, sy);
+            dst = write_path<kBpOff, 10, 7>(dst, tab, q.sub(s),
+                                            tab + kBpProbs + (top * 10 + left) * 9);
+        }
+    }
+    write_path<kUvOff, 4, 3>(dst, tab, q.cm, tab + kUvProbs);
+}
+
+// The exclusive prefix sum of v over the CTA's kHdrThreads threads, and
+// the sum of all (`total`); every thread must call it.
+__device__ __forceinline__ int cta_exclusive_scan(int v, int* warp_sums, int& total) {
+    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+    int incl = v;
+#pragma unroll
+    for (int d = 1; d < kWarp; d <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += t;
+    }
+    if (lane == kWarp - 1) warp_sums[warp] = incl;
+    __syncthreads();
+    int before = 0;
+    total = 0;
+#pragma unroll
+    for (int w = 0; w < kHdrWarps; ++w) {
+        const int s = warp_sums[w];
+        before += w < warp ? s : 0;
+        total += s;
+    }
+    __syncthreads();  // warp_sums is written again by the next call
+    return before + incl - v;
+}
+
+// Codes ops [0, n) of `ops` (16-byte aligned; vectors up to `last_vec`
+// readable) on every lane of a warp in lockstep: eight ops a 16-byte
+// load, three vectors loaded ahead of the one being coded.
+__device__ __forceinline__ void code_stream(LaneCoder& c, const uint16_t* ops, int n,
+                                            int last_vec) {
+    const uint4* v = reinterpret_cast<const uint4*>(ops);
+    const int nvec = n >> 3;
+    uint4 a = v[0], b = v[min(1, last_vec)], d = v[min(2, last_vec)];
+    for (int i = 0; i < nvec; ++i) {
+        const uint4 e = v[min(i + 3, last_vec)];
+        c.put8(a);
+        a = b;
+        b = d;
+        d = e;
+    }
+    for (int k = nvec * 8; k < n; ++k) c.put_op(ops[k]);
+}
+
+// One CTA per image.  Its threads count the ops of the MBs m = tid, tid +
+// kHdrThreads, ... a chunk of kHdrThreads MBs at a time, scan the counts,
+// and write each MB's ops at its start in the image's op stream `ops`
+// (global memory, op_cap ops an image); then warp 0 codes the stream,
+// continuing the frame header's coder, and the CTA resolves its carries.
+__global__ void __launch_bounds__(kHdrThreads) mb_headers_kernel(
     const uint8_t* __restrict__ lmode, long long lm_bs, const uint8_t* __restrict__ bpred,
     long long bp_bs, const uint8_t* __restrict__ cmode, long long cm_bs,
     const uint8_t* __restrict__ sid, long long sid_bs, const uint8_t* __restrict__ skipped,
     long long sk_bs, const long long* __restrict__ params, const int* __restrict__ consts,
     int mbw, int mbh, int cap, uint8_t* __restrict__ data, uint32_t* __restrict__ carries,
-    long long* __restrict__ info) {
+    uint16_t* __restrict__ ops, int op_cap, long long* __restrict__ info) {
     __shared__ int tab[kHdrConsts];
+    __shared__ int warp_sums[kHdrWarps];
+    __shared__ int seg_probs[3];
     __shared__ int n_bytes, lead;
-    const int b = blockIdx.x;
+    const int b = blockIdx.x, tid = threadIdx.x;
     uint8_t* out = data + static_cast<long long>(b) * cap;
     uint32_t* marks = carries + static_cast<long long>(b) * carry_words(cap);
-    for (int k = threadIdx.x; k < kHdrConsts; k += kWarp) tab[k] = consts[k];
-    clear_carries(marks, cap, threadIdx.x, kWarp);
-    if (threadIdx.x == 0) lead = 0;
-    __syncthreads();
-
+    uint16_t* stream = ops + static_cast<long long>(b) * op_cap;
     // params [8]: write_segments, the 3 segment-tree probabilities,
     // skip_prob, the frame header's (bottom, range, bit_num).
     const long long* pr = params + b * 8;
-    LaneCoder c;
-    c.init(static_cast<uint32_t>(pr[5]), static_cast<int>(pr[6]), static_cast<int>(pr[7]), out,
-           cap, marks);
-    if (threadIdx.x == 0) {
-        const bool write_segments = pr[0] != 0;
-        const int seg_probs[3] = {static_cast<int>(pr[1]), static_cast<int>(pr[2]),
-                                  static_cast<int>(pr[3])};
-        const int skip_prob = static_cast<int>(pr[4]);
-        const uint8_t *lm = lmode + b * lm_bs, *bp = bpred + b * bp_bs, *cm = cmode + b * cm_bs;
-        // The B-mode context of sub-block k of MB n: its own B mode, or the
-        // one its whole-MB luma mode implies.
-        auto eff = [&](int n, int k) { return lm[n] == 4 ? bp[n * 16 + k] : tab[kImplied + lm[n]]; };
-        for (int m = 0; m < mbw * mbh; ++m) {
-            const int mx = m % mbw, my = m / mbw;
-            if (write_segments) put_path<kSegOff, 4, 2>(c, tab, sid[b * sid_bs + m], seg_probs);
-            c.put(skipped[b * sk_bs + m], skip_prob);
-            put_path<kYmOff, 5, 3>(c, tab, lm[m], tab + kYmProbs);
-            if (lm[m] == 4) {
-                for (int s = 0; s < 16; ++s) {
-                    const int sy = s >> 2, sx = s & 3;
-                    const int top = sy > 0 ? bp[m * 16 + s - 4]
-                                           : (my > 0 ? eff(m - mbw, 12 + sx) : 0);
-                    const int left = sx > 0 ? bp[m * 16 + s - 1]
-                                            : (mx > 0 ? eff(m - 1, 4 * sy + 3) : 0);
-                    put_path<kBpOff, 10, 7>(c, tab, bp[m * 16 + s],
-                                            tab + kBpProbs + (top * 10 + left) * 9);
-                }
-            }
-            put_path<kUvOff, 4, 3>(c, tab, cm[m], tab + kUvProbs);
+    for (int k = tid; k < kHdrConsts; k += kHdrThreads) tab[k] = consts[k];
+    if (tid < 3) seg_probs[tid] = static_cast<int>(pr[1 + tid]);
+    clear_carries(marks, cap, tid, kHdrThreads);
+    if (tid == 0) lead = 0;
+    __syncthreads();
+
+    const bool write_segments = pr[0] != 0;
+    const int skip_prob = static_cast<int>(pr[4]);
+    const HeaderModes H{lmode + b * lm_bs, bpred + b * bp_bs, cmode + b * cm_bs,
+                        sid + b * sid_bs, skipped + b * sk_bs};
+    const int nmb = mbw * mbh;
+    int base = 0;  // ops of the chunks before
+    for (int m0 = 0; m0 < nmb; m0 += kHdrThreads) {
+        const int m = m0 + tid;
+        MbModes q{};
+        int count = 0;
+        if (m < nmb) {
+            q = load_modes(H, tab, m, mbw);
+            count = mb_op_count(q, tab, write_segments);
         }
-        n_bytes = c.n;
+        int total;
+        const int start = base + cta_exclusive_scan(count, warp_sums, total);
+        if (m < nmb) write_mb(stream + start, q, tab, seg_probs, skip_prob, write_segments);
+        base += total;
+    }
+    __syncthreads();  // the stream, written by every thread, is read by warp 0
+
+    LaneCoder c;
+    if (tid < kWarp) {
+        c.init(static_cast<uint32_t>(pr[5]), static_cast<int>(pr[6]), static_cast<int>(pr[7]), out,
+               cap, marks);
+        code_stream(c, stream, base, op_cap / 8 - 1);
+        if (tid == 0) n_bytes = c.n;
     }
     __syncthreads();
-    resolve_carries(out, marks, n_bytes, cap, &lead, threadIdx.x, kWarp);
+    resolve_carries(out, marks, n_bytes, cap, &lead, tid, kHdrThreads);
     __syncthreads();
-    if (threadIdx.x == 0) c.finish(info + b * 6, lead);
+    if (tid == 0) c.finish(info + b * 6, lead);
 }
 
 __global__ void __launch_bounds__(kWarp) bool_lanes_kernel(
@@ -547,21 +712,28 @@ WEBP_API int webp_coder_chain(const void* ops, int reps, int cap, void* data, vo
 
 // Per-MB uint8 fields with batch strides (bpred [B][nmb][16]); params int64
 // [B][8]; data uint8 [B][cap] zero-filled, carry-mask scratch uint32
-// [B][carry_words(cap)], info int64 [B][6] out.
+// [B][carry_words(cap)], op-stream scratch uint16 [B][op_cap] (16-byte
+// aligned, op_cap a multiple of 8 and >= nmb * kHeaderSlots), info int64
+// [B][6] out.
 WEBP_API int webp_mb_headers(const void* lmode, long long lm_bs, const void* bpred,
                              long long bp_bs, const void* cmode, long long cm_bs, const void* sid,
                              long long sid_bs, const void* skipped, long long sk_bs,
                              const void* params, const void* consts, int n_consts, int mbw,
-                             int mbh, int batch, int cap, void* data, void* carries, void* info,
-                             void* stream) {
-    if (n_consts != kHdrConsts) return static_cast<int>(cudaErrorInvalidValue);
+                             int mbh, int batch, int cap, void* data, void* carries, void* ops,
+                             int op_cap, void* info, void* stream) {
+    if (n_consts != kHdrConsts || op_cap % 8 != 0
+        || static_cast<long long>(op_cap) < static_cast<long long>(mbw) * mbh * kHeaderSlots
+        || reinterpret_cast<uintptr_t>(ops) % 16 != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
     if (mbw <= 0 || mbh <= 0 || batch <= 0) return 0;
-    mb_headers_kernel<<<batch, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+    mb_headers_kernel<<<batch, kHdrThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(lmode), lm_bs, static_cast<const uint8_t*>(bpred), bp_bs,
         static_cast<const uint8_t*>(cmode), cm_bs, static_cast<const uint8_t*>(sid), sid_bs,
         static_cast<const uint8_t*>(skipped), sk_bs, static_cast<const long long*>(params),
         static_cast<const int*>(consts), mbw, mbh, cap, static_cast<uint8_t*>(data),
-        static_cast<uint32_t*>(carries), static_cast<long long*>(info));
+        static_cast<uint32_t*>(carries), static_cast<uint16_t*>(ops), op_cap,
+        static_cast<long long*>(info));
     return static_cast<int>(cudaGetLastError());
 }
 

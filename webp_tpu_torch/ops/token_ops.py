@@ -18,11 +18,14 @@ skip flag, the luma mode, the 16 B modes under their top and left mode
 contexts, and the chroma mode.
 
 In K13 (`csrc/tokens.cu`) three producer warps generate a lane's ops, one
-block a warp lane, into a shared ring that one coder warp reads; K14
-generates each op where it is coded.  The plain twins follow the JAX
-form: `block_ops` and `header_ops` lay out every possible op slot with a
-valid mask, the valid ops of each lane are compacted, and
-`ops/boolenc2.bool_encode_lanes_plain` codes all lanes at once.  The
+block a warp lane, into a shared ring that one coder warp reads.  In K14
+one CTA an image counts every MB's ops, scans the counts and writes the
+image's whole op stream to global memory, then one warp codes it;
+`header_stream_plain` is the twin of those count and write phases.  The
+plain twins follow the JAX form: `block_ops` and `header_ops` lay out
+every possible op slot with a valid mask, the valid ops of each lane are
+compacted, and `ops/boolenc2.bool_encode_lanes_plain` codes all lanes at
+once.  The
 schedule twin `encode_coeff_partitions_ring_plain` walks K13's order
 instead: its producers and its coder run as generators in seeded orders,
 meet only through the ring and its counters, and code with the device
@@ -41,7 +44,8 @@ import torch
 from .. import _build
 from ..common import vp8_tables as T
 from ..encode.boolenc import tree_paths
-from .boolenc2 import INIT_STATE, Lanes, LaneCoderPlain, bool_encode_lanes_plain, carry_words
+from .boolenc2 import (INIT_STATE, Lanes, LaneCoderPlain, bool_encode_lanes_plain, carry_words,
+                       lane_coder_plain)
 from .token_stats import compute_contexts
 
 # ---- static tables --------------------------------------------------------
@@ -542,6 +546,76 @@ def header_ops(luma_mode, bpred, chroma_mode, segment_ids, skipped, seg_probs3, 
     return prob, bit, valid
 
 
+def header_op_capacity(nmb: int) -> int:
+    """K14's op-stream slots an image: nmb * HEADER_SLOTS rounded up to whole
+    16-byte vectors of eight ops, so that no MB's ops can overflow it."""
+    return -(-nmb * HEADER_SLOTS // 8) * 8
+
+
+def _path_ops(ln, bit, node, sym: int, probs) -> list:
+    """Symbol `sym`'s tree path as ops prob | bit << 8, node k's probability
+    probs[node]."""
+    return [int(probs[node[sym, k]]) | int(bit[sym, k]) << 8 for k in range(ln[sym])]
+
+
+def _mb_header_ops(lm, bp, cm, sid, sk, m: int, mbw: int, seg_probs, skip_prob: int,
+                   write_segments: bool) -> list:
+    """MB m's header ops as K14's thread writes them (`write_mb`): segment
+    id, skip flag, luma mode, the 16 B modes in raster order under their
+    (top, left) mode contexts, chroma mode."""
+    mx, my = m % mbw, m // mbw
+
+    def ctx(n, k):  # the B-mode context of sub-block k of MB n
+        return bp[n, k] if lm[n] == 4 else _IMPLIED_BMODE[lm[n]]
+
+    ops = _path_ops(_SEG_LN, _SEG_BIT, _SEG_NODE, sid[m], seg_probs) if write_segments else []
+    ops.append(int(skip_prob) | int(sk[m] != 0) << 8)
+    ops += _path_ops(_YM_LN, _YM_BIT, _YM_NODE, lm[m], _YM_PROBS)
+    if lm[m] == 4:
+        for s in range(16):
+            sy, sx = s >> 2, s & 3
+            top = bp[m, s - 4] if sy > 0 else (ctx(m - mbw, 12 + sx) if my > 0 else 0)
+            left = bp[m, s - 1] if sx > 0 else (ctx(m - 1, 4 * sy + 3) if mx > 0 else 0)
+            ops += _path_ops(_BP_LN, _BP_BIT, _BP_NODE, bp[m, s], _BP_PROBS[top, left])
+    return ops + _path_ops(_UV_LN, _UV_BIT, _UV_NODE, cm[m], _UV_PROBS)
+
+
+def header_stream_plain(luma_mode, bpred, chroma_mode, segment_ids, skipped, params, mbw: int,
+                        mbh: int):
+    """K14's count and write phases on the host (CPU tensors, as
+    `encode_mb_headers` takes them): per image each MB's op count from the
+    path lengths (`mb_op_count`) and their exclusive scan, int64 [B, nmb],
+    and the op stream int64 [B, header_op_capacity(nmb)], prob | bit << 8,
+    each MB's ops written at its start (zero past the last op)."""
+    B, nmb = luma_mode.shape
+    fields = [t.numpy().astype(np.int64) for t in (luma_mode, bpred, chroma_mode, segment_ids,
+                                                   skipped)]
+    counts = np.zeros((B, nmb), np.int64)
+    stream = np.zeros((B, header_op_capacity(nmb)), np.int64)
+    for b, (ws, p0, p1, p2, skip_prob) in enumerate(params[:, :5].tolist()):
+        lm, bp, cm, sid, sk = (f[b] for f in fields)
+        counts[b] = ((_SEG_LN[sid] if ws else 0) + 1 + _YM_LN[lm] + _UV_LN[cm]
+                     + np.where(lm == 4, _BP_LN[bp].sum(-1), 0))
+        starts = np.cumsum(counts[b]) - counts[b]
+        for m in range(nmb):
+            ops = _mb_header_ops(lm, bp, cm, sid, sk, m, mbw, [p0, p1, p2], skip_prob, bool(ws))
+            stream[b, starts[m]:starts[m] + len(ops)] = ops
+    starts = np.cumsum(counts, axis=1) - counts
+    return torch.from_numpy(counts), torch.from_numpy(starts), torch.from_numpy(stream)
+
+
+def encode_mb_headers_phases_plain(luma_mode, bpred, chroma_mode, segment_ids, skipped, params,
+                                   mbw: int, mbh: int, max_bytes: int) -> Lanes:
+    """K14's phases on the host (CPU tensors): `header_stream_plain`'s
+    stream, coded with the device step (`boolenc2.lane_coder_plain`) from
+    each image's frame-header state; equals `encode_mb_headers_plain`."""
+    counts, _, stream = header_stream_plain(luma_mode, bpred, chroma_mode, segment_ids, skipped,
+                                            params, mbw, mbh)
+    ops = stream.T
+    valid = torch.arange(ops.shape[0])[:, None] < counts.sum(1)[None]
+    return lane_coder_plain(ops >> 8, ops & 0xFF, valid, max_bytes, params[:, 5:8].T)
+
+
 def header_params(write_segments, seg_probs, skip_prob, init_state, device) -> torch.Tensor:
     """Per-image MB-header parameters int64 [B, 8] on `device` from host
     values: write_segments [B], the segment-tree probabilities [B, 3],
@@ -597,6 +671,8 @@ def _mb_headers_kernel(luma_mode, bpred, chroma_mode, segment_ids, skipped, para
     info = torch.empty((B, 6), dtype=torch.int64, device=dev)
     data = torch.zeros((B, cap), dtype=torch.uint8, device=dev)
     carries = torch.empty((B, carry_words(cap)), dtype=torch.int32, device=dev)
+    op_cap = header_op_capacity(nmb)
+    ops = torch.empty((B, op_cap), dtype=torch.int16, device=dev)
     consts = _build.device_constant("header_consts", HEADER_CONSTS_NP, dev)
     _build.launch(
         "mb_headers", "webp_mb_headers", dev,
@@ -605,6 +681,7 @@ def _mb_headers_kernel(luma_mode, bpred, chroma_mode, segment_ids, skipped, para
         *_build.mb_field(skipped, B, nmb),
         _build.dense(params, torch.int64, (B, 8)),
         _build.dense(consts, torch.int32, (consts.numel(),)), consts.numel(),
-        mbw, mbh, B, cap, data.data_ptr(), carries.data_ptr(), info.data_ptr(),
+        mbw, mbh, B, cap, data.data_ptr(), carries.data_ptr(), ops.data_ptr(), op_cap,
+        info.data_ptr(),
     )
     return Lanes.from_fields(info, data)
