@@ -85,10 +85,14 @@ hand-over between each two of its CTAs.
 Scale-out, last.  The decode batches of both filter kinds go through
 `parallel.decode_wavefront_banded` at 2, 4 and 8 bands an image (K16
 recon_banded and K17 filter_banded, one cluster of that many CTAs per
-image): planes byte-equal to the fused K2 + K3's of the same run; K16 and K17 held
-bit-exact to their twins (bands held apart, halo rows handed over each
-step) at 4 bands, and timed at each band count beside K2 and K3, with the
-card's largest number of resident clusters.  Then a one-rank NCCL process
+image, a band's rows run as row pipelines of one warp): planes byte-equal
+to the fused K2 + K3's of the same run; K16 and K17 held bit-exact to
+their twins (bands held apart, halo rows handed over each step) at 4
+bands, and timed at 1, 2, 4 and 8 bands beside K2 and K3, per step and
+beside their chain floor (T hand-overs between row pipelines, timed on
+rings of warps in a CTA and of CTAs in a cluster), with the CTA's shape
+and the card's largest number of resident clusters; at 1 band (more rows
+than pipelines) byte-equal to the fused K2 + K3 too.  Then a one-rank NCCL process
 group (`torch.distributed`, tcp on localhost) carries the four
 data-parallel factories of `webp_tpu_torch.parallel`, each byte-equal to
 the unsharded path of this run: the decode's RGB, the one-pass analysis,
@@ -188,6 +192,7 @@ PARALLEL_KERNELS = [
      "webp_tpu/parallel/pipeline.py:60 (+ :37 _band_shifts)"),
 ]
 N_BANDS = (2, 4, 8)  # CTAs per image of the banded decode; 4 is the kernels line's
+BAND_RING, BAND_ROUNDS = 8, (250, 2000)  # the banded hand-over rings: members, rounds
 FLAT_KERNELS = [
     ("pack_flat", "webp_tpu_torch/csrc/sparse.cu", "webp_tpu/ops/sparse.py:42"),
     ("expand_flat", "webp_tpu_torch/csrc/sparse.cu", "webp_tpu/ops/sparse.py:110"),
@@ -1780,13 +1785,53 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def band_handoff_ms(dev) -> tuple:
+    """(inside a band, across bands): one hand-over between the banded
+    kernels' row pipelines, in ms.  Rings of BAND_RING members, each waiting
+    on its predecessor's counter with the kernels' poll and publishing its
+    own as they do (`csrc/banded.cu` BandLink): the warps of one CTA,
+    counters in its shared memory, acquire and release at CTA scope; or the
+    one-warp CTAs of a cluster, each polling its neighbour's counter through
+    distributed shared memory, at cluster scope.  The longer run's time less
+    the shorter's over the hand-overs between them, so that the launch
+    cancels."""
+    import torch
+
+    from webp_tpu_torch import _build
+
+    lib = _build.load()
+    out = []
+    for ctas, warps in ((1, BAND_RING), (BAND_RING, 1)):
+        times = []
+        for rounds in BAND_ROUNDS:
+            def run():
+                rc = lib.webp_band_handoff_chain(ctas, warps, rounds,
+                                                 torch.cuda.current_stream(dev).cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"webp_band_handoff_chain launch failed: CUDA error {rc}")
+
+            times.append(time_ms(run, 10))
+        (r0, r1), (t0, t1) = BAND_ROUNDS, times
+        out.append((t1 - t0) / ((r1 - r0) * BAND_RING))
+    return tuple(out)
+
+
+def band_floor_ms(steps: int, n_band: int, inside_ms: float, across_ms: float) -> float:
+    """The banded kernels' chain floor: each of the T steps waits on one
+    hand-over from the row above, n_band - 1 of them across bands."""
+    return (steps - (n_band - 1)) * inside_ms + (n_band - 1) * across_ms
+
+
 def parallel_phase(dev, card: str, keep: dict) -> dict:
     """The scale-out path, counted, checked and timed; name -> kernel record.
 
     Banded decode: the decode phase's batches (both filter kinds) through
     `parallel.decode_wavefront_banded` at every n_band of N_BANDS, byte-equal
     to the fused K2 + K3's planes of the same run; K16 and K17 against their twins at
-    n_band 4 and timed beside K2 and K3.  Then the four data-parallel
+    n_band 4, and timed at n_band 1, 2, 4 and 8 beside K2 and K3, per step and
+    beside their chain floor (`band_floor_ms`, from the two hand-overs that
+    `band_handoff_ms` times); n_band 1, whose CTA has more rows than row
+    pipelines, byte-equal to the fused K2 + K3 too.  Then the four data-parallel
     factories on a process group of one rank (NCCL on a card, gloo on the
     CPU), each byte-equal to the unsharded path of this run: the decode's
     RGB; the one-pass analysis; the flagship's int8 prepack (K18) and the
@@ -1939,7 +1984,9 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
           f"{BATCH}, K17 also on the simple filter): {err}", flush=True)
 
     # 4. Timings per n_band beside K2 and K3, on the normal filter's batch;
-    #    the filter starts each run from fresh unfiltered planes.
+    #    the filter starts each run from fresh unfiltered planes.  Then
+    #    n_band 1 (one CTA an image, more rows than pipelines) byte-equal to
+    #    the fused K2 + K3 on both batches.
     target = planes()
     work = [p.clone() for p in rec]
 
@@ -1947,21 +1994,36 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
         for w, r in zip(work, rec):
             w.copy_(r)
 
+    steps = mbw + 2 * (mbh - 1)
+    inside_ms, across_ms = band_handoff_ms(dev) if torch.device(dev).type == "cuda" else (0, 0)
+    print(f"[parallel] banded hand-over (rings of {BAND_RING}, ld.acquire poll -> __syncwarp, "
+          f"st.release): inside a band (shared memory, CTA scope) {inside_ms * 1e3:.4f} us, "
+          f"across bands (distributed shared memory, cluster scope) {across_ms * 1e3:.4f} us "
+          f"({card})", flush=True)
     k2_ms = time_ms(lambda: recon_(*target, *recon_args), 20)
     k3_ms = time_ms(lambda: loop_filter_(*work, *lf_args, False), 20, fresh)
     ms = {}
-    for n_band in N_BANDS:
+    for n_band in (1, *N_BANDS):
         ms[("recon_banded", n_band)] = time_ms(
             lambda: banded.recon_banded_(*target, *recon_args, n_band), 20)
         ms[("filter_banded", n_band)] = time_ms(
             lambda: banded.filter_banded_(*work, *lf_args, False, n_band), 20, fresh)
-        clusters = banded.max_active_clusters(n_band, mbh) if torch.device(dev).type == "cuda" \
+        shape = banded.max_active_clusters(n_band, mbh) if torch.device(dev).type == "cuda" \
             else "n/a"
-        print(f"[parallel] n_band {n_band} ({mbh // n_band} MB rows, {32 * min(mbh // n_band, 32)} "
-              f"threads a CTA; max active clusters K16 / K17 {clusters}): K16 recon_banded "
-              f"{ms[('recon_banded', n_band)]:.4f} ms, K17 filter_banded "
-              f"{ms[('filter_banded', n_band)]:.4f} ms; K2 recon {k2_ms:.4f} ms, K3 loopfilter "
-              f"{k3_ms:.4f} ms (same run; batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
+        floor = band_floor_ms(steps, n_band, inside_ms, across_ms)
+        k16, k17 = ms[("recon_banded", n_band)], ms[("filter_banded", n_band)]
+        print(f"[parallel] n_band {n_band} ({mbh // n_band} MB rows a band; {shape}): K16 "
+              f"recon_banded {k16:.4f} ms ({k16 / steps * 1e3:.2f} us a step), K17 "
+              f"filter_banded {k17:.4f} ms ({k17 / steps * 1e3:.2f} us a step), chain floor "
+              f"{floor:.4f} ms (T = {steps}); K2 recon {k2_ms:.4f} ms ({k2_ms / steps * 1e3:.2f} "
+              f"us a step), K3 loopfilter {k3_ms:.4f} ms ({k3_ms / steps * 1e3:.2f} us) (same "
+              f"run; batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
+    for simple in (False, True):
+        got = parallel.decode_wavefront_banded(
+            *decode_in[simple][1], parallel.make_mesh(n_band=1, device=dev), mbw, mbh, simple)
+        for g, w, plane in zip(got, want_planes[simple], "yuv"):
+            same(g, w, f"banded {plane} plane (n_band 1, simple={simple})")
+    print("[parallel] n_band 1 byte-equal to the fused K2 + K3 (both filter kinds)", flush=True)
 
     # Bounds: K2's and K3's, the same work.  No PyTorch call computes either.
     pixels = BATCH * nmb * 384

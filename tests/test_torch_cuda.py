@@ -783,33 +783,44 @@ def test_device_tokens_slice_on_card_matches_cpu(cuda, method, segments, size):
 @pytest.mark.parametrize("simple", [False, True], ids=["normal", "simple"])
 def test_banded_kernels_match_unbanded_and_plain(cuda, simple):
     """64x256 random keyframes (16 MB rows) at every band count that divides
-    them: planes byte-equal to the fused K2 + K3's, one K16 and one K17 launch per
-    call; at 4 bands also equal to the twins on CPU copies."""
-    payloads = [random_keyframe(64, 256, s, simple=simple)[0] for s in (51, 52)]
-    d = tdev.to_device_batch(tdev.parse_levels_batch(payloads), cuda)
-    mbw, mbh = tdev.geometry(d["headers"])[:2]
-    args = tdev.wavefront_inputs(d)
-    want = tdev.split_planes(tdev.decode_core(d, "yuv"), mbw, mbh)
-    for n_band in (1, 2, 4, 8):
-        before = (_build.LAUNCHES["recon_banded"], _build.LAUNCHES["filter_banded"])
-        got = parallel.decode_wavefront_banded(*args, parallel.make_mesh(n_band=n_band, device=cuda),
-                                               mbw, mbh, simple)
-        torch.cuda.synchronize()
-        assert (_build.LAUNCHES["recon_banded"], _build.LAUNCHES["filter_banded"]) == (
-            before[0] + 1, before[1] + 1)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), n_band
-    twin = parallel.decode_wavefront_banded(*(a.cpu() for a in args),
-                                            parallel.make_mesh(n_band=4, device="cpu"),
-                                            mbw, mbh, simple)
-    for g, w in zip(twin, want):
-        assert torch.equal(g, w.cpu())
+    them, and 64x1280 ones (80 MB rows) at 1 and 2 bands, whose bands hold
+    more rows than a CTA has row pipelines (`BandShape.pipelines`): planes
+    byte-equal to the fused K2 + K3's, one K16 and one K17 launch per call;
+    64x256 at 4 bands also equal to the twins on CPU copies."""
+    for width, height, bands in ((64, 256, (1, 2, 4, 8)), (64, 1280, (1, 2))):
+        payloads = [random_keyframe(width, height, s, simple=simple)[0] for s in (51, 52)]
+        d = tdev.to_device_batch(tdev.parse_levels_batch(payloads), cuda)
+        mbw, mbh = tdev.geometry(d["headers"])[:2]
+        args = tdev.wavefront_inputs(d)
+        want = tdev.split_planes(tdev.decode_core(d, "yuv"), mbw, mbh)
+        for n_band in bands:
+            if height == 1280:
+                assert banded.max_active_clusters(n_band, mbh).pipelines < mbh // n_band
+            before = (_build.LAUNCHES["recon_banded"], _build.LAUNCHES["filter_banded"])
+            got = parallel.decode_wavefront_banded(
+                *args, parallel.make_mesh(n_band=n_band, device=cuda), mbw, mbh, simple)
+            torch.cuda.synchronize()
+            assert (_build.LAUNCHES["recon_banded"], _build.LAUNCHES["filter_banded"]) == (
+                before[0] + 1, before[1] + 1)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (height, n_band)
+        if height == 256:
+            twin = parallel.decode_wavefront_banded(*(a.cpu() for a in args),
+                                                    parallel.make_mesh(n_band=4, device="cpu"),
+                                                    mbw, mbh, simple)
+            for g, w in zip(twin, want):
+                assert torch.equal(g, w.cpu())
 
 
 def test_banded_clusters_fit_on_the_card(cuda):
-    """The card holds clusters of 8 CTAs at 768x512 (32 MB rows, 4 warps a CTA)."""
-    for n_band in (2, 4, 8):
-        assert min(banded.max_active_clusters(n_band, 32)) >= 1
+    """At 768x512 (32 MB rows) a band's CTA runs min(rows, 24) row pipelines
+    of one warp, with their counters and tiles in shared memory, and the
+    card holds clusters of every band count, 8 CTAs included."""
+    for n_band in (1, 2, 4, 8):
+        shape = banded.max_active_clusters(n_band, 32)
+        assert shape.pipelines == min(32 // n_band, 24)
+        assert shape.smem_bytes > 0
+        assert min(shape.recon_clusters, shape.filter_clusters) >= 1
 
 
 @pytest.mark.parametrize("nmb", [64, 200], ids=["64x256", "200_mbs"])

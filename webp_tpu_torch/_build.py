@@ -151,6 +151,7 @@ _SIGNATURES = {
         _P, _L, _P, _L, _P, _L,   # luma_mode, bpred, chroma_mode (+ batch strides)
         _I, _I, _I, _I,      # mbw, mbh, batch, n_band
         _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides)
+        _P,                  # edge-row scratch [B, mbh, 2W]
         _P,
     ],
     "webp_filter_banded": [
@@ -159,6 +160,7 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,  # mbw, mbh, batch, simple, n_band
         _P,
     ],
+    "webp_band_handoff_chain": [_I, _I, _I, _P],  # CTAs of a cluster, warps of a CTA, rounds
     "webp_bool_lanes": [
         _P, _P, _P, _I, _I,  # bits, probs, valid [T, L]; T, L
         _P, _I,              # initial states [L, 3], byte capacity

@@ -11,14 +11,18 @@
 
 __device__ __forceinline__ int clip255(int v) { return v < 0 ? 0 : (v > 255 ? 255 : v); }
 
-// Anti-diagonal wavefront over the MB grid: MB (x, y) runs at step
-// t = x + 2y, after its left, top-left, top and top-right neighbours.
-__host__ __device__ __forceinline__ int wavefront_steps(int mbw, int mbh) {
-    return mbw + 2 * (mbh - 1);
+// One 4-byte asynchronous copy from global to shared memory (sm_80+),
+// complete for this thread after a cp_async_wait that covers its group.
+static __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src) : "memory");
 }
 
-// Threads of a wavefront block: one warp per MB row, at most 32 warps.
-inline int wavefront_threads(int mbh) { return 32 * (mbh < 32 ? mbh : 32); }
+static __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+static __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory"); }
 
 // ---- Transforms and intra predictors shared by K1, K2 and K5 ----
 

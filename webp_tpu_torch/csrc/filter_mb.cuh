@@ -1,6 +1,6 @@
-// filter_mb_lane: the VP8 loop filter of one MB, by one warp, in place in
-// the planes: K17's (banded.cu).  filter_w is shared with K3
-// (wavefront_rows.cu), which filters lines held in registers.
+// filter_w: the VP8 loop filter of one line of 8 pixels, held in registers
+// (RFC 6386 15.2-15.3).  The row pipeline's filter_tile (rows_mb.cuh) runs
+// it on each line of an MB's tiles: K3, K17 and the fused recon_filter.
 #pragma once
 
 #include "common.cuh"
@@ -63,48 +63,6 @@ __device__ __forceinline__ bool filter_w(int* w, EdgeKind kind, bool simple, int
         w[1] = n1; w[2] = n2; w[3] = n3; w[4] = n4; w[5] = n5; w[6] = n6;
     }
     return mask;
-}
-
-// filter_w on the line whose q0 lies at q0p, its pixels `step` apart.
-__device__ void filter_line(uint8_t* q0p, int step, EdgeKind kind, bool simple,
-                            int hev_t, int interior, int limit) {
-    int w[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) w[k] = q0p[(k - 4) * step];
-    if (!filter_w(w, kind, simple, hev_t, interior, limit)) return;
-#pragma unroll
-    for (int k = 1; k < 7; ++k) q0p[(k - 4) * step] = static_cast<uint8_t>(w[k]);
-}
-
-// The 8 edge steps of one MB: 0 left MB edge, 1-3 inner vertical edges,
-// 4 top MB edge, 5-7 inner horizontal edges.  A chroma plane (n = 8) has
-// one inner edge each way, at steps 1 and 5.
-__device__ void filter_mb_lane(int lane, int x, int y, int mbw, bool simple,
-                               int level, int interior, int hev_t, bool do_sub,
-                               uint8_t* Y, uint8_t* U, uint8_t* V) {
-    const int mb_lim = (level + 2) * 2 + interior;
-    const int sub_lim = level * 2 + interior;
-    int n, stride, line;
-    uint8_t* p;
-    if (lane < 16) {
-        n = 16; stride = mbw * 16; line = lane; p = Y;
-    } else {
-        n = 8; stride = mbw * 8; line = lane & 7; p = lane < 24 ? U : V;
-    }
-    const bool active = lane < 16 || !simple;  // the simple filter leaves chroma alone
-    const int row0 = y * n, col0 = x * n;
-    for (int s = 0; s < 8; ++s) {
-        const bool vertical = s < 4;
-        const int k = s & 3;  // 0: MB edge, else inner edge at offset 4k
-        bool on = active && (k == 0 ? (vertical ? x > 0 : y > 0) : do_sub && 4 * k < n);
-        if (on) {
-            uint8_t* q0p = vertical ? p + (row0 + line) * stride + col0 + 4 * k
-                                    : p + (row0 + 4 * k) * stride + col0 + line;
-            filter_line(q0p, vertical ? 1 : stride, k == 0 ? kMbEdge : kSubEdge, simple,
-                        hev_t, interior, k == 0 ? mb_lim : sub_lim);
-        }
-        __syncwarp();
-    }
 }
 
 }  // namespace

@@ -173,19 +173,6 @@ __device__ __forceinline__ void publish_shared(int* p, int v) {
     *static_cast<volatile int*>(p) = v;
 }
 
-// One 4-byte asynchronous copy from global to shared memory (sm_80+),
-// complete for this thread after a cp_async_wait that covers its group.
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-                 ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory"); }
-
 // Byte-wise floor((a + b) / 2).
 __device__ __forceinline__ uint32_t avg_bytes(uint32_t a, uint32_t b) {
     return (a & b) + (((a ^ b) & 0xfefefefeu) >> 1);

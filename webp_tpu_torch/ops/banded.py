@@ -6,8 +6,10 @@ Replace `webp_tpu/parallel/pipeline.py:60` `decode_wavefront_banded` and
 exchange boundary rows between neighbour devices with `ppermute` at every
 wavefront step.  On the card a band is one CTA of a thread-block cluster
 (`csrc/banded.cu`): K16 `recon_banded_` and K17 `filter_banded_` compute
-K2's and K3's planes, byte for byte, with the cluster barrier as the halo
-exchange.
+K2's and K3's planes, byte for byte, with the band's rows run as row
+pipelines of one warp (pipeline g takes the band's rows g, g + G, ...),
+gated by progress counters in shared memory; a band's first row reads the
+counter of the band above's last row through distributed shared memory.
 
 The plain twins keep the JAX form: each band's rows are a tensor of their
 own with halo rows above, and at every step `band_shift` hands each band
@@ -15,18 +17,24 @@ its neighbour's boundary rows, down for the recon row above and the
 filter's 4 margin rows, up for the 3 rows the filter writes back into the
 band above; a band with no neighbour gets zeros, and the frame's edges
 come from the global MB row.  The MB work per diagonal is K2's and K3's
-twins' (`wavefront.recon_mbs_`, `loopfilter.filter_mbs_`).
+twins' (`wavefront.recon_mbs_`, `loopfilter.filter_mbs_`).  The schedule
+twins `recon_banded_rows_plain_` and `filter_banded_rows_plain_` (tests
+only) walk the kernels' own schedule, MB by MB, in seeded orders that the
+counters allow.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import _build
 from .loopfilter import filter_mbs_, filter_params
+from .recon_filter import WAIT, RowSteps
 from .wavefront import _bordered, diagonal, recon_mbs_
 
 MAX_BANDS = 8  # the portable cluster size
@@ -117,6 +125,58 @@ def filter_banded_plain_(y, u, v, level, interior, hev, do_sub, simple: bool,
             p[:, k * r_loc * n:(k + 1) * r_loc * n] = band[j][0][:, 4:, 4:].to(torch.uint8)
 
 
+def band_schedule(mbh: int, mbw: int, n_band: int, pipes: int, seed: int, wait: int = WAIT):
+    """The banded kernels' schedule: yields (r, i), MB row r's iteration i
+    (MB i), one at a time.  Band k holds rows [k r_loc, (k + 1) r_loc) and
+    min(pipes, r_loc) pipelines; pipeline g takes the band's rows g, g +
+    pipes, ... in order, each through its mbw iterations.  At each step a
+    pipeline is drawn (numpy RandomState(seed)) among those whose next
+    iteration i may start: row r - 1 (in the band, or the band above's last
+    row) has finished min(i + wait, mbw).  Raises RuntimeError if no
+    pipeline may go on before all rows are done (a deadlock)."""
+    r_loc = mbh // check_bands(n_band, mbh)
+    rng = np.random.RandomState(seed)
+    queues = [list(range(k * r_loc + g, (k + 1) * r_loc, pipes))
+              for k in range(n_band) for g in range(min(pipes, r_loc))]
+    done = [0] * mbh
+    while any(queues):
+        ready = [q for q in queues if q and (
+            q[0] == 0 or done[q[0] - 1] >= min(done[q[0]] + wait, mbw))]
+        if not ready:
+            raise RuntimeError(f"no pipeline may go on: rows done {done}")
+        q = ready[rng.randint(len(ready))]
+        r = q[0]
+        yield r, done[r]
+        done[r] += 1
+        if done[r] == mbw:
+            q.pop(0)
+
+
+def recon_banded_rows_plain_(y, u, v, residuals, luma_mode, bpred, chroma_mode, n_band: int,
+                             pipes: int, seed: int, wait: int = WAIT) -> None:
+    """K16's schedule on the host (`band_schedule`, `pipes` pipelines a
+    band), each iteration one MB's recon from the saved unfiltered edges
+    (`recon_filter.RowSteps`); writes y/u/v.  Equals `recon_banded_plain_`
+    for every seed at wait 2.  Tests only."""
+    mbh, mbw = y.shape[1] // 16, y.shape[2] // 16
+    steps = RowSteps(y, u, v, False, recon_args=(residuals, luma_mode, bpred, chroma_mode))
+    for r, i in band_schedule(mbh, mbw, n_band, pipes, seed, wait):
+        steps.recon(r, i)
+    steps.finish(y, u, v)
+
+
+def filter_banded_rows_plain_(y, u, v, level, interior, hev, do_sub, simple: bool, n_band: int,
+                              pipes: int, seed: int, wait: int = WAIT) -> None:
+    """K17's schedule on the host (`band_schedule`), each iteration one MB's
+    filter in the planes; filters y/u/v in place.  Equals
+    `filter_banded_plain_` for every seed at wait 2.  Tests only."""
+    mbh, mbw = y.shape[1] // 16, y.shape[2] // 16
+    steps = RowSteps(y, u, v, simple, filter_args=(level, interior, hev, do_sub))
+    for r, i in band_schedule(mbh, mbw, n_band, pipes, seed, wait):
+        steps.filter(r, i)
+    steps.finish(y, u, v)
+
+
 def recon_banded_(y, u, v, residuals, luma_mode, bpred, chroma_mode, n_band: int) -> None:
     """K2's reconstruction (`wavefront.recon_`, the same arguments) with the
     MB rows in `n_band` bands: K16 for CUDA tensors, its twin for CPU ones."""
@@ -127,6 +187,7 @@ def recon_banded_(y, u, v, residuals, luma_mode, bpred, chroma_mode, n_band: int
     if dev.type == "cpu":
         return recon_banded_plain_(y, u, v, residuals, luma_mode, bpred, chroma_mode, n_band)
     nmb = mbw * mbh
+    edge = torch.empty((B, mbh, 32 * mbw), dtype=torch.uint8, device=dev)
     _build.launch(
         "recon_banded", "webp_recon_banded", dev,
         _build.dense(residuals, torch.int32, (B, nmb, 24, 16)),
@@ -134,7 +195,7 @@ def recon_banded_(y, u, v, residuals, luma_mode, bpred, chroma_mode, n_band: int
         *_build.mb_field(chroma_mode, B, nmb),
         mbw, mbh, B, n_band,
         *_build.plane(y, B, mbh * 16, mbw * 16), *_build.plane(u, B, mbh * 8, mbw * 8),
-        *_build.plane(v, B, mbh * 8, mbw * 8),
+        *_build.plane(v, B, mbh * 8, mbw * 8), edge.data_ptr(),
     )
 
 
@@ -157,12 +218,20 @@ def filter_banded_(y, u, v, level, interior, hev, do_sub, simple: bool, n_band: 
                   n_band)
 
 
-def max_active_clusters(n_band: int, mbh: int) -> tuple:
-    """(K16, K17): how many clusters of `n_band` CTAs, each with the warps
-    of mbh / n_band MB rows, the current card holds at once."""
+class BandShape(NamedTuple):
+    pipelines: int        # row pipelines (one warp each) of a band's CTA
+    smem_bytes: int       # its dynamic shared memory: the rows' counters, the pipelines' tiles
+    recon_clusters: int   # K16 clusters of n_band such CTAs the card holds at once
+    filter_clusters: int  # K17's
+
+
+def max_active_clusters(n_band: int, mbh: int) -> BandShape:
+    """The CTA shape of K16 and K17 for bands of mbh / n_band MB rows, and
+    how many clusters of `n_band` such CTAs the current card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
     check_bands(n_band, mbh)
-    out = (ctypes.c_int * 2)()
-    rc = _build.load().webp_banded_max_clusters(n_band, 32 * min(mbh // n_band, 32), out)
+    out = (ctypes.c_int * 4)()
+    rc = _build.load().webp_banded_max_clusters(n_band, mbh, out)
     if rc != 0:
-        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {rc}")
-    return out[0], out[1]
+        raise RuntimeError(f"webp_banded_max_clusters failed: CUDA error {rc}")
+    return BandShape(*out)

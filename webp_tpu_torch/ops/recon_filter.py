@@ -65,6 +65,62 @@ def _mb_workspaces(edge, left_y, left_c, r: int, x: int, mbw: int):
     return wy, wc
 
 
+class RowSteps:
+    """The row kernels' MB work on the host, one MB at a time, as an
+    iteration does it: `recon(r, x)` reconstructs MB (x, r) from the saved
+    unfiltered edges (the rows' bottom pixels, each row's last right
+    column) and saves its own; `filter(r, x)` loop-filters MB (x, r) in the
+    planes.  The planes y/u/v [B, mbh*16, mbw*16] / [B, mbh*8, mbw*8] uint8
+    are copied in (the filter's input) and `finish` writes them back.
+    `recon_args` are `wavefront.recon_`'s (residuals, luma_mode, bpred,
+    chroma_mode), `filter_args` `loopfilter.loop_filter_`'s (level,
+    interior, hev, do_sub)."""
+
+    def __init__(self, y, u, v, simple: bool, recon_args=None, filter_args=None):
+        B, H, W = y.shape
+        self.mbw, self.W = W // 16, W
+        dev = y.device
+        self.simple = simple
+        if recon_args is not None:
+            res, lm, bp, cm = recon_args
+            self.args = (res.to(torch.int32), lm.long(), bp.long(), cm.long())
+        if filter_args is not None:
+            self.params = filter_params(*filter_args)
+        self.work = [(F.pad(p.to(torch.int32), (4, 0, 4, 0)), n)
+                     for p, n in ((y, 16), (u, 8), (v, 8))]
+        self.filtered = self.work[:1] if simple else self.work
+        mbh = H // 16
+        self.edge = torch.zeros((B, mbh, 2 * W), dtype=torch.int32, device=dev)
+        self.left_y = torch.zeros((B, mbh, 16), dtype=torch.int32, device=dev)
+        self.left_c = torch.zeros((B, mbh, 2, 8), dtype=torch.int32, device=dev)
+        self.one = torch.zeros(1, dtype=torch.long, device=dev)
+
+    def recon(self, r: int, x: int) -> None:
+        mbw, W, one = self.mbw, self.W, self.one
+        m = r * mbw + x
+        wy, (wu, wv) = _mb_workspaces(self.edge, self.left_y, self.left_c, r, x, mbw)
+        recon_mbs_(wy, wu, wv, one, one, one + m, one + (r > 0), *self.args,
+                   has_left=one + (x > 0) > 0)
+        x0, cx0 = 16 * x, 8 * x
+        self.edge[:, r, x0 : x0 + 16] = wy[:, 16, 1:17]
+        self.left_y[:, r] = wy[:, 1:17, 16]
+        for p, wc in enumerate((wu, wv)):
+            self.edge[:, r, W + p * (W // 2) + cx0 : W + p * (W // 2) + cx0 + 8] = wc[:, 8, 1:9]
+            self.left_c[:, r, p] = wc[:, 1:9, 8]
+        for (pw, n), wb in zip(self.work, (wy, wu, wv)):
+            pw[:, 4 + r * n : 4 + (r + 1) * n, 4 + x * n : 4 + (x + 1) * n] = wb[:, 1:, 1 : n + 1]
+
+    def filter(self, r: int, x: int) -> None:
+        one = self.one
+        m = r * self.mbw + x
+        filter_mbs_(self.filtered, one + r, one + x, one + (r > 0) > 0,
+                    [p[:, [m]] for p in self.params], self.simple)
+
+    def finish(self, y, u, v) -> None:
+        for p, (pw, _) in zip((y, u, v), self.work):
+            p.copy_(pw[:, 4:, 4:].to(torch.uint8))
+
+
 def recon_filter_rows_plain_(y, u, v, residuals, luma_mode, bpred, chroma_mode,
                              level, interior, hev, do_sub, simple: bool, seed: int,
                              lag: int = LAG, wait: int = WAIT) -> None:
@@ -77,39 +133,10 @@ def recon_filter_rows_plain_(y, u, v, residuals, luma_mode, bpred, chroma_mode,
     r-1 has finished min(i + wait, mbw + lag) iterations.  Equals
     `recon_filter_plain_` for every seed at wait 2, with lag 1 (the
     kernel's) or 0 (each MB filtered right after its recon)."""
-    B, H, W = y.shape
-    mbh, mbw = H // 16, W // 16
-    dev = y.device
+    mbh, mbw = y.shape[1] // 16, y.shape[2] // 16
     rng = np.random.RandomState(seed)
-    args = (residuals.to(torch.int32), luma_mode.long(), bpred.long(), chroma_mode.long())
-    params = filter_params(level, interior, hev, do_sub)
-    work = [(F.pad(torch.zeros_like(p, dtype=torch.int32), (4, 0, 4, 0)), n)
-            for p, n in ((y, 16), (u, 8), (v, 8))]
-    filtered = work[:1] if simple else work
-    edge = torch.zeros((B, mbh, 2 * W), dtype=torch.int32, device=dev)
-    left_y = torch.zeros((B, mbh, 16), dtype=torch.int32, device=dev)
-    left_c = torch.zeros((B, mbh, 2, 8), dtype=torch.int32, device=dev)
-    one = torch.zeros(1, dtype=torch.long, device=dev)
-
-    def recon(r: int, x: int) -> None:
-        m = r * mbw + x
-        wy, (wu, wv) = _mb_workspaces(edge, left_y, left_c, r, x, mbw)
-        recon_mbs_(wy, wu, wv, one, one, one + m, one + (r > 0), *args,
-                   has_left=one + (x > 0) > 0)
-        x0, cx0 = 16 * x, 8 * x
-        edge[:, r, x0 : x0 + 16] = wy[:, 16, 1:17]
-        left_y[:, r] = wy[:, 1:17, 16]
-        for p, wc in enumerate((wu, wv)):
-            edge[:, r, W + p * (W // 2) + cx0 : W + p * (W // 2) + cx0 + 8] = wc[:, 8, 1:9]
-            left_c[:, r, p] = wc[:, 1:9, 8]
-        for (pw, n), wb in zip(work, (wy, wu, wv)):
-            pw[:, 4 + r * n : 4 + (r + 1) * n, 4 + x * n : 4 + (x + 1) * n] = wb[:, 1:, 1 : n + 1]
-
-    def filter_mb(r: int, x: int) -> None:
-        m = r * mbw + x
-        filter_mbs_(filtered, one + r, one + x, one + (r > 0) > 0, [p[:, [m]] for p in params],
-                    simple)
-
+    steps = RowSteps(y, u, v, simple, (residuals, luma_mode, bpred, chroma_mode),
+                     (level, interior, hev, do_sub))
     n_iter = mbw + lag
     done = [0] * mbh
     for _ in range(n_iter * mbh):
@@ -117,13 +144,12 @@ def recon_filter_rows_plain_(y, u, v, residuals, luma_mode, bpred, chroma_mode,
                  and (r == 0 or done[r - 1] >= min(done[r] + wait, n_iter))]
         r = ready[rng.randint(len(ready))]
         i = done[r]
-        steps = ([lambda: recon(r, i)] if i < mbw else []) + (
-            [lambda: filter_mb(r, i - lag)] if i >= lag else [])
-        for k in rng.permutation(len(steps)) if lag else range(len(steps)):
-            steps[k]()
+        work = ([lambda: steps.recon(r, i)] if i < mbw else []) + (
+            [lambda: steps.filter(r, i - lag)] if i >= lag else [])
+        for k in rng.permutation(len(work)) if lag else range(len(work)):
+            work[k]()
         done[r] += 1
-    for p, (pw, _) in zip((y, u, v), work):
-        p.copy_(pw[:, 4:, 4:].to(torch.uint8))
+    steps.finish(y, u, v)
 
 
 def recon_filter_(y, u, v, residuals, luma_mode, bpred, chroma_mode,
