@@ -35,7 +35,8 @@ byte-equal to the port's plain encode of the distinct frames on the CPU
 make it while the card works).  K8 analysis (the flagship's segment
 alphas), K5 enc (pass 2 with per-image tables; for the flagship with
 trellis and segment ids, and pass 1 too, the kernel's other instance, with
-the default tables and segment ids), K6 token_stats (also against the host
+the default tables and segment ids), K6 token_stats (with the skip flags
+given, and derived in the kernel as pass 1 runs it; also against the host
 C++ token statistics) and K7
 enc_tables are each held bit-exact to their plain twins on the main
 path's card inputs; the payloads decode through K1-K4 bit-exact with the
@@ -100,8 +101,11 @@ the flagship's int8 prepack (K18) and the payloads finished from it, and
 the token lanes gathered over the group (the all_gather timed); then the
 group is destroyed.
 
-Prints the card's name and power limit, per-kernel timings (CUDA events;
-kernel beside plain twin and the kernel's bound), the encodes' per-stage
+Prints the card's name and power limit, per-kernel timings (CUDA events
+over each call, the wrapper's host work included; kernel beside plain twin
+and the kernel's bound; for K1, K4, K6-K8 and K18-K22 also the profiler's
+device time of the call's kernels; K9 also beside one in-place add over a
+strided view, the one PyTorch call that computes it), the encodes' per-stage
 host-clock split (both flows) and d2h bytes (the wire rows beside the
 dense arrays), the images by wire branch, the lossless decode's ms/img beside the host C++
 decode's, one JSON line of kernel records and, last,
@@ -182,6 +186,13 @@ WIRE_KERNELS = [
     ("wire", "webp_tpu_torch/csrc/wire.cu",
      "webp_tpu/ops/encode_wavefront2.py:1200 (+ :1178, :1149)"),
 ]
+# The flagship kernels no PR redesigned before K8 and K6, and those two:
+# name -> the __global__ functions one call launches, whose device time
+# the profiler reads beside the call's time by CUDA events (which holds the
+# wrapper's host work).
+FLAGSHIP_DEVICE = {"residual": ["residual_kernel"], "yuv2rgb": ["yuv2rgb_kernel"],
+                   "analysis": ["analysis_kernel"], "token_stats": ["token_stats_kernel"],
+                   "enc_tables": ["enc_tables_kernel"]}
 WIRE_SEED = 31  # the overflow case's arrays (tests/wire_inputs.py)
 STEERED_SEED = 20  # tests/token_inputs.py steered_lanes: 6 streams that carry
 CHAIN_SEED, CHAIN_PASSES = 7, (4, 16)  # the coder-step chain: seeded ops, passes over the ring
@@ -280,25 +291,56 @@ def timed(fn):
     return out, start.elapsed_time(stop)
 
 
-def device_ms(fn, reps: int, names) -> dict:
+def device_ms(fn, reps: int, names, tries: int = 3) -> dict:
     """Mean device time per call of fn(), in ms, of the kernels whose names
-    contain each of `names`, from a torch.profiler trace of `reps` calls
-    after a warm-up; None where the trace holds no device time for one."""
+    contain each of `names` ("" for every device op), from a torch.profiler
+    trace of `reps` calls after a warm-up; a trace that holds no device
+    time for one of them is taken again, up to `tries` traces; None where
+    none held it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = dict.fromkeys(names, 0.0)
-    for event in prof.key_averages():
-        for n in names:
-            if n in event.key:
-                total[n] += event.self_device_time_total  # us
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = dict.fromkeys(names, 0.0)
+        for event in prof.key_averages():
+            for n in names:
+                if n in event.key:
+                    total[n] += event.self_device_time_total  # us
+        if all(total.values()):
+            break
     return {n: t / reps / 1000 if t else None for n, t in total.items()}
+
+
+def device_times(label: str, dev, calls: dict) -> dict:
+    """name -> {kernel: device ms or None} for each name -> (fn, kernel
+    names) of `calls`, by device_ms; {} for each where the profiler fails
+    (a measurement aid, not a check) or the device is not a card."""
+    import torch
+
+    if torch.device(dev).type != "cuda":
+        return {k: {} for k in calls}
+    try:
+        return {k: device_ms(fn, 20, names) for k, (fn, names) in calls.items()}
+    except Exception as e:
+        print(f"[{label}] torch.profiler gave no device times: {e!r}", flush=True)
+        return {k: {} for k in calls}
+
+
+def device_total(times: dict):
+    """The summed device time of one call's kernels; None unless each was measured."""
+    vals = list(times.values())
+    return None if not vals or None in vals else sum(vals)
+
+
+def device_text(times: dict) -> str:
+    return ", ".join(f"{n or 'all ops'} " + ("not measured" if t is None else f"{t:.4f} ms")
+                     for n, t in times.items()) or "not measured"
 
 
 def nbytes(*tensors) -> int:
@@ -384,15 +426,16 @@ def handoff_ms(dev) -> float:
 
 
 def ptxas_report() -> list:
-    """The row-CTA kernel's three instances', K5's (both instances), K8's,
-    K12's and K13-K15's registers, shared memory and spills, from the
+    """The row-CTA kernel's three instances', K5's (both instances), K6's,
+    K8's, K12's and K13-K15's registers, shared memory and spills, from the
     build's ptxas report."""
     from webp_tpu_torch import _build
 
     names = {"rows_kernelILb1ELb0E": "recon", "rows_kernelILb0ELb1E": "loopfilter",
              "rows_kernelILb1ELb1E": "recon_filter",
              "enc_kernelILb0E": "enc<no trellis>", "enc_kernelILb1E": "enc<trellis>",
-             "analysis_kernel": "analysis", "coeff_tokens_kernel": "coeff_tokens",
+             "analysis_kernel": "analysis", "token_stats_kernel": "token_stats",
+             "coeff_tokens_kernel": "coeff_tokens",
              "mb_headers_kernel": "mb_headers", "bool_lanes_kernel": "bool_lanes",
              "coder_chain_kernel": "coder_chain",
              "predictor_rows_kernel": "predictor"}
@@ -575,9 +618,14 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
     # The fused kernel's twin is K2's then K3's, both warmed up just above.
     plain_ms["recon_filter"] = timed(lambda: recon_filter_plain_(
         *target_p, *recon_args, *lf_args, simple))[1]
+    dev_ms = device_times("decode", dev, {
+        "residual": (lambda: residual.residuals_sparse(*k1_args), FLAGSHIP_DEVICE["residual"]),
+        "yuv2rgb": (lambda: fancy_yuv420_to_rgb(*filtered, width, height),
+                    FLAGSHIP_DEVICE["yuv2rgb"])})
     for name, _, _ in DECODE_KERNELS:
-        print(f"{name}: {ms[name]:.4f} ms kernel, {plain_ms[name]:.4f} ms plain "
-              f"(batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
+        device = f", device time {device_text(dev_ms[name])}" if name in dev_ms else ""
+        print(f"{name}: {ms[name]:.4f} ms kernel (the call){device}, {plain_ms[name]:.4f} ms "
+              f"plain (batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
     # K3's branches depend on the pixels: its time on planes it has already
     # filtered, beside the time on the main path's planes above.
     refilter_ms = time_ms(lambda: loop_filter_(*work, *lf_args, simple), 20)
@@ -635,6 +683,7 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
               f"resident row CTAs {resident if isinstance(resident, str) else resident[name]} "
               f"for {BATCH * mbh} ({card})", flush=True)
     return {name: {"launches": launches[name], "max_abs_err": err[name], "ms": ms[name],
+                   **({"device_ms": device_total(dev_ms[name])} if name in dev_ms else {}),
                    "plain_ms": plain_ms[name], **bounds[name], "library_ms": None}
             for name, _, _ in DECODE_KERNELS}
 
@@ -804,7 +853,7 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     from webp_tpu_torch.ops.enc_tables import enc_tables, enc_tables_plain
     from webp_tpu_torch.ops.encode_wavefront import (encode_analysis_batch,
                                                      encode_analysis_batch_plain)
-    from webp_tpu_torch.ops.token_stats import token_stats, token_stats_plain
+    from webp_tpu_torch.ops.token_stats import token_stats, token_stats_levels, token_stats_plain
 
     mbw, mbh = (WIDTH + 15) // 16, (HEIGHT + 15) // 16
     nmb = mbw * mbh
@@ -895,9 +944,12 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
         err["enc"] = max(max_abs_err(pass1[k], pass1_p[k]) for k in pass1)
     stat_args = (pass1["luma_mode"], pass1["y2_levels"], pass1["y_levels"], pass1["uv_levels"],
                  edev.skip_flags(pass1), mbw, mbh)
+    # K6 by both routes: the skip flags given, and derived in the kernel (pass 1's).
+    lv_args = (*stat_args[:4], mbw, mbh)
     stats = token_stats(*stat_args)
     stats_p, plain_ms["token_stats"] = timed(lambda: token_stats_plain(*stat_args))
-    err["token_stats"] = max(max_abs_err(a, b) for a, b in zip(stats, stats_p))
+    err["token_stats"] = max(max_abs_err(a, b) for a, b in
+                             zip((*stats, *token_stats_levels(*lv_args)), (*stats_p, *stats_p)))
     for i, a in enumerate(edev.fetch(pass1)):  # the host C++ statistics of the token stream
         ctx = compute_contexts(a["luma_mode"], a["y2_levels"], a["y_levels"], a["uv_levels"],
                                mbw, mbh)
@@ -942,7 +994,7 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     # 5. Timings at the main path's shapes, kernel beside plain twin and bound.
     ms = {
         "enc": time_ms(lambda: encode_analysis_batch(*p2_args), 10),
-        "token_stats": time_ms(lambda: token_stats(*stat_args), 20),
+        "token_stats": time_ms(lambda: token_stats_levels(*lv_args), 20),
         "enc_tables": time_ms(lambda: enc_tables(probs), 20),
     }
     p1_ms = time_ms(lambda: encode_analysis_batch(*p1_args), 10)
@@ -959,9 +1011,15 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     }
     p1_bound = bound(nbytes(*planes_in) + nbytes(*pass1.values()),
                      enc_ops(BATCH * nmb, n_i4_1, min(n_try, 3), False))
+    dev_calls = {"token_stats": (lambda: token_stats_levels(*lv_args),
+                                 FLAGSHIP_DEVICE["token_stats"]),
+                 "enc_tables": (lambda: enc_tables(probs), FLAGSHIP_DEVICE["enc_tables"])}
     if segments:
         ms["analysis"] = time_ms(lambda: analyze_alphas_batch(y, u, v), 20)
         bounds["analysis"] = bound(nbytes(*planes_in, *alphas), BATCH * nmb * 48 * 160)
+        dev_calls["analysis"] = (lambda: analyze_alphas_batch(y, u, v),
+                                 FLAGSHIP_DEVICE["analysis"])
+    dev_ms = device_times(name, dev, dev_calls)
     shape = f"batch {BATCH} at {WIDTH}x{HEIGHT}; {card}"
     p1_plain = "not run" if p1_plain_ms is None else f"{p1_plain_ms:.4f} ms"
     print(f"[{name}] enc pass 1 (default tables, n_try {min(n_try, 3)}): {p1_ms:.4f} ms kernel, "
@@ -970,8 +1028,11 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     for k in (k for k in kernels if k not in wire_on):  # wire_phase prints K18-K20
         what = (f" pass 2 (per-image tables, n_try {n_try}{', trellis' if trellis else ''})"
                 if k == "enc" else "")
-        print(f"[{name}] {k}{what}: {ms[k]:.4f} ms kernel, {plain_ms[k]:.4f} ms plain, bound "
-              f"{bounds[k]['bound_ms']:.4f} ms by {bounds[k]['bound_by']} ({shape})", flush=True)
+        device = (f" (the call), device time {device_text(dev_ms[k])} (profiler)"
+                  if k in dev_ms else "")
+        print(f"[{name}] {k}{what}: {ms[k]:.4f} ms kernel{device}, {plain_ms[k]:.4f} ms plain, "
+              f"bound {bounds[k]['bound_ms']:.4f} ms by {bounds[k]['bound_by']} ({shape})",
+              flush=True)
     stage_ms, nb, staged = encode_stages(rgbs, dev, method, segments)
     tok_stage_ms, tok_nb, tok_staged = encode_stages(rgbs, dev, method, segments, True)
     if staged != payloads[True] or tok_staged != payloads[True]:
@@ -1002,6 +1063,7 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     # No single PyTorch call computes any of these functions.
     wire_records = wire_phase(dev, card, name, pass2)
     records = {k: {"launches": launches[k], "max_abs_err": err[k], "ms": ms[k],
+                   **({"device_ms": device_total(dev_ms[k])} if k in dev_ms else {}),
                    "plain_ms": plain_ms[k], **bounds[k], "library_ms": None}
                for k in kernels if k not in wire_records}
     records.update({k: {"launches": launches[k], **r} for k, r in wire_records.items()})
@@ -1103,13 +1165,7 @@ def wire_phase(dev, card: str, name: str, pass2) -> dict:
              "pack_levels": (lambda: pack_levels_mb(pre[0], cap), ["pack_levels_kernel"]),
              "wire": (lambda: wire.wire(*packed, *pre[1:]), ["wire_mb_kernel", "wire_list_kernel"])}
     ms = {k: time_ms(fn, 20) for k, (fn, _) in calls.items()}
-    on_card = torch.device(dev).type == "cuda"
-    dev_ms = {k: {} for k in calls}
-    try:
-        if on_card:
-            dev_ms = {k: device_ms(fn, 20, names) for k, (fn, names) in calls.items()}
-    except Exception as e:  # the profiler is a measurement aid, not a check
-        print(f"[{name}] torch.profiler gave no device times: {e!r}", flush=True)
+    dev_ms = device_times(name, dev, calls)
     n_mb = B * nmb
     bounds = {
         "prepack": bound(nbytes(*pass2.values(), *pre), n_mb * wire.SLOTS * OPS_PREPACK_SLOT),
@@ -1119,9 +1175,8 @@ def wire_phase(dev, card: str, name: str, pass2) -> dict:
     }
     shape = f"batch {B} at {WIDTH}x{HEIGHT}; {card}"
     for k, _, _ in WIRE_KERNELS:
-        kernel_ms = ", ".join(f"{n} " + ("not measured" if t is None else f"{t:.4f} ms")
-                              for n, t in dev_ms[k].items()) or "not measured"
-        print(f"[{name}] {k}: {ms[k]:.4f} ms kernel (the call), device time {kernel_ms} "
+        print(f"[{name}] {k}: {ms[k]:.4f} ms kernel (the call), device time "
+              f"{device_text(dev_ms[k])} "
               f"(profiler), {plain_ms[k]:.4f} ms plain, bound {bounds[k]['bound_ms']:.4f} ms by "
               f"{bounds[k]['bound_by']} ({shape})", flush=True)
 
@@ -1150,8 +1205,9 @@ def wire_phase(dev, card: str, name: str, pass2) -> dict:
           f"fetch ({nbytes(*pass2.values()) // B} B/img, int32 host arrays) "
           f"{statistics.median(runs['dense']):.4f} {[round(x, 4) for x in runs['dense']]}; the "
           f"host unpack alone, one thread, {unpack} ({card})", flush=True)
-    return {k: {"max_abs_err": err[k], "ms": ms[k], "plain_ms": plain_ms[k], **bounds[k],
-                "library_ms": None} for k, _, _ in WIRE_KERNELS}
+    return {k: {"max_abs_err": err[k], "ms": ms[k], "device_ms": device_total(dev_ms[k]),
+                "plain_ms": plain_ms[k], **bounds[k], "library_ms": None}
+            for k, _, _ in WIRE_KERNELS}
 
 
 def token_phase(dev, card: str, name: str, pass2, probs, sid, segs, mbw: int, mbh: int) -> dict:
@@ -1452,20 +1508,16 @@ def flat_sparse_phase(dev, card: str, keep: dict) -> dict:
 
     if not torch.equal(pack_library(), vals) or not torch.equal(expand_library(), lv8):
         raise AssertionError("the library calls disagree with K21 / K22")
-    calls = {"pack_flat": lambda: sparse.pack_levels(lv8, cap),
-             "expand_flat": lambda: sparse.expand_levels(bitmap, vals, N)}
-    names = {"pack_flat": ["tile_count_kernel", "tile_scan_kernel", "pack_flat_kernel"],
-             "expand_flat": ["tile_count_kernel", "tile_scan_kernel", "expand_flat_kernel"]}
-    ms = {k: time_ms(fn, 20) for k, fn in calls.items()}
+    calls = {"pack_flat": (lambda: sparse.pack_levels(lv8, cap),
+                           ["tile_count_kernel", "tile_scan_kernel", "pack_flat_kernel"]),
+             "expand_flat": (lambda: sparse.expand_levels(bitmap, vals, N),
+                             ["tile_count_kernel", "tile_scan_kernel", "expand_flat_kernel"])}
+    ms = {k: time_ms(fn, 20) for k, (fn, _) in calls.items()}
     library_ms = {"pack_flat": time_ms(pack_library, 20), "expand_flat": time_ms(expand_library, 20)}
     plain_ms = {}
     _, plain_ms["pack_flat"] = timed(lambda: sparse.pack_levels_plain(lv8, cap))
     _, plain_ms["expand_flat"] = timed(lambda: sparse.expand_levels_plain(bitmap, vals, N))
-    dev_ms = {k: {} for k in calls}
-    try:
-        dev_ms = {k: device_ms(fn, 20, names[k]) for k, fn in calls.items()}
-    except Exception as e:  # the profiler is a measurement aid, not a check
-        print(f"[flat sparse] torch.profiler gave no device times: {e!r}", flush=True)
+    dev_ms = device_times("flat sparse", dev, calls)
     # The pack reads the levels and writes the bitmap, the capped values and
     # the flags; the expansion reads the bitmap and each image's `count`
     # values and writes the levels.
@@ -1474,14 +1526,14 @@ def flat_sparse_phase(dev, card: str, keep: dict) -> dict:
     bounds = {k: bound(moved[k], BATCH * N * OPS_FLAT_SLOT) for k in calls}
     shape = f"batch {BATCH} at {WIDTH}x{HEIGHT}, N {N}, cap {cap}; {card}"
     for k in calls:
-        kernel_ms = ", ".join(f"{n} " + ("not measured" if t is None else f"{t:.4f} ms")
-                              for n, t in dev_ms[k].items()) or "not measured"
-        print(f"[flat sparse] {k}: {ms[k]:.4f} ms kernel (the call), device time {kernel_ms} "
+        print(f"[flat sparse] {k}: {ms[k]:.4f} ms kernel (the call), device time "
+              f"{device_text(dev_ms[k])} "
               f"(profiler), {plain_ms[k]:.4f} ms plain, {library_ms[k]:.4f} ms library (one "
               f"call per image), bound {bounds[k]['bound_ms']:.4f} ms by {bounds[k]['bound_by']} "
               f"({shape})", flush=True)
     return {k: {"launches": keep["flat_launches"][k], "max_abs_err": err[k], "ms": ms[k],
-                "plain_ms": plain_ms[k], **bounds[k], "library_ms": library_ms[k]} for k in calls}
+                "device_ms": device_total(dev_ms[k]), "plain_ms": plain_ms[k], **bounds[k],
+                "library_ms": library_ms[k]} for k in calls}
 
 
 def k5_probe_phase(dev, card: str) -> int:
@@ -1742,7 +1794,27 @@ def lossless_phase(dev, card: str, keep: dict) -> dict:
               f"{t_plain:.4f} ms plain, bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
               f"({card})", flush=True)
         if kname not in records:  # the photo's predictor, the full width
-            records[kname] = {"ms": t, "plain_ms": t_plain, **b}
+            records[kname] = {"ms": t, "plain_ms": t_plain, **b, "library_ms": None}
+    # K9 as one PyTorch call: green added into red and blue through a
+    # strided view, in place (uint8 wraps as the kernel does).
+    _, sg_in, _, _ = steps[("photo", "subtract_green")]
+    sg_work = sg_in.clone()
+    sg_work[..., 0:3:2].add_(sg_work[..., 1:2])
+    if max_abs_err(sg_work, K.subtract_green_(sg_in.clone())):
+        raise AssertionError("the add_ over px[..., 0:3:2] differs from K9")
+    sg_lib = time_ms(lambda: sg_work[..., 0:3:2].add_(sg_work[..., 1:2]), 20,
+                     lambda: sg_work.copy_(sg_in))
+    records["subtract_green"]["library_ms"] = sg_lib
+    # Each call's device time (every device op of the call; both run in place).
+    sg_dev = device_times("lossless", dev, {
+        "kernel": (lambda: K.subtract_green_(sg_work), [""]),
+        "library": (lambda: sg_work[..., 0:3:2].add_(sg_work[..., 1:2]), [""])})
+    records["subtract_green"]["device_ms"] = device_total(sg_dev["kernel"])
+    print(f"[lossless] subtract_green as one call, px[..., 0:3:2].add_(px[..., 1:2]) "
+          f"({tuple(sg_in.shape)}): {sg_lib:.4f} ms, device time "
+          f"{device_text(sg_dev['library'])}; the kernel's call "
+          f"{records['subtract_green']['ms']:.4f} ms, device time "
+          f"{device_text(sg_dev['kernel'])} ({card})", flush=True)
     k12_phase(dev, card, steps, keep["handoff_ms"])
     u_ms = time_ms(lambda: K.color_indexing(px_u, table_u, 200, WIDTH), 20)
     u_plain = time_ms(lambda: K.color_indexing_plain(px_u, table_u, 200, WIDTH), 5)
@@ -1773,9 +1845,9 @@ def lossless_phase(dev, card: str, keep: dict) -> dict:
         print(f"[lossless] {name}: decode_lossless_batch_device {e2e:.4f} ms/img (host clock; "
               f"its threaded entropy pass alone {entropy:.4f}); host C++ vp8l_decode "
               f"{host:.4f} ms/img, one thread ({card})", flush=True)
-    # One PyTorch call computes K11 only unpacked (above); none computes
-    # K9, K10 or K12 (a wavefront recurrence).
-    return {k: {"launches": launches[k], "max_abs_err": err[k], **records[k], "library_ms": None}
+    # One PyTorch call computes K9 (above) and K11 only unpacked (above);
+    # none computes K10 or K12 (a wavefront recurrence).
+    return {k: {"launches": launches[k], "max_abs_err": err[k], **records[k]}
             for k, _, _ in LOSSLESS_KERNELS}
 
 

@@ -10,7 +10,10 @@ that is not a whole number of MBs) and seeded random keyframes
 (`random_vp8.py`: both loop filter kinds, escapes, several partitions).
 Encode inputs are seeded synthetic frames (`synthetic_rgb.py`), seeded
 level arrays, seeded token probabilities and seeded segment ids; the
-encode kernels' twins run on CPU copies of the same inputs.  Lossless
+encode kernels' twins run on CPU copies of the same inputs; K8 and K6 also
+on `stats_inputs.py`'s seeded planes and level arrays (batch 64 at
+768x512, one MB column, all B-predicted, all skipped, short CTA runs), with
+the twins on the same card tensors.  Lossless
 inputs are seeded pixels, modes, coefficients and palettes, and seeded
 VP8L streams (`random_vp8l.py`) checked against the host C++ decode and
 their sources.  The token coder's inputs (`token_inputs.py`) are seeded
@@ -366,6 +369,86 @@ def test_analysis_kernel_matches_plain(cuda, width, height):
     assert _build.LAUNCHES["analysis"] == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# K8 and K6 as row-run CTAs (tests/stats_inputs.py): (planes or level
+# arrays, batch, mbw, mbh, MBs a CTA (None: the wrapper's)[, rows a scan
+# chunk]).
+ANALYSIS_ROWS = {"b64_768x512": ("synthetic", 64, 48, 32, None),
+                 "one_mb_column": ("mixed", 8, 1, 32, None), "one_mb": ("noise", 8, 1, 1, None),
+                 "flat_runs_64": ("flat", 8, 48, 32, 64), "noise_runs": ("noise", 3, 13, 3, 5),
+                 "b8_768x512_runs": ("mixed", 8, 48, 32, 7)}
+
+
+@pytest.mark.parametrize("case", list(ANALYSIS_ROWS))
+def test_analysis_rows_kernel_matches_plain(cuda, case):
+    from stats_inputs import planes
+
+    kind, batch, mbw, mbh, seg = ANALYSIS_ROWS[case]
+    if kind == "synthetic":
+        frames = [synthetic_frame(mbw * 16, mbh * 16, s) for s in (11, 12)]
+        yuv = edev.rgb_to_planes([frames[i % 2] for i in range(batch)])
+    else:
+        yuv = planes(kind, batch, mbw, mbh, seed=batch + mbw)
+    y, u, v = edev.upload(yuv, cuda)
+    want = analyze_alphas_batch_plain(y, u, v)
+    before = _build.LAUNCHES["analysis"]
+    from webp_tpu_torch.ops import analysis
+
+    for _ in range(2):  # the kept-zeroed sums and tickets serve the next call too
+        got = (analyze_alphas_batch(y, u, v) if seg is None
+               else analysis._analysis_kernel(y, u, v, seg))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert _build.LAUNCHES["analysis"] == before + 2
+
+
+TOKEN_ROWS = {"b64_768x512": (64, 48, 32, {}, None, None),
+              "one_mb_column": (8, 1, 32, {}, None, None),
+              "all_b_runs_64": (8, 48, 32, {"all_b": True}, 64, 8),
+              "mostly_b_runs_chunks": (4, 48, 32, {"b_share": 0.9}, 5, 3),
+              "all_skipped": (4, 48, 32, {"skip_all": True}, None, None),
+              "unclipped_runs": (3, 13, 9, {"clip": False}, 4, 2)}
+
+
+@pytest.mark.parametrize("case", list(TOKEN_ROWS))
+def test_token_stats_rows_kernel_matches_plain(cuda, case):
+    """K6 with the skip flags given and derived, twice (its kept-zeroed
+    counters serve the next call), against the twin on the same card
+    tensors; on one case also against the host C++ statistics."""
+    from stats_inputs import level_arrays
+    from webp_tpu_torch.ops import token_stats as K6
+
+    batch, mbw, mbh, opts, seg, chunk = TOKEN_ROWS[case]
+    a = {k: torch.from_numpy(v).to(cuda)
+         for k, v in level_arrays(batch, mbw, mbh, seed=batch + mbh, **opts).items()}
+    lv = (a["luma_mode"], a["y2_levels"], a["y_levels"], a["uv_levels"])
+    skipped = K6.skip_flags(*lv[1:])
+    want = token_stats_plain(*lv, skipped, mbw, mbh)
+    before = _build.LAUNCHES["token_stats"]
+    shape = () if seg is None else (seg, chunk)
+    for given in (skipped, None, skipped):
+        got = K6._token_stats_kernel(*lv, given, mbw, mbh, *shape)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    if seg is None:
+        for got in (token_stats(*lv, skipped, mbw, mbh), K6.token_stats_levels(*lv, mbw, mbh)):
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+    assert _build.LAUNCHES["token_stats"] == before + 3 + 2 * (seg is None)
+    if case == "b64_768x512":
+        from webp_tpu_torch.encode.contexts import compute_contexts
+        from webp_tpu_torch.encode import vp8 as tvp8
+
+        for i in range(2):
+            h = {k: t[i].cpu().numpy().astype(np.int32) for k, t in a.items()}
+            ctx = compute_contexts(h["luma_mode"], h["y2_levels"], h["y_levels"], h["uv_levels"],
+                                   mbw, mbh)
+            levels, meta = tvp8.token_stream(h, ctx, tvp8.skip_flags(h), mbw)
+            for g, host in zip(want, native.vp8_token_stats(levels, meta)):
+                assert (g[i].cpu().numpy() == host).all()
 
 
 @pytest.mark.parametrize("n_try,trellis,segments", [(3, False, True), (4, True, True),

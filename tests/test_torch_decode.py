@@ -143,11 +143,13 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|webp_tpu)(?:[.\s]|$)", re.M)
 
 
 def test_package_imports_no_jax_module():
-    """No module of the port, nor `chip_smoke.py` or the input generators it
-    uses, imports jax or the JAX package `webp_tpu`."""
+    """No module of the port, nor `chip_smoke.py`, the input generators it
+    and the card tests use, or the statistics kernels' timing tool, imports
+    jax or the JAX package `webp_tpu`."""
     paths = sorted((REPO / "webp_tpu_torch").rglob("*.py"))
     paths += [REPO / "chip_smoke.py", REPO / "tests" / "random_vp8.py",
-              REPO / "tests" / "synthetic_rgb.py"]
+              REPO / "tests" / "synthetic_rgb.py", REPO / "tests" / "stats_inputs.py",
+              REPO / "tools" / "stats_split.py"]
     for path in paths:
         found = _IMPORT.findall(path.read_text())
         assert not found, (path, found)

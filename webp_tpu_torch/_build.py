@@ -89,15 +89,17 @@ _SIGNATURES = {
     ],
     "webp_analysis": [
         _P, _L, _P, _L, _P, _L,   # y, u, v planes (+ batch strides)
-        _I, _I, _I,          # mbw, mbh, batch
-        _P, _P,              # alpha out [B, nmb] int32, chroma-alpha sums [B] int64 (zeroed)
+        _I, _I, _I, _I,      # mbw, mbh, batch, MBs a CTA takes from a row
+        _P, _P,              # alpha out [B, nmb] int32, uv_alpha out [B] int32
+        _P,                  # per-image (chroma sum, ticket) [B, 2] uint64, kept zeroed
         _P,
     ],
     "webp_token_stats": [
-        _P, _L, _P, _L,      # luma_mode, skipped (+ batch strides)
+        _P, _L, _P, _L,      # luma_mode, skipped or null (+ batch strides)
         _P, _P, _P,          # y2, y, uv levels
-        _I, _I, _I,          # mbw, mbh, batch
+        _I, _I, _I, _I, _I,  # mbw, mbh, batch, MBs a CTA takes from a row, rows a scan chunk
         _P,                  # (totals, ones) out
+        _P,                  # per-image counters and ticket [B, 2113] int32, kept zeroed
         _P,
     ],
     "webp_enc_tables": [
@@ -382,6 +384,28 @@ def device_constant(name: str, values, device):
         if t is None:
             t = torch.from_numpy(np.ascontiguousarray(values, np.int32).reshape(-1)).to(device)
             _constants[key] = t
+    return t
+
+
+_scratch = {}
+
+
+def kept_zeroed(name: str, numel: int, dtype, device):
+    """A persistent buffer of at least `numel` elements, zero when made, for
+    a kernel that leaves it zero when it ends (per-image sums and tickets
+    that an image's last CTA reads and resets), so that a call needs no
+    memset.  One per (name, device, current stream): calls on one stream
+    run in order and so never share it in flight."""
+    import torch
+
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    key = (name, index, torch.cuda.current_stream(index).cuda_stream)
+    with _lock:
+        t = _scratch.get(key)
+        if t is None or t.numel() < numel:
+            t = torch.zeros(numel, dtype=dtype, device=torch.device("cuda", index))
+            _scratch[key] = t
     return t
 
 

@@ -18,6 +18,13 @@ static __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* 
                  ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src) : "memory");
 }
 
+// One 16-byte asynchronous copy from global to shared memory, both 16-byte
+// aligned, bypassing L1 (data read once).
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src) : "memory");
+}
+
 static __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
 
 // Wait until at most N of this thread's committed groups are in flight.

@@ -76,7 +76,7 @@ from ..ops.enc_tables import enc_tables
 from ..ops.encode_wavefront import OUT_FIELDS, encode_analysis_batch
 from ..ops import token_ops
 from ..ops.boolenc2 import Lanes
-from ..ops.token_stats import token_stats
+from ..ops.token_stats import token_stats_levels
 from ..ops.wire import encode_analysis_batch_packed, unpack_dense_wire, unpack_wire
 from . import vp8
 from .analysis import MIN_MBS, setup_segments_from_alphas
@@ -140,11 +140,12 @@ def params_for(segs, quality: int, device):
 
 def encode_analysis_stats_batch(y, u, v, P: EncParams, tbl: EncTables, n_try: int, sid=None):
     """Pass 1: K5 (no trellis) then K6 on one stream; (totals, ones) [B, 4,
-    8, 3, 11] int32 on the device.  The levels stay on the device."""
+    8, 3, 11] int32 on the device.  The levels stay on the device; K6
+    derives the skip flags from them."""
     out = encode_analysis_batch(y, u, v, P, tbl, n_try, False, sid)
     mbw, mbh = y.shape[2] // 16, y.shape[1] // 16
-    return token_stats(out["luma_mode"], out["y2_levels"], out["y_levels"], out["uv_levels"],
-                       skip_flags(out), mbw, mbh)
+    return token_stats_levels(out["luma_mode"], out["y2_levels"], out["y_levels"],
+                              out["uv_levels"], mbw, mbh)
 
 
 def adapt_probs(totals: np.ndarray, ones: np.ndarray) -> np.ndarray:

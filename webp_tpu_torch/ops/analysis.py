@@ -9,7 +9,10 @@ luma and chroma keep their better mode.
 
 `analyze_alphas_batch` launches the CUDA kernel (`csrc/analysis.cu`) for
 CUDA tensors and runs the plain torch twin `analyze_alphas_batch_plain`
-for CPU ones.
+for CPU ones.  `analyze_alphas_rows_plain` is the twin of the kernel's
+schedule: CTAs of one MB row's run of MBs over staged pixel tiles, MBs two
+at a time in three rounds of 32 lanes with per-lane counts summed per bin,
+and the images' chroma sums finished by each image's last CTA.
 """
 
 from __future__ import annotations
@@ -19,6 +22,10 @@ import torch
 from .. import _build
 from .encode_wavefront import _blocks
 
+# MBs a CTA of the kernel takes from one MB row (at most csrc/analysis.cu's
+# kSeg = 64): 16 was the fastest of 8-64 at batch 8 and 64, 768x512 on an
+# H100 (tools/stats_split.py --segs).
+SEG_MBS = 16
 MAX_ALPHA = 255
 ALPHA_SCALE = 2 * MAX_ALPHA
 MAX_COEFF_THRESH = 31
@@ -110,11 +117,148 @@ def analyze_alphas_batch(y, u, v):
     dev = _build.same_device(y, u, v)
     if dev.type == "cpu":
         return analyze_alphas_batch_plain(y, u, v)
+    return _analysis_kernel(y, u, v, SEG_MBS)
+
+
+def _analysis_kernel(y, u, v, seg: int):
+    """One launch of K8 with CTAs of `seg` MBs (1..64) of an MB row."""
+    dev = y.device
     B, H, W = y.shape
     mbh, mbw = H // 16, W // 16
     alpha = torch.empty((B, mbh * mbw), dtype=torch.int32, device=dev)
-    uv_sum = torch.zeros(B, dtype=torch.int64, device=dev)
+    uv_alpha = torch.empty(B, dtype=torch.int32, device=dev)
+    acc = _build.kept_zeroed("analysis", 2 * B, torch.int64, dev)
     _build.launch("analysis", "webp_analysis", dev, *_build.plane(y, B, H, W),
                   *_build.plane(u, B, H // 2, W // 2), *_build.plane(v, B, H // 2, W // 2),
-                  mbw, mbh, B, alpha.data_ptr(), uv_sum.data_ptr())
-    return alpha, (uv_sum // (mbh * mbw)).to(torch.int32)
+                  mbw, mbh, B, seg, alpha.data_ptr(), uv_alpha.data_ptr(), acc.data_ptr())
+    return alpha, uv_alpha
+
+
+# ---- the kernel's schedule ---------------------------------------------------
+
+
+def _stage(plane, my: int, x0: int, n: int, size: int):
+    """A CTA's staged tile [size + 1, 1 + n * size] of an image's plane: the
+    row above the MB row (127 above the frame, the corner included), then
+    its rows; column 0 is the column left of the run (129 left of the frame)."""
+    tile = torch.full((size + 1, 1 + n * size), 129, dtype=torch.int32)
+    for r in range(size + 1):
+        gy = my * size - 1 + r
+        if gy < 0:
+            tile[r] = 127
+            continue
+        tile[r, 1:] = plane[gy, x0 * size:(x0 + n) * size]
+        if x0 > 0:
+            tile[r, 0] = plane[gy, x0 * size - 1]
+    return tile
+
+
+def _lane_blocks(tiles, plane, cols, n4: int, tm, dc):
+    """Residual blocks [32, 4, 4] of 32 lanes: lane l's is the 4x4 block
+    l % (n4 * n4) (raster) of the MB whose first column is cols[l] in tile
+    tiles[plane[l]], under TM where tm[l], else DC dc[l]."""
+    blk = torch.arange(32) % (n4 * n4)
+    r = ((blk // n4) * 4)[:, None, None] + torch.arange(4)[None, :, None]
+    c = ((blk % n4) * 4)[:, None, None] + torch.arange(4)[None, None, :]
+    org, p = cols[:, None, None], plane[:, None, None]
+    src = tiles[p, 1 + r, org + c]
+    pred = (tiles[p, 1 + r, org - 1] + tiles[p, 0, org + c] - tiles[p, 0, org - 1]).clamp(0, 255)
+    return src - torch.where(tm[:, None, None], pred, dc[:, None, None])
+
+
+def _round_alphas(tiles, plane, cols, n4: int, tm, dc, counted, width: int):
+    """One 32-lane round: each counted lane adds its block's 16 bins to its
+    column of a [32 bins, 32 lanes] tile, lane b sums row b over each group
+    of `width` lanes; the groups' alphas."""
+    coef = _analysis_dct(_lane_blocks(tiles, plane, cols, n4, tm, dc)).reshape(32, 16)
+    bins = (coef.abs() >> 3).clamp_max(MAX_COEFF_THRESH)
+    cnt = torch.zeros((32, 32), dtype=torch.int32)
+    lanes = torch.arange(32)[:, None].expand(32, 16)
+    ones = counted[:, None].expand(32, 16).to(torch.int32)
+    cnt.index_put_((bins.reshape(-1), lanes.reshape(-1)), ones.reshape(-1), accumulate=True)
+    out = []
+    for g in range(32 // width):
+        sums = cnt[:, g * width:(g + 1) * width].sum(1)
+        mx = int(sums.max())
+        nz = torch.nonzero(sums > 0)
+        last = int(nz.max()) if len(nz) else 1
+        out.append(ALPHA_SCALE * last // mx if mx > 1 else 0)
+    return out
+
+
+def _dc(total: int, above: bool, left: bool, log2n: int) -> int:
+    if not (above or left):
+        return 128
+    shf = log2n - 1 + above + left
+    return (total + (1 << (shf - 1))) >> shf
+
+
+def analyze_alphas_rows_plain(y, u, v, seg: int = SEG_MBS, order=None, sums=None):
+    """Twin of the K8 kernel's schedule (CPU).  CTAs (image, MB row, run of
+    <= seg MBs), in `order` (indices into their list in (image, row, run)
+    order; all in order by default), each over its staged tiles: MBs two at
+    a time, the first's luma (lane = mode * 16 + block), the second's, then
+    both chromas (lane = MB * 16 + mode * 8 + plane * 4 + block), each MB's
+    DC from its neighbour row and column; per image a chroma sum and a
+    ticket, the image's last CTA writing floor(sum / nmb) and resetting both
+    (and, where `sums` is a dict, the sum at sums[image])."""
+    B, H, W = y.shape
+    mbh, mbw = H // 16, W // 16
+    nseg = -(-mbw // seg)
+    ctas = [(b, my, s) for b in range(B) for my in range(mbh) for s in range(nseg)]
+    if order is not None:
+        ctas = [ctas[i] for i in order]
+    planes = [p.cpu().to(torch.int32) for p in (y, u, v)]
+    alpha = torch.full((B, mbh * mbw), -1, dtype=torch.int32)
+    uv_alpha = torch.full((B,), -1, dtype=torch.int32)
+    acc = [[0, 0] for _ in range(B)]
+    lanes = torch.arange(32)
+    for b, my, s in ctas:
+        x0 = s * seg
+        n = min(seg, mbw - x0)
+        ys = _stage(planes[0][b], my, x0, n, 16)
+        cs = [_stage(p[b], my, x0, n, 8) for p in planes[1:]]
+        above = my > 0
+        part = 0
+        for i0 in range(0, n, 2):
+            has2 = i0 + 1 < n
+            best_y = []
+            for i in range(i0, i0 + 1 + has2):
+                left = x0 + i > 0
+                org = 1 + i * 16
+                nb = torch.where(lanes < 16, ys[0, org + lanes % 16] * above,
+                                 ys[1 + lanes % 16, org - 1] * left)
+                dc = _dc(int(nb.sum()), above, left, 4)
+                a = _round_alphas(ys[None], lanes * 0, torch.full((32,), org), 4, lanes >= 16,
+                                  torch.full((32,), dc), torch.ones(32, dtype=torch.bool), 16)
+                best_y.append(max(a))
+            # Chroma: the DC of (MB, plane) from the 8-lane segment lane >> 3.
+            seg_dc = torch.zeros(32, dtype=torch.int32)
+            for k in range(4):
+                sm, sp = k >> 1, k & 1
+                if sm and not has2:
+                    continue
+                org = 1 + (i0 + sm) * 8
+                left = x0 + i0 + sm > 0
+                total = int(cs[sp][0, org:org + 8].sum()) * above
+                total += int(cs[sp][1:9, org - 1].sum()) * left
+                seg_dc[8 * k:8 * k + 8] = _dc(total, above, left, 3)
+            mb, mode, plane = lanes >> 4, (lanes >> 3) & 1, (lanes >> 2) & 1
+            dc = seg_dc[(mb << 4) | (plane << 3)]
+            live = (mb == 0) | has2  # the lanes of a missing second MB count nothing
+            a = _round_alphas(torch.stack(cs), plane, torch.where(live, 1 + (i0 + mb) * 8, 1), 2,
+                              mode == 1, dc, live, 8)
+            best_uv = [max(a[0], a[1]), max(a[2], a[3])]
+            for j in range(1 + has2):
+                m = my * mbw + x0 + i0 + j
+                a = (3 * best_y[j] + best_uv[j] + 2) >> 2
+                alpha[b, m] = max(0, min(MAX_ALPHA, MAX_ALPHA - a))
+                part += best_uv[j]
+        acc[b][0] += part
+        acc[b][1] += 1
+        if acc[b][1] == mbh * nseg:
+            uv_alpha[b] = acc[b][0] // (mbh * mbw)
+            if sums is not None:
+                sums[b] = acc[b][0]
+            acc[b] = [0, 0]
+    return alpha, uv_alpha

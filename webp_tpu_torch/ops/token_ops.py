@@ -46,7 +46,7 @@ from ..common import vp8_tables as T
 from ..encode.boolenc import tree_paths
 from .boolenc2 import (INIT_STATE, Lanes, LaneCoderPlain, bool_encode_lanes_plain, carry_words,
                        lane_coder_plain)
-from .token_stats import compute_contexts
+from .token_stats import compute_contexts, skip_flags
 
 # ---- static tables --------------------------------------------------------
 
@@ -193,12 +193,6 @@ def block_ops(levels, plane, first, ctx0, probs_flat):
     bit = lay([tbit, ebit, sbit], tp_bit[0, 0].expand(*lead, _TP_MAX)).to(torch.int32)
     valid = lay([tvalid, evalid, svalid], eb_valid)
     return prob, bit, valid
-
-
-def skip_flags(y2_levels, y_levels, uv_levels):
-    """[B, nmb] bool: the MB carries no nonzero level."""
-    return ((y_levels == 0).all(-1).all(-1) & (uv_levels == 0).all(-1).all(-1)
-            & (y2_levels == 0).all(-1))
 
 
 def _pad_lanes(streams, dev):
