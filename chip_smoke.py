@@ -618,14 +618,22 @@ def decode_phase(dev, card: str, keep: dict) -> dict:
     # The fused kernel's twin is K2's then K3's, both warmed up just above.
     plain_ms["recon_filter"] = timed(lambda: recon_filter_plain_(
         *target_p, *recon_args, *lf_args, simple))[1]
+    dense_ms = time_ms(lambda: residual.residuals_dense(i16buf, *mb), 50)
     dev_ms = device_times("decode", dev, {
         "residual": (lambda: residual.residuals_sparse(*k1_args), FLAGSHIP_DEVICE["residual"]),
+        "residual_dense": (lambda: residual.residuals_dense(i16buf, *mb),
+                           FLAGSHIP_DEVICE["residual"]),
         "yuv2rgb": (lambda: fancy_yuv420_to_rgb(*filtered, width, height),
                     FLAGSHIP_DEVICE["yuv2rgb"])})
     for name, _, _ in DECODE_KERNELS:
         device = f", device time {device_text(dev_ms[name])}" if name in dev_ms else ""
         print(f"{name}: {ms[name]:.4f} ms kernel (the call){device}, {plain_ms[name]:.4f} ms "
               f"plain (batch {BATCH} at {WIDTH}x{HEIGHT}; {card})", flush=True)
+    dense_bound = bound(nbytes(i16buf, *mb, res, do_sub), BATCH * nmb * 25 * (16 + 96))
+    print(f"residual from dense int16 levels (the overflow route): {dense_ms:.4f} ms kernel (the "
+          f"call), device time {device_text(dev_ms['residual_dense'])}, bound "
+          f"{dense_bound['bound_ms']:.4f} ms by {dense_bound['bound_by']} (batch {BATCH} at "
+          f"{WIDTH}x{HEIGHT}; {card})", flush=True)
     # K3's branches depend on the pixels: its time on planes it has already
     # filtered, beside the time on the main path's planes above.
     refilter_ms = time_ms(lambda: loop_filter_(*work, *lf_args, simple), 20)

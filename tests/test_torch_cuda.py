@@ -6,8 +6,10 @@ file imports no jax, so it runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -q
 
 Decode inputs are small host-encoded mixed frames (I4 and I16 MBs, a size
-that is not a whole number of MBs) and seeded random keyframes
-(`random_vp8.py`: both loop filter kinds, escapes, several partitions).
+that is not a whole number of MBs), seeded random keyframes
+(`random_vp8.py`: both loop filter kinds, escapes, several partitions) and
+`lane_inputs.py`'s K1 and K4 edge cases (escape runs at CTA edges, a full
+escape list, MBs past cap; odd widths at batch 2; unaligned inputs).
 Encode inputs are seeded synthetic frames (`synthetic_rgb.py`), seeded
 level arrays, seeded token probabilities and seeded segment ids; the
 encode kernels' twins run on CPU copies of the same inputs; K8 and K6 also
@@ -57,6 +59,7 @@ from recon_inputs import random_inputs
 from sparse_inputs import flat_cases
 from random_vp8l import PALETTE, SUBTRACT_GREEN, color, predictor, quantize, vp8l_stream, with_alpha
 from synthetic_rgb import synthetic_frame
+from lane_inputs import K1_CASES, K4_SIZES, k1_case, k4_planes
 from token_inputs import (CARRY_PATTERNS, header_inputs, prefix_coders, steered_lanes,
                           token_arrays)
 from torch_fixtures import encode_frame, force_escapes, mixed_payloads, scalar_decode
@@ -166,6 +169,103 @@ def test_yuv2rgb_kernel_matches_plain(cuda, width, height):
     torch.cuda.synchronize()
     assert _build.LAUNCHES["yuv2rgb"] == before + 1
     assert torch.equal(got, want)
+
+
+def _offset(a: np.ndarray, device, by: int = 1):
+    """A copy of `a` on `device` whose data starts `by` elements past an
+    allocation's start (so off every 16-byte boundary)."""
+    buf = torch.zeros(a.size + by, dtype=torch.from_numpy(a).dtype, device=device)
+    view = buf[by:].view(a.shape)
+    view.copy_(torch.from_numpy(a))
+    return view
+
+
+@pytest.mark.parametrize("name", list(K1_CASES))
+@pytest.mark.parametrize("form", ["sparse", "dense_int16", "sparse_unaligned",
+                                  "dense_unaligned"])
+def test_residual_kernel_edge_cases(cuda, name, form):
+    """lane_inputs.py's K1 cases (escape runs at the CTA edges and past a
+    warp, a full escape list with no sentinel, MBs at and past cap; 15 MBs),
+    also with the levels, bitmap and dequant rows off their vector
+    alignment (the kernel's scalar loads)."""
+    c = k1_case(name)
+    unaligned = form.endswith("unaligned")
+    d = {k: (_offset(v, cuda) if unaligned and k in ("bitmap", "qtab", "i16buf")
+             else torch.from_numpy(v).to(cuda)) for k, v in c.items() if k != "nmb"}
+    mb = [d[k] for k in ("segment_ids", "luma_mode", "skipped", "non_zero")]
+    before = _build.LAUNCHES["residual"]
+    if form.startswith("sparse"):
+        args = [d[k] for k in ("bitmap", "vals", "esc_pos", "esc_val", "qtab")]
+        got = residual.residuals_sparse(*args, *mb)
+        want = residual.residuals_sparse_plain(*args, *mb)
+    else:
+        got = residual.residuals_dense(d["i16buf"], *mb)
+        want = residual.residuals_dense_plain(d["i16buf"], *mb)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["residual"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("width,height", K4_SIZES)
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+def test_yuv2rgb_kernel_edge_sizes(cuda, width, height, aligned):
+    """lane_inputs.py's K4 sizes at batch 2 (odd widths put rows and the
+    second image on every byte alignment), also with the planes off their
+    8- and 4-byte alignment (the kernel's byte loads)."""
+    planes = [torch.from_numpy(p).to(cuda) if aligned else _offset(p, cuda)
+              for p in k4_planes(width, height)]
+    before = _build.LAUNCHES["yuv2rgb"]
+    got = fancy_yuv420_to_rgb(*planes, width, height)
+    want = fancy_yuv420_to_rgb_plain(*planes, width, height)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["yuv2rgb"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["residual", "subtract_green"])
+def test_launch_goes_to_current_stream(cuda, kernel):
+    """A wrapper called under `torch.cuda.stream(s)` launches on s and is
+    ordered behind nothing else.  Its inputs are written on s behind a
+    short sleep of s, so a launch that s does not order reads them before
+    they land; another stream sleeps far longer, so a launch ordered
+    behind other streams' work (as one on the legacy default stream is
+    where s blocks) is not done while that stream sleeps.  Work on s alone
+    (no device-wide sync) makes the right output ready, after one launch."""
+    if kernel == "residual":
+        c = k1_case("cta_edges")
+        host = [torch.from_numpy(c[k]) for k in ("bitmap", "vals", "esc_pos", "esc_val", "qtab",
+                                                 "segment_ids", "luma_mode", "skipped",
+                                                 "non_zero")]
+        want = residual.residuals_sparse_plain(*host)
+        call = residual.residuals_sparse
+    else:
+        host = [_bytes(5, 2, 33, 47, 4)]
+        want = (L.subtract_green_plain_(host[0].clone()),)
+        call = L.subtract_green_
+    src = [t.to(cuda) for t in host]
+    s, other = torch.cuda.Stream(), torch.cuda.Stream()
+    # A first call loads the kernel's module and fills s's allocator blocks:
+    # either may synchronize the device, which would hide a wrong stream.
+    with torch.cuda.stream(s):
+        dst = [torch.zeros_like(t) for t in src]
+        call(*(t.clone() for t in src))
+    torch.cuda.synchronize()
+    before = _build.LAUNCHES[kernel]
+    with torch.cuda.stream(other):
+        torch.cuda._sleep(1_000_000_000)  # about half a second at the card's clock
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(20_000_000)
+        for d, t in zip(dst, src):
+            d.copy_(t)
+        got = call(*dst)
+        got = [g.cpu() for g in (got if isinstance(got, tuple) else (got,))]  # ordered on s
+    other_busy = not other.query()
+    torch.cuda.synchronize()
+    assert other_busy, "the launch waited for another stream's work"
+    assert _build.LAUNCHES[kernel] == before + 1
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("out", ["rgb", "yuv"])

@@ -149,7 +149,7 @@ def test_package_imports_no_jax_module():
     paths = sorted((REPO / "webp_tpu_torch").rglob("*.py"))
     paths += [REPO / "chip_smoke.py", REPO / "tests" / "random_vp8.py",
               REPO / "tests" / "synthetic_rgb.py", REPO / "tests" / "stats_inputs.py",
-              REPO / "tools" / "stats_split.py"]
+              REPO / "tests" / "lane_inputs.py", REPO / "tools" / "stats_split.py"]
     for path in paths:
         found = _IMPORT.findall(path.read_text())
         assert not found, (path, found)

@@ -1,39 +1,62 @@
 #!/usr/bin/env python3
-"""Time the flagship's statistics kernels on one NVIDIA GPU: K8 analysis
-(`webp_tpu_torch/csrc/analysis.cu`, the segment alphas) and K6 token_stats
-(`csrc/token_stats.cu`, pass 1's token statistics), each beside an earlier
-commit's build of the same kernel; and rank the flagship kernels that no
-redesign has reached by their own device time.
+"""Time the flagship's statistics kernels and the decode's K1 and K4 on one
+NVIDIA GPU, each beside an earlier commit's build of the same kernel: K8
+analysis (`webp_tpu_torch/csrc/analysis.cu`), K6 token_stats
+(`csrc/token_stats.cu`), K1 residual (`csrc/residual.cu`) and K4 yuv2rgb
+(`csrc/yuv2rgb.cu`); rank the flagship kernels by their own device time;
+and time the wrappers' shared launch path.
 
-    python3 tools/stats_split.py [--rank] [--csrc DIR [--probe] [--segs 8,16]] [--batches 8,64]
-                                 [--out FILE]
+    python3 tools/stats_split.py [--rank] [--launch]
+                                 [--csrc DIR [--split K,K] [--probe] [--segs 8,16]]
+                                 [--batches 8,64] [--out FILE]
 
 Inputs are `chip_smoke.py`'s at 768x512, tiled to each batch: the decode's
-seeded random keyframes (normal loop filter) parsed on the host, and the
-flagship encode's seeded synthetic frames (Q75 m4, segments on) through
-K8, the host k-means and K5's pass 1 on the card.
+seeded random keyframes (normal loop filter) parsed on the host (K1's
+sparse and dense levels, K4's planes after the fused recon + filter), and
+the flagship encode's seeded synthetic frames (Q75 m4, segments on)
+through K8, the host k-means and K5's pass 1 (and, for --rank, pass 2) on
+the card.
 
---rank times K1 residual, K4 yuv2rgb, K6 token_stats, K7 enc_tables and
-K8 analysis through their wrappers in three rounds: each call by CUDA
-events (the wrapper's host work included) and its kernels' device time by
-the profiler, beside the kernel's bound, with flagship launches x (device
-time - bound), the rule's ranking.
+--rank times K1 residual, K4 yuv2rgb, K6 token_stats, K7 enc_tables, K8
+analysis and the wire's K18 prepack, K19 pack_levels and K20 wire (on the
+flagship's pass-2 arrays) through their wrappers in three rounds: each
+call by CUDA events (the wrapper's host work included) and its kernels'
+device time by the profiler, beside the kernel's bound, with flagship
+launches x (device time - bound), the rule's ranking.
+
+--launch times the wrappers' launch path on the host (`_build.launch`):
+each step that the earlier path took per call (the lock of `load()`, the
+`torch.cuda.device` context, the `current_stream` lookup, the `getattr` of
+the entry), each step of the current one, the ctypes call alone and K9's
+wrapper check, in microseconds a call over 2,000 calls; then K9
+subtract_green's call through the earlier path and the current one beside
+`px[..., 0:3:2].add_(px[..., 1:2])` in rounds (call by CUDA events, device
+time by the profiler) on 8 x 768x512 pixels.
 
 --csrc DIR builds DIR (an earlier commit's `webp_tpu_torch/csrc`, from
 `git archive <commit> webp_tpu_torch/csrc` unpacked under `build/`) into
 `build/stats_split/parent/` beside the package's sources in
-`build/stats_split/package/`, and times both builds' K8 and K6 on the same
-inputs in turns (parent, package, package, parent): each launch through
-the C entry point with its outputs and scratch allocated as its wrapper
-does (CUDA events over the call), and its device time by the profiler.
-The parent's outputs must equal the package's.
+`build/stats_split/package/`, and times both builds' kernels named by
+--split on the same inputs in turns (parent, package, package, parent),
+checking that the parent's outputs equal the package's.  K1 (sparse and
+dense levels) and K4 (`--split residual,yuv2rgb`, the default) run
+through the package's wrappers with either library bound, so the host
+work is the same; DIR's C entry points must take the package's arguments.
+K8 and K6 (`--split analysis,token_stats`) run through the C entry points
+of commit 3066949's kernels with their outputs and scratch allocated as
+its wrappers did.  Call by CUDA events over the call, device time by the
+profiler.
 
---probe adds `clock64()` probes to the package's copies of the two
-kernels: per CTA, thread 0's cycles from the kernel's start to the end of
-each phase (K8: stage, rounds, flush; K6: stage, contexts, lists, count,
-flush), the means over CTAs printed.
+--probe adds `clock64()` probes to the package's copies of the kernels:
+per CTA, thread 0's cycles from the kernel's start to the end of each
+phase (K8: stage, rounds, flush; K6: stage, contexts, lists, count, flush;
+K1 on the sparse form: loads, escape run, dequant + IWHT, IDCT, store; K4:
+loads (the chroma taps formed), compute (to the last row's pixels,
+the first row's stores sent), store), the means over CTAs printed.  A
+clock read does not wait for loads in flight: a phase holds the wait for
+the loads whose values it uses first.
 
---segs 8,16,... also times the package's kernels with CTAs of that many
+--segs 8,16,... also times the package's K8 and K6 with CTAs of that many
 MBs of a row (the wrappers' default is 64).
 
 Prints ptxas's registers and spills of each build and the card's name and
@@ -54,13 +77,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 WIDTH, HEIGHT = 768, 512
 QUALITY, METHOD = 75, 4
-RANKED = ("residual", "yuv2rgb", "token_stats", "enc_tables", "analysis")
+RANKED = ("residual", "yuv2rgb", "token_stats", "enc_tables", "analysis", "prepack",
+          "pack_levels", "wire")
+# The profiler's names of each ranked kernel's __global__ functions.
+WIRE_DEVICE = {"prepack": ["prepack_kernel"], "pack_levels": ["pack_levels_kernel"],
+               "wire": ["wire_mb_kernel", "wire_list_kernel"]}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 PARENT_SIGNATURES = {  # the one-warp-per-MB K8 and one-thread-per-block K6 (commit 3066949)
     "webp_analysis": [_P, _L, _P, _L, _P, _L, _I, _I, _I, _P, _P, _P],
     "webp_token_stats": [_P, _L, _P, _L, _P, _P, _P, _I, _I, _I, _P, _P],
 }
-KERNEL_NAMES = {"analysis": ["analysis_kernel"], "token_stats": ["token_stats_kernel"]}
+KERNEL_NAMES = {"analysis": ["analysis_kernel"], "token_stats": ["token_stats_kernel"],
+                "residual": ["residual_kernel"], "yuv2rgb": ["yuv2rgb_kernel"]}
+DECODE_ENTRIES = ("webp_residual", "webp_yuv2rgb")  # K1 and K4: the package's signatures
 
 # Probes: thread 0 of each CTA stores clock64() - its start at the end of
 # each phase.  (file, anchor, inserted after the anchor); each anchor must
@@ -68,7 +97,7 @@ KERNEL_NAMES = {"analysis": ["analysis_kernel"], "token_stats": ["token_stats_ke
 N_PROBE, MAX_CTAS = 5, 65536
 PROBE_DECL = f"""
 static __device__ long long stats_probe[{MAX_CTAS} * {N_PROBE}];
-#define PROBE(k) do {{ if (threadIdx.x == 0) stats_probe[((blockIdx.z * gridDim.y + blockIdx.y) \
+#define PROBE(k) do {{ if ((threadIdx.x | threadIdx.y) == 0) stats_probe[((blockIdx.z * gridDim.y + blockIdx.y) \
     * gridDim.x + blockIdx.x) * {N_PROBE} + (k)] = clock64() - probe_t0; }} while (0)
 """
 PROBE_API = """
@@ -80,7 +109,9 @@ WEBP_API int webp_{name}_probe(void* host, int n) {{
 }}
 """
 PHASES = {"analysis": ("stage", "rounds", "flush"),
-          "token_stats": ("stage", "contexts", "lists", "count", "flush")}
+          "token_stats": ("stage", "contexts", "lists", "count", "flush"),
+          "residual": ("loads", "escape run", "dequant + IWHT", "IDCT", "store"),
+          "yuv2rgb": ("loads", "compute", "store")}
 PATCHES = {
     "analysis.cu": [
         ('#include "common.cuh"\n', PROBE_DECL),
@@ -103,8 +134,26 @@ PATCHES = {
          "    PROBE(3);\n"),
         ("        if (tid == 0) img_acc[2 * kCounters] = 0;\n    }\n", "    PROBE(4);\n"),
     ],
+    "residual.cu": [
+        ('#include "common.cuh"\n', PROBE_DECL),
+        ("    const bool owner = lane < kBlocks;\n", "    const long long probe_t0 = clock64();\n"),
+        ("            lv[i] = val;\n        }\n", "        PROBE(0);\n"),
+        ("            if (!more) break;\n        }\n", "        PROBE(1);\n"),
+        ("        if (lane < 16) lv[0] = mine;\n    }\n", "    PROBE(2);\n"),
+        ("    idct4x4(lv);\n", "    PROBE(3);\n"),
+        ("    if (lane == 0) do_sub[mb] = sub ? 1 : 0;\n", "    PROBE(4);\n"),
+    ],
+    "yuv2rgb.cu": [
+        ('#include "common.cuh"\n', PROBE_DECL),
+        ("    const bool two = 2 * k + 1 < height;\n", "    const long long probe_t0 = clock64();\n"),
+        ("two ? luma8<kVec>(yrow + ystride) : 0};\n", "    PROBE(0);\n"),
+        ("(width * 3) + j0 * 3;\n", "        PROBE(1);\n"),
+        ("        store_row(out, w, n);\n    }\n", "    PROBE(2);\n"),
+    ],
 }
-PTXAS_NAMES = {"analysis_kernel": "analysis", "token_stats_kernel": "token_stats"}
+PTXAS_NAMES = {"analysis_kernel": "analysis", "token_stats_kernel": "token_stats",
+               "residual_kernel": "residual", "yuv2rgb_kernelILb1E": "yuv2rgb (vector loads)",
+               "yuv2rgb_kernelILb0E": "yuv2rgb (byte loads)", "yuv2rgb_kernel": "yuv2rgb"}
 
 
 def instrument(csrc: Path) -> None:
@@ -148,8 +197,10 @@ def build(_build, csrc: Path, work: Path, probe: bool = False, bind: bool = True
     return ctypes.CDLL(str(_build.LIB_PATH))
 
 
-def decode_inputs(dev, batch: int):
-    """K1's arguments, its outputs, and K4's planes and geometry."""
+def decode_inputs(dev, batch: int) -> dict:
+    """K1's sparse arguments ("k1"), its dense ones ("k1_dense"), its
+    outputs ("res"), K4's planes after the fused recon + filter ("planes")
+    and the crop ("size")."""
     import torch
 
     import chip_smoke
@@ -170,12 +221,14 @@ def decode_inputs(dev, batch: int):
                                mbw, mbh)
     recon_filter_(*planes, res, f["luma_mode"], f["bpred"], f["chroma_mode"], f["level"],
                   f["interior"], f["hev"], do_sub, simple)
-    return k1_args, (res, do_sub), planes, (width, height)
+    return {"k1": k1_args, "k1_dense": [torch.from_numpy(host["i16buf"]).to(dev), *mb],
+            "res": (res, do_sub), "planes": planes, "size": (width, height)}
 
 
-def encode_inputs(dev, batch: int):
+def encode_inputs(dev, batch: int, pass2: bool = False):
     """The flagship's planes, K8's outputs, pass 1's token_stats arguments
-    (with the skip flags) and its statistics' adapted probabilities."""
+    (with the skip flags), its statistics' adapted probabilities and, where
+    `pass2`, pass 2's arrays on the tables of those probabilities."""
     import torch
 
     import chip_smoke
@@ -193,31 +246,39 @@ def encode_inputs(dev, batch: int):
     segs = edev.segment(y, u, v, QUALITY)
     P, sid = edev.params_for(segs, QUALITY, dev)
     default = EncTables.from_probs(T.COEFF_PROBS_DEFAULT, dev)
-    pass1 = encode_analysis_batch(y, u, v, P, default, min(edev.n_try_for(METHOD), 3), False, sid)
+    n_try = edev.n_try_for(METHOD)
+    pass1 = encode_analysis_batch(y, u, v, P, default, min(n_try, 3), False, sid)
     mbw, mbh = WIDTH // 16, HEIGHT // 16
     stat_args = (pass1["luma_mode"], pass1["y2_levels"], pass1["y_levels"], pass1["uv_levels"],
                  edev.skip_flags(pass1), mbw, mbh)
     stats = token_stats(*stat_args)
-    probs = torch.from_numpy(edev.adapt_probs(stats[0].cpu().numpy(),
-                                              stats[1].cpu().numpy())).to(dev)
-    return (y, u, v), alphas, stat_args, stats, probs
+    probs_h = edev.adapt_probs(stats[0].cpu().numpy(), stats[1].cpu().numpy())
+    p2 = (encode_analysis_batch(y, u, v, P, edev.tables_for(probs_h, dev), n_try, METHOD >= 4, sid)
+          if pass2 else None)
+    return (y, u, v), alphas, stat_args, stats, torch.from_numpy(probs_h).to(dev), p2
 
 
 def ranked_calls(dev, batch: int) -> dict:
     """name -> (call, kernel names, bound record) of the ranked kernels."""
     import chip_smoke as cs
-    from webp_tpu_torch.ops import residual
+    from webp_tpu_torch.ops import residual, wire
     from webp_tpu_torch.ops.analysis import analyze_alphas_batch
     from webp_tpu_torch.ops.enc_params import EncTables
     from webp_tpu_torch.ops.enc_tables import enc_tables
+    from webp_tpu_torch.ops.sparse import pack_levels_mb
     from webp_tpu_torch.ops.token_stats import token_stats
     from webp_tpu_torch.ops.yuv import fancy_yuv420_to_rgb
 
-    k1_args, k1_out, planes, (width, height) = decode_inputs(dev, batch)
+    dec = decode_inputs(dev, batch)
+    k1_args, k1_out, planes, (width, height) = dec["k1"], dec["res"], dec["planes"], dec["size"]
     rgb = fancy_yuv420_to_rgb(*planes, width, height)
-    (y, u, v), alphas, stat_args, stats, probs = encode_inputs(dev, batch)
+    (y, u, v), alphas, stat_args, stats, probs, pass2 = encode_inputs(dev, batch, pass2=True)
     tables = enc_tables(probs)
+    pre = wire.prepack(pass2)
+    packed = pack_levels_mb(pre[0], wire.CAP_MB)
+    rows = wire.wire(*packed, *pre[1:])
     nmb = (WIDTH // 16) * (HEIGHT // 16)
+    n_mb = batch * nmb
     return {  # the bounds as chip_smoke.py counts them
         "residual": (lambda: residual.residuals_sparse(*k1_args),
                      cs.bound(cs.nbytes(*k1_args, *k1_out), batch * nmb * 25 * (16 + 96))),
@@ -230,6 +291,15 @@ def ranked_calls(dev, batch: int) -> dict:
                                 batch * 4 * 16 * 3 * (68 + 11 + 2) * 33)),
         "analysis": (lambda: analyze_alphas_batch(y, u, v),
                      cs.bound(cs.nbytes(y, u, v, *alphas), batch * nmb * 48 * 160)),
+        "prepack": (lambda: wire.prepack(pass2),
+                    cs.bound(cs.nbytes(*pass2.values(), *pre),
+                             n_mb * wire.SLOTS * cs.OPS_PREPACK_SLOT)),
+        "pack_levels": (lambda: pack_levels_mb(pre[0], wire.CAP_MB),
+                        cs.bound(cs.nbytes(pre[0], *packed), n_mb * wire.SLOTS * cs.OPS_PACK_SLOT)),
+        "wire": (lambda: wire.wire(*packed, *pre[1:]),
+                 cs.bound(cs.nbytes(*packed, *pre[1:], rows),
+                          n_mb * (wire.CAP_MB * cs.OPS_WIRE_VALUE
+                                  + wire.N_ESC * cs.OPS_LIST_SLOT))),
     }
 
 
@@ -244,7 +314,7 @@ def rank(dev, card: str, batches, rounds: int = 3) -> dict:
             for k, (fn, _) in calls.items():
                 times[k]["call"].append(cs.time_ms(fn, 20))
                 times[k]["device"].append(cs.device_total(
-                    cs.device_ms(fn, 20, cs.FLAGSHIP_DEVICE[k])))
+                    cs.device_ms(fn, 20, {**cs.FLAGSHIP_DEVICE, **WIRE_DEVICE}[k])))
         rec = {}
         for k, (fn, b) in calls.items():
             dev_ms = statistics.median(times[k]["device"])
@@ -261,8 +331,8 @@ def rank(dev, card: str, batches, rounds: int = 3) -> dict:
     return out
 
 
-def split(dev, card: str, batches, lib, parent, probe: bool, segs=()) -> dict:
-    """K8 and K6 of the package beside the parent's, in turns, per batch."""
+def split_stats(dev, card: str, batches, lib, parent, probe: bool, segs=()) -> dict:
+    """K8 and K6 of the package beside commit 3066949's, in turns, per batch."""
     import torch
 
     import chip_smoke as cs
@@ -295,9 +365,12 @@ def split(dev, card: str, batches, lib, parent, probe: bool, segs=()) -> dict:
             raise RuntimeError(f"parent webp_token_stats: CUDA error {rc}")
         return out[0], out[1]
 
+    for name, argtypes in PARENT_SIGNATURES.items():
+        getattr(parent, name).argtypes = argtypes
+        getattr(parent, name).restype = ctypes.c_int
     out = {}
     for batch in batches:
-        planes, _, stat_args, _, _ = encode_inputs(dev, batch)
+        planes, _, stat_args, _, _, _ = encode_inputs(dev, batch)
         lv, (mbw, mbh) = stat_args[:4], stat_args[5:]
         skipped = stat_args[4]
         calls = {
@@ -346,33 +419,204 @@ def split(dev, card: str, batches, lib, parent, probe: bool, segs=()) -> dict:
                       flush=True)
         if probe:
             for k, seg in (("analysis", analysis.SEG_MBS), ("token_stats", k6.SEG_MBS)):
-                reader = getattr(lib, f"webp_{k}_probe")
-                reader.argtypes, reader.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
-                ctas = batch * mbh * -(-mbw // seg)
-                n = N_PROBE * ctas
-                buf = (ctypes.c_longlong * n)()
-                reader(buf, n)  # read and zero
-                calls[k]["package"]()
-                torch.cuda.synchronize()
-                if reader(buf, n) != 0:
-                    raise RuntimeError("the probe read failed")
-                ends = [statistics.mean(buf[c * N_PROBE + p] for c in range(ctas))
-                        for p in range(len(PHASES[k]))]
-                cyc = {ph: ends[i] - (ends[i - 1] if i else 0) for i, ph in enumerate(PHASES[k])}
-                cyc["total"] = ends[-1]
-                rec[k]["cycles_per_cta"] = cyc
-                print(f"batch {batch}: {k} probe, mean cycles a CTA by phase "
-                      f"{({p: round(c) for p, c in cyc.items()})} ({card})", flush=True)
+                rec[k]["cycles_per_cta"] = probe_cycles(lib, k, batch * mbh * -(-mbw // seg),
+                                                        calls[k]["package"], batch, card)
         out[batch] = rec
     return out
 
 
+def probe_cycles(lib, k: str, ctas: int, fn, batch: int, card: str) -> dict:
+    """Mean cycles a CTA by phase of kernel k over one call of fn()."""
+    import torch
+
+    reader = getattr(lib, f"webp_{k}_probe")
+    reader.argtypes, reader.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    n = N_PROBE * ctas
+    buf = (ctypes.c_longlong * n)()
+    reader(buf, n)  # read and zero
+    fn()
+    torch.cuda.synchronize()
+    if reader(buf, n) != 0:
+        raise RuntimeError("the probe read failed")
+    ends = [statistics.mean(buf[c * N_PROBE + p] for c in range(ctas))
+            for p in range(len(PHASES[k]))]
+    cyc = {ph: ends[i] - (ends[i - 1] if i else 0) for i, ph in enumerate(PHASES[k])}
+    cyc["total"] = ends[-1]
+    print(f"batch {batch}: {k} probe, mean cycles a CTA by phase "
+          f"{({p: round(c) for p, c in cyc.items()})} ({card})", flush=True)
+    return cyc
+
+
+def bind(_build, lib, entries: dict) -> None:
+    """Point the wrappers' launches at `lib` (its bound entry points `entries`)."""
+    _build._lib, _build._entries = lib, entries
+
+
+def split_decode(dev, card: str, batches, lib, parent, probe: bool) -> dict:
+    """K1 (sparse and dense levels) and K4 of the package beside the
+    parent's, through the package's wrappers with either library bound, in
+    turns, per batch."""
+    import torch
+
+    import chip_smoke as cs
+    from webp_tpu_torch import _build
+    from webp_tpu_torch.ops import residual
+    from webp_tpu_torch.ops.yuv import RUN, fancy_yuv420_to_rgb
+
+    for name in DECODE_ENTRIES:
+        getattr(parent, name).argtypes = _build._SIGNATURES[name]
+        getattr(parent, name).restype = ctypes.c_int
+    parent.webp_error_string.argtypes = [ctypes.c_int]
+    parent.webp_error_string.restype = ctypes.c_char_p
+    libs = {"package": (lib, dict(_build._entries)),
+            "parent": (parent, {n: getattr(parent, n) for n in DECODE_ENTRIES})}
+    out = {}
+    for batch in batches:
+        dec = decode_inputs(dev, batch)
+        width, height = dec["size"]
+        calls = {"residual": lambda: residual.residuals_sparse(*dec["k1"]),
+                 "residual_dense": lambda: residual.residuals_dense(*dec["k1_dense"]),
+                 "yuv2rgb": lambda: fancy_yuv420_to_rgb(*dec["planes"], width, height)}
+        rec = {}
+        for k, fn in calls.items():
+            got = {}
+            for who in ("package", "parent"):
+                bind(_build, *libs[who])
+                got[who] = fn()
+            torch.cuda.synchronize()
+            pairs = zip(got["package"], got["parent"]) if isinstance(got["package"], tuple) else [
+                (got["package"], got["parent"])]
+            for a, b in pairs:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{k} at batch {batch}: the package differs from the "
+                                         "parent")
+            names = KERNEL_NAMES["residual" if k.startswith("residual") else k]
+            r = {"call_ms": {}, "device_ms": {}}
+            for who in ("parent", "package", "package", "parent"):
+                bind(_build, *libs[who])
+                r["call_ms"].setdefault(who, []).append(cs.time_ms(fn, 20))
+                r["device_ms"].setdefault(who, []).append(
+                    cs.device_total(cs.device_ms(fn, 20, names)))
+            bind(_build, *libs["package"])
+            rec[k] = r
+            text = "; ".join(f"{who} " + ", ".join(
+                f"{what} {' / '.join('n/a' if t is None else f'{t:.4f}' for t in r[key][who])}"
+                for what, key in (("call", "call_ms"), ("device", "device_ms"))) + " ms"
+                for who in ("package", "parent"))
+            print(f"batch {batch}: {k}: {text}; outputs equal ({card})", flush=True)
+        if probe:
+            nmb = dec["k1"][5].shape[1]
+            rec["residual"]["cycles_per_cta"] = probe_cycles(
+                lib, "residual", batch * -(-nmb // residual.WARPS), calls["residual"], batch, card)
+            runs, pairs = -(-width // RUN), (height + 1) // 2
+            ctas = batch * -(-runs // 32) * -(-pairs // 4)
+            rec["yuv2rgb"]["cycles_per_cta"] = probe_cycles(lib, "yuv2rgb", ctas,
+                                                            calls["yuv2rgb"], batch, card)
+        out[batch] = rec
+    return out
+
+
+def launch_profile(dev, card: str, reps: int = 2000, rounds: int = 3) -> dict:
+    """The launch path's host work per call, step by step, the earlier path
+    against the current one; then K9's call through each beside one add_."""
+    import time
+
+    import torch
+
+    import chip_smoke as cs
+    from webp_tpu_torch import _build
+    from webp_tpu_torch.ops import vp8l_device as L
+
+    lib = _build.load()
+    entry = "webp_vp8l_subtract_green"
+
+    def earlier_launch(kernel, name, device, *args):  # the path before its cut, step by step
+        with _build._lock:
+            lib_ = _build._lib
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = getattr(lib_, name)(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        _build.LAUNCHES[kernel] += 1
+
+    def earlier_sg(px):
+        B, h, w = L._pixels(px)
+        earlier_launch("subtract_green", entry, px.device, px.data_ptr(), B * h * w)
+        return px
+
+    def lock():
+        with _build._lock:
+            pass
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    tiny = torch.zeros((1, 1, 8, 4), dtype=torch.uint8, device=dev)
+    ptr, fn = tiny.data_ptr(), _build._entries[entry]
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    steps = {
+        "earlier: lock of load()": lock,
+        "earlier: torch.cuda.device context": context,
+        "earlier: current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(
+            dev).cuda_stream,
+        "earlier: getattr of the entry": lambda: getattr(lib, entry),
+        "current: entry dict lookup": lambda: _build._entries.get(entry),
+        "current: torch.cuda.current_device()": torch.cuda.current_device,
+        "current: raw current-stream query": lambda: torch._C._cuda_getCurrentRawStream(
+            dev.index),
+        "ctypes call alone (a launch)": lambda: fn(ptr, 8, stream),
+        "K9 wrapper check (_pixels)": lambda: L._pixels(tiny),
+        "earlier launch path": lambda: earlier_launch("subtract_green", entry, dev, ptr, 8),
+        "current launch path": lambda: _build.launch("subtract_green", entry, dev, ptr, 8),
+        "earlier K9 call": lambda: earlier_sg(tiny),
+        "current K9 call": lambda: L.subtract_green_(tiny),
+    }
+    us = {k: [] for k in steps}
+    for _ in range(rounds):
+        for k, step in steps.items():
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(reps):
+                step()
+            us[k].append((time.perf_counter_ns() - t0) / reps / 1000)
+            torch.cuda.synchronize()
+    for k, v in us.items():
+        print(f"launch path: {k}: {' / '.join(f'{x:.3f}' for x in v)} us a call ({card})",
+              flush=True)
+
+    g = torch.Generator().manual_seed(9)
+    px = torch.randint(0, 256, (8, HEIGHT, WIDTH, 4), generator=g, dtype=torch.uint8).to(dev)
+    calls = {"K9 earlier path": lambda: earlier_sg(px), "K9 current path": lambda: L.subtract_green_(px),
+             "add_": lambda: px[..., 0:3:2].add_(px[..., 1:2])}
+    k9 = {k: {"call_ms": [], "device_ms": []} for k in calls}
+    for _ in range(rounds):
+        for k in ("K9 earlier path", "K9 current path", "add_", "add_", "K9 current path",
+                  "K9 earlier path"):
+            k9[k]["call_ms"].append(cs.time_ms(calls[k], 20))
+            k9[k]["device_ms"].append(cs.device_total(cs.device_ms(calls[k], 20, [""])))
+    for k, r in k9.items():
+        print(f"subtract_green on 8 x {WIDTH}x{HEIGHT}: {k}: call "
+              f"{' / '.join(f'{x:.4f}' for x in r['call_ms'])} ms (median "
+              f"{statistics.median(r['call_ms']):.4f}), device "
+              f"{' / '.join('n/a' if x is None else f'{x:.4f}' for x in r['device_ms'])} ms "
+              f"({card})", flush=True)
+    return {"steps_us": us, "k9": k9}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rank", action="store_true", help="device-time ranking of K1, K4, K6-K8")
-    ap.add_argument("--csrc", type=Path, help="an earlier csrc whose K8 / K6 to time beside")
+    ap.add_argument("--rank", action="store_true", help="device-time ranking of the flagship's "
+                    "unredesigned kernels")
+    ap.add_argument("--launch", action="store_true", help="the launch path's host work, and K9 "
+                    "beside add_")
+    ap.add_argument("--csrc", type=Path, help="an earlier csrc whose kernels to time beside")
+    ap.add_argument("--split", default="residual,yuv2rgb",
+                    help="the kernels --csrc times: residual,yuv2rgb or analysis,token_stats")
     ap.add_argument("--probe", action="store_true", help="clock64() probes per phase")
-    ap.add_argument("--segs", help="also time the package with CTAs of these MBs a row")
+    ap.add_argument("--segs", help="also time K8 / K6 with CTAs of these MBs a row")
     ap.add_argument("--batches", default="8,64", help="batch sizes, comma-separated")
     ap.add_argument("--out", type=Path, help="also write the numbers to this JSON file")
     args = ap.parse_args()
@@ -395,21 +639,27 @@ def main() -> int:
         parent = build(_build, args.csrc.resolve(), ROOT / "build" / "stats_split" / "parent",
                        bind=False)
         parent_ptxas = ptxas_lines(_build.PTXAS_REPORT)
-        for name, argtypes in PARENT_SIGNATURES.items():
-            getattr(parent, name).argtypes = argtypes
-            getattr(parent, name).restype = ctypes.c_int
     lib = build(_build, package_csrc, ROOT / "build" / "stats_split" / "package", args.probe)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
     batches = [int(b) for b in args.batches.split(",")]
     out = {"card": card, "ptxas": ptxas_lines(_build.PTXAS_REPORT)}
-    if args.rank:
-        out["rank"] = rank(dev, card, batches)
+    if args.launch:
+        out["launch"] = launch_profile(dev, card)
     if parent is not None:
         out["parent_ptxas"] = parent_ptxas
-        out["split"] = split(dev, card, batches, lib, parent, args.probe,
-                             [int(x) for x in args.segs.split(",")] if args.segs else ())
+        split = args.split.split(",")
+        if split == ["residual", "yuv2rgb"]:
+            out["split"] = split_decode(dev, card, batches, lib, parent, args.probe)
+        elif split == ["analysis", "token_stats"]:
+            out["split"] = split_stats(dev, card, batches, lib, parent, args.probe,
+                                       [int(x) for x in args.segs.split(",")] if args.segs
+                                       else ())
+        else:
+            raise SystemExit(f"--split {args.split}: residual,yuv2rgb or analysis,token_stats")
+    if args.rank:
+        out["rank"] = rank(dev, card, batches)
     for who in ("ptxas", "parent_ptxas"):
         for line in out.get(who, []):
             print(f"{who} {line}")

@@ -212,6 +212,7 @@ LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "recon_filter": 0, "yuv2
             "prepack": 0, "pack_levels": 0, "wire": 0, "pack_flat": 0, "expand_flat": 0}
 
 _lib = None
+_entries = {}  # C entry point -> its bound function in _lib
 _lock = threading.Lock()
 
 
@@ -290,7 +291,10 @@ def stale(lib: Path, sources) -> bool:
 def load():
     """Build (if the library is missing, from other sources, or older than
     one of them) and load the kernels."""
-    global _lib
+    global _lib, _entries
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -315,20 +319,34 @@ def load():
         lib.webp_banded_max_clusters.restype = ctypes.c_int
         lib.webp_error_string.argtypes = [ctypes.c_int]
         lib.webp_error_string.restype = ctypes.c_char_p
+        _entries = {name: getattr(lib, name) for name in _SIGNATURES}
         _lib = lib
         return lib
 
 
 def launch(kernel: str, entry: str, device, *args) -> None:
-    """Launch `entry` on `device`'s current stream; raise on a refused launch."""
+    """Launch `entry` on `device`'s current stream; raise on a refused launch.
+
+    Once the library is loaded a launch takes no lock: the bound entry
+    point comes from a dict, the stream handle from PyTorch's raw
+    current-stream query (what its own Triton launches use), and the
+    device context is entered only when `device` is not the current one.
+    """
     import torch
 
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
+    fn = _entries.get(entry) if _lib is not None else None
+    if fn is None:
+        load()
+        fn = _entries[entry]
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
-        msg = lib.webp_error_string(rc).decode()
+        msg = _lib.webp_error_string(rc).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")
     LAUNCHES[kernel] += 1
 

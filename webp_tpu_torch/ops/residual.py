@@ -22,6 +22,7 @@ from .transform import idct4x4, iwht4x4
 
 SLOTS = 400  # 25 blocks x 16 levels per MB (blocks 0-15 Y, 16-23 U/V, 24 Y2)
 QTAB = 4 * 25 * 16  # per-image dequant table [segment, block, position]
+WARPS = 8  # MBs a K1 CTA takes, one warp each (csrc/residual.cu kWarps)
 
 
 def scatter_escapes(lv: torch.Tensor, esc_pos: torch.Tensor, esc_val: torch.Tensor):
@@ -84,7 +85,7 @@ def residuals_sparse(bitmap, vals, esc_pos, esc_val, qtab, seg, lmode, skipped, 
 
     esc_pos must ascend within each image, unused slots holding nmb*400 at
     the end, as `decode.device.parse_levels_batch` writes it: the kernel
-    finds an MB's escapes by binary search.
+    finds an MB's escapes by a 32-ary search.
     """
     dev = _build.same_device(bitmap, vals, esc_pos, esc_val, qtab, seg, lmode, skipped, non_zero)
     if dev.type == "cpu":

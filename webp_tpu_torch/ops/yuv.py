@@ -58,6 +58,9 @@ def fancy_yuv420_to_rgb_plain(y, u, v, width: int, height: int) -> torch.Tensor:
     return yuv_to_rgb(y[..., :height, :width], uu, vv)
 
 
+RUN = 8  # output columns a K4 thread takes, in two rows (csrc/yuv2rgb.cu kRun)
+
+
 def fancy_yuv420_to_rgb(y, u, v, width: int, height: int) -> torch.Tensor:
     """MB-padded planes y [B, mbh*16, mbw*16], u/v [B, mbh*8, mbw*8] uint8
     -> RGB [B, height, width, 3] uint8."""
