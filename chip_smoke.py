@@ -44,12 +44,14 @@ plain CPU decode.  In both phases the device-token flow
 (`device_tokens=True`: K13 codes the coefficient partitions from pass 2's
 levels on the card, K14 the MB headers) gives the same payloads as the
 host finisher.  The host finisher's flows pack pass 2's arrays into the
-encode wire (K18 prepack, K19 pack_levels, K20 wire: one uint8 row per
-image) and unpack it on the host; in both phases the three kernels are held
-bit-exact to their plain twins on the card's pass-2 arrays and on seeded
-arrays that set each of the wire's flags (`tests/wire_inputs.py`;
-`fetch_packed` must return those arrays exactly through each branch), and
-the wire path is timed beside the dense fetch of the same arrays.  In both
+encode wire (the fused K18 prepack + K19 pack_levels launch, then K20
+wire: one uint8 row per image; K18 and K19 alone, none) and unpack it on
+the host; in both phases K18, K19 (at caps 256 and 100), the fused kernel
+and K20 are held bit-exact to their plain twins on the card's pass-2
+arrays and on seeded arrays that set each of the wire's flags
+(`tests/wire_inputs.py`; `fetch_packed` must return those arrays exactly
+through each branch), and the wire path is timed beside the dense fetch
+of the same arrays.  In both
 phases K13 coeff_tokens (three producer warps and a coder warp a lane) and
 K14 mb_headers (a CTA an image counts, scans and writes the header ops,
 then one warp codes them) are held bit-exact to their plain twins on the
@@ -97,13 +99,14 @@ than pipelines) byte-equal to the fused K2 + K3 too.  Then a one-rank NCCL proce
 group (`torch.distributed`, tcp on localhost) carries the four
 data-parallel factories of `webp_tpu_torch.parallel`, each byte-equal to
 the unsharded path of this run: the decode's RGB, the one-pass analysis,
-the flagship's int8 prepack (K18) and the payloads finished from it, and
-the token lanes gathered over the group (the all_gather timed); then the
-group is destroyed.
+the flagship's int8 prepack (K18 alone, whose launches there are its
+count) and the payloads finished from it, and the token lanes gathered
+over the group (the all_gather timed); then the group is destroyed.
 
 Prints the card's name and power limit, per-kernel timings (CUDA events
 over each call, the wrapper's host work included; kernel beside plain twin
-and the kernel's bound; for K1, K4, K6-K8 and K18-K22 also the profiler's
+and the kernel's bound; for K1, K4, K6-K8, K18-K22 and the fused K18 +
+K19 also the profiler's
 device time of the call's kernels; K9 also beside one in-place add over a
 strided view, the one PyTorch call that computes it), the encodes' per-stage
 host-clock split (both flows) and d2h bytes (the wire rows beside the
@@ -183,6 +186,8 @@ WIRE_KERNELS = [
      "webp_tpu/ops/encode_wavefront2.py:1028 (jitted :1076, :1087)"),
     ("pack_levels", "webp_tpu_torch/csrc/wire.cu",
      "webp_tpu/ops/encode_wavefront2.py:1113 + webp_tpu/ops/sparse.py:73"),
+    ("prepack_pack", "webp_tpu_torch/csrc/wire.cu",
+     "webp_tpu/ops/encode_wavefront2.py:1028 + :1113 (one program in :1286)"),
     ("wire", "webp_tpu_torch/csrc/wire.cu",
      "webp_tpu/ops/encode_wavefront2.py:1200 (+ :1178, :1149)"),
 ]
@@ -388,9 +393,9 @@ OPS_CTX_BLOCK = 16 + 2 * 16
 
 
 # Integer operations a slot of the wire kernels (`csrc/wire.cu`): K18's
-# gather, clip, compare, ballot rank and store; K19's compare, ballot rank
-# and store; K20's nibble pack and med-list rank per packed value, and its
-# image-list scan per escape slot.
+# gather, clip, compare, rank and store; K19's compare, rank and store (the
+# fused kernel does both); K20's nibble pack and med-list rank per packed
+# value, and its image-list scan per escape slot.
 OPS_PREPACK_SLOT = 8
 OPS_PACK_SLOT = 6
 OPS_WIRE_VALUE = 6
@@ -427,8 +432,8 @@ def handoff_ms(dev) -> float:
 
 def ptxas_report() -> list:
     """The row-CTA kernel's three instances', K5's (both instances), K6's,
-    K8's, K12's and K13-K15's registers, shared memory and spills, from the
-    build's ptxas report."""
+    K8's, K12's, K13-K15's, K18's, K19's and the fused K18 + K19's
+    registers, shared memory and spills, from the build's ptxas report."""
     from webp_tpu_torch import _build
 
     names = {"rows_kernelILb1ELb0E": "recon", "rows_kernelILb0ELb1E": "loopfilter",
@@ -438,7 +443,8 @@ def ptxas_report() -> list:
              "coeff_tokens_kernel": "coeff_tokens",
              "mb_headers_kernel": "mb_headers", "bool_lanes_kernel": "bool_lanes",
              "coder_chain_kernel": "coder_chain",
-             "predictor_rows_kernel": "predictor"}
+             "predictor_rows_kernel": "predictor", "prepack_pack_kernel": "prepack_pack",
+             "prepack_kernel": "prepack", "pack_levels_kernel": "pack_levels"}
     if not _build.PTXAS_REPORT.exists():  # a library built before the report was kept
         return []
     out, name = [], None
@@ -825,8 +831,8 @@ def encode_stages(rgbs, dev, method: int, segments: bool, device_tokens: bool = 
             mark()
             d2h = tokens.meta.nbytes + sum(a.nbytes for a in (*tokens.parts, *headers))
         else:
-            pre = wire.prepack(arrays)
-            rows = wire.wire_stage(*pre)
+            pre = wire.prepack_pack(arrays)
+            rows = wire.wire(*pre[5:], *pre[1:5])
             mark()
             host = edev.fetch_packed(pre[0], rows, arrays)
             mark()
@@ -868,7 +874,7 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     name = f"Q{QUALITY} m{method}, segments {'on' if segments else 'off'}, {PARTITIONS} partitions"
     n_try, trellis = edev.n_try_for(method), method >= 4
     kernels = [k for k, _, _ in ENCODE_KERNELS + WIRE_KERNELS if segments or k != "analysis"]
-    wire_on = {k: 1 for k, _, _ in WIRE_KERNELS}
+    wire_on = {"prepack": 0, "pack_levels": 0, "prepack_pack": 1, "wire": 1}
     flat_off = dict.fromkeys(FLAT_NAMES, 0)
     flagship = (method, segments) == ENCODES[-1]
 
@@ -1099,13 +1105,14 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
 
 
 def wire_phase(dev, card: str, name: str, pass2) -> dict:
-    """K18, K19 and K20 against their plain twins on the card's pass-2
-    arrays, timed beside their bounds; the wire path (the three kernels, the
-    rows' d2h and the host unpack in a pool) beside the dense fetch of the
-    same arrays, in alternating runs; and the overflow case: seeded arrays
-    (`tests/wire_inputs.py`) that set every flag, rows equal to the twins',
-    and `fetch_packed` returning the arrays exactly through each branch.
-    name -> kernel record without launches."""
+    """K18, K19 (at caps 256 and 100), the fused K18 + K19 and K20 against
+    their plain twins on the card's pass-2 arrays, timed beside their
+    bounds; the wire path (the fused kernel and K20, the rows' d2h and the
+    host unpack in a pool) beside the dense fetch of the same arrays, in
+    alternating runs; and the overflow case: seeded arrays
+    (`tests/wire_inputs.py`) that set every flag, every kernel's outputs
+    equal to the twins', and `fetch_packed` returning the arrays exactly
+    through each branch.  name -> kernel record without launches."""
     import torch
 
     from webp_tpu_torch.encode import device as edev
@@ -1114,17 +1121,19 @@ def wire_phase(dev, card: str, name: str, pass2) -> dict:
     from wire_inputs import wire_arrays
 
     B, nmb = pass2["luma_mode"].shape
-    cap = wire.CAP_MB
+    cap, cap_small = wire.CAP_MB, 100
 
-    def kernels(arrays):  # each kernel's outputs
+    def kernels(arrays):  # each kernel's outputs, in WIRE_KERNELS' order
         pre = wire.prepack(arrays)
         packed = pack_levels_mb(pre[0], cap)
-        return pre, packed, (wire.wire(*packed, *pre[1:]),)
+        return (pre, (*packed, *pack_levels_mb(pre[0], cap_small)), wire.prepack_pack(arrays),
+                (wire.wire(*packed, *pre[1:]),))
 
     def twins(arrays):
         pre = wire.prepack_plain(arrays)
         packed = pack_levels_mb_plain(pre[0], cap)
-        return pre, packed, (wire.wire_plain(*packed, *pre[1:]),)
+        return (pre, (*packed, *pack_levels_mb_plain(pre[0], cap_small)), (*pre, *packed),
+                (wire.wire_plain(*packed, *pre[1:]),))
 
     def errors(got, want):
         return {k: max(max_abs_err(a, b) for a, b in zip(g, w))
@@ -1132,18 +1141,20 @@ def wire_phase(dev, card: str, name: str, pass2) -> dict:
 
     # 1. The kernels on pass 2's arrays; each twin timed alone on the
     #    kernels' own inputs.
-    pre, packed, (rows,) = kernels(pass2)
-    err = errors((pre, packed, (rows,)), twins(pass2))
+    pre, packed, fused, (rows,) = kernels(pass2)
+    packed = packed[:3]
+    err = errors((pre, packed, fused, (rows,)), twins(pass2))
     plain_ms = {}
     _, plain_ms["prepack"] = timed(lambda: wire.prepack_plain(pass2))
     _, plain_ms["pack_levels"] = timed(lambda: pack_levels_mb_plain(pre[0], cap))
+    _, plain_ms["prepack_pack"] = timed(lambda: wire.prepack_pack_plain(pass2))
     _, plain_ms["wire"] = timed(lambda: wire.wire_plain(*packed, *pre[1:]))
 
     # 2. The overflow case, at the same shapes.
     arrays_h, _, flags = wire_arrays(B, nmb, WIRE_SEED)
     over = {k: torch.from_numpy(a).to(dev) for k, a in arrays_h.items()}
-    o_pre, o_packed, (o_rows,) = kernels(over)
-    for k, e in errors((o_pre, o_packed, (o_rows,)), twins(over)).items():
+    o_pre, o_packed, o_fused, (o_rows,) = kernels(over)
+    for k, e in errors((o_pre, o_packed, o_fused, (o_rows,)), twins(over)).items():
         err[k] = max(err[k], e)
     if not (o_rows[:, :2].cpu().numpy() == flags).all():
         raise AssertionError(f"overflow case: flags {o_rows[:, :2].tolist()}, expected "
@@ -1162,15 +1173,17 @@ def wire_phase(dev, card: str, name: str, pass2) -> dict:
     bad = {k: e for k, e in err.items() if e != 0}
     if bad:
         raise AssertionError(f"wire kernels differ from their plain twins: {bad}")
-    print(f"[{name}] wire kernels vs plain twins (bit-exact, tolerance 0; on the card's pass-2 "
-          f"arrays and on the overflow case, flags {flags.tolist()} as expected; fetch_packed "
-          f"exact, images by branch {taken}): {err}", flush=True)
+    print(f"[{name}] wire kernels vs plain twins (bit-exact, tolerance 0; K19 at caps {cap} and "
+          f"{cap_small}; on the card's pass-2 arrays and on the overflow case, flags "
+          f"{flags.tolist()} as expected; fetch_packed exact, images by branch {taken}): {err}",
+          flush=True)
 
     # 3. Timings beside the bounds (bytes in and out; operations a slot):
     #    each call by CUDA events (the wrapper's host work included, as for
     #    every kernel here), and the kernels' own device time by the profiler.
     calls = {"prepack": (lambda: wire.prepack(pass2), ["prepack_kernel"]),
              "pack_levels": (lambda: pack_levels_mb(pre[0], cap), ["pack_levels_kernel"]),
+             "prepack_pack": (lambda: wire.prepack_pack(pass2), ["prepack_pack_kernel"]),
              "wire": (lambda: wire.wire(*packed, *pre[1:]), ["wire_mb_kernel", "wire_list_kernel"])}
     ms = {k: time_ms(fn, 20) for k, (fn, _) in calls.items()}
     dev_ms = device_times(name, dev, calls)
@@ -1178,6 +1191,8 @@ def wire_phase(dev, card: str, name: str, pass2) -> dict:
     bounds = {
         "prepack": bound(nbytes(*pass2.values(), *pre), n_mb * wire.SLOTS * OPS_PREPACK_SLOT),
         "pack_levels": bound(nbytes(pre[0], *packed), n_mb * wire.SLOTS * OPS_PACK_SLOT),
+        "prepack_pack": bound(nbytes(*pass2.values(), *fused),
+                              n_mb * wire.SLOTS * (OPS_PREPACK_SLOT + OPS_PACK_SLOT)),
         "wire": bound(nbytes(*packed, *pre[1:], rows),
                       n_mb * (cap * OPS_WIRE_VALUE + wire.N_ESC * OPS_LIST_SLOT)),
     }
@@ -1191,8 +1206,8 @@ def wire_phase(dev, card: str, name: str, pass2) -> dict:
     # 4. After pass 2, host clock, alternating: the wire path against the
     #    dense fetch of the same arrays.
     def wire_path():
-        p = wire.prepack(pass2)
-        edev._pool_map(dict, edev.fetch_packed(p[0], wire.wire_stage(*p), pass2))
+        p = wire.prepack_pack(pass2)
+        edev._pool_map(dict, edev.fetch_packed(p[0], wire.wire(*p[5:], *p[1:5]), pass2))
 
     rows_h = rows.cpu().numpy()
     sparse = [i for i in range(B) if not rows_h[i, :2].any()]
@@ -1207,8 +1222,8 @@ def wire_phase(dev, card: str, name: str, pass2) -> dict:
         t0 = time.perf_counter()
         wire_path() if kind == "wire" else edev.fetch(pass2)
         runs[kind].append((time.perf_counter() - t0) * 1000 / B)
-    print(f"[{name}] after pass 2 (host clock, alternating runs, ms/img): wire path (K18-K20, "
-          f"d2h of {rows.shape[1]} B/img, host unpack in a pool) "
+    print(f"[{name}] after pass 2 (host clock, alternating runs, ms/img): wire path (fused "
+          f"K18 + K19, K20, d2h of {rows.shape[1]} B/img, host unpack in a pool) "
           f"{statistics.median(runs['wire']):.4f} {[round(x, 4) for x in runs['wire']]}; dense "
           f"fetch ({nbytes(*pass2.values()) // B} B/img, int32 host arrays) "
           f"{statistics.median(runs['dense']):.4f} {[round(x, 4) for x in runs['dense']]}; the "
@@ -2012,6 +2027,7 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
         torch.cuda.synchronize()
         launches = dict(_build.LAUNCHES)
         off_path(launches, keep)
+        keep["parallel_launches"] = launches
         fields = lanes.fields()
         gather_ms = time_ms(lambda: (parallel.pipeline.all_gather(mesh, fields),
                                      parallel.pipeline.all_gather(mesh, lanes.data)), 20)
@@ -2164,6 +2180,9 @@ def main() -> int:
     records["enc"]["max_abs_err"] = max(records["enc"]["max_abs_err"],
                                         phase("k5 probe", k5_probe_phase, dev, card))
     records.update(phase("parallel", parallel_phase, dev, card, keep))
+    # K18 alone runs on the scale-out path (the twopass factory), not on the
+    # encodes' (the fused launch): its count is that path's.
+    records["prepack"]["launches"] += keep["parallel_launches"]["prepack"]
     # After every main path: it reports their counts.
     records.update(phase("flat sparse", flat_sparse_phase, dev, card, keep))
 

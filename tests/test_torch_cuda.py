@@ -1008,27 +1008,41 @@ def test_banded_clusters_fit_on_the_card(cuda):
 
 @pytest.mark.parametrize("nmb", [64, 200], ids=["64x256", "200_mbs"])
 def test_wire_kernels_match_plain(cuda, nmb):
-    """K18, K19 and K20 against their twins on seeded pass-2 arrays
-    (`wire_inputs.py`) that set every flag: an MB over CAP_MB nonzeros, over
-    MED_CAP med entries, over N_ESC escapes, and (at 200 MBs) an image over
-    ESC_IMG; one launch each; `fetch_packed` returns the arrays exactly."""
+    """K18, K19, the fused K18 + K19 and K20 against their twins on seeded
+    pass-2 arrays (`wire_inputs.py`) that set every flag: an MB over CAP_MB
+    nonzeros, over MED_CAP med entries, over N_ESC escapes, and (at 200
+    MBs) an image over ESC_IMG; one launch each; K19 also at cap 100; K18
+    and the fused kernel also on a bpred view that is not 16-byte aligned
+    (the byte loads); `fetch_packed` returns the arrays exactly."""
     arrays, lv, flags = wire_arrays(5, nmb, 12)
     cpu = {k: torch.from_numpy(a) for k, a in arrays.items()}
     dev = {k: t.to(cuda) for k, t in cpu.items()}
-    before = {k: _build.LAUNCHES[k] for k in ("prepack", "pack_levels", "wire")}
+    names = ("prepack", "pack_levels", "prepack_pack", "wire")
+    before = {k: _build.LAUNCHES[k] for k in names}
     pre = wire.prepack(dev)
     packed = pack_levels_mb(pre[0], wire.CAP_MB)
+    fused = wire.prepack_pack(dev)
     rows = wire.wire(*packed, *pre[1:])
     torch.cuda.synchronize()
-    assert {k: _build.LAUNCHES[k] - n for k, n in before.items()} == {
-        "prepack": 1, "pack_levels": 1, "wire": 1}
+    assert {k: _build.LAUNCHES[k] - n for k, n in before.items()} == dict.fromkeys(names, 1)
     pre_p = wire.prepack_plain(cpu)
     packed_p = pack_levels_mb_plain(pre_p[0], wire.CAP_MB)
     for g, w in zip((*pre, *packed), (*pre_p, *packed_p)):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    for g, w in zip(fused, wire.prepack_pack_plain(cpu)):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
     assert torch.equal(rows.cpu(), wire.wire_plain(*packed_p, *pre_p[1:]))
     assert (rows[:, :2].cpu().numpy() == flags).all()
-    assert torch.equal(pack_levels_mb(pre[0], 100)[1].cpu(), pack_levels_mb_plain(pre_p[0], 100)[1])
+    for g, w in zip(pack_levels_mb(pre[0], 100), pack_levels_mb_plain(pre_p[0], 100)):
+        assert torch.equal(g.cpu(), w)
+    buf = torch.zeros((5, nmb * 16 + 16), dtype=torch.uint8, device=cuda)
+    bpred = buf[:, 3:3 + nmb * 16].view(5, nmb, 16)  # 3 bytes past an aligned start
+    bpred.copy_(dev["bpred"])
+    assert bpred.data_ptr() % 16 == 3
+    unaligned = dict(dev, bpred=bpred)
+    for g, w in zip((*wire.prepack(unaligned), *wire.prepack_pack(unaligned)),
+                    (*pre_p, *wire.prepack_pack_plain(cpu))):
+        assert torch.equal(g.cpu(), w)
     want = edev.fetch(dev)
     for got in (edev.fetch_packed(pre[0], rows, dev),
                 edev.fetch_packed(pre[0][:3], rows[:3], {k: t[:3] for k, t in dev.items()})):
@@ -1061,8 +1075,8 @@ def test_wire_kernel_escapes_past_2_24(cuda):
 @pytest.mark.parametrize("two_pass", [True, False], ids=["two_pass", "one_pass"])
 def test_encode_through_the_wire_on_card(cuda, two_pass):
     """Q100 frames whose rows take the sparse branch with escapes and the
-    dense-row branch (sp_over): payloads equal the CPU encode's; K18-K20
-    launched once each."""
+    dense-row branch (sp_over): payloads equal the CPU encode's; the fused
+    K18 + K19 and K20 launched once each, K18 and K19 alone not at all."""
     yy, xx = np.mgrid[0:48, 0:64]
     tiles = np.repeat(np.where(((yy // 16) + (xx // 16)) % 2 == 1, 255, 0)[..., None], 3, 2)
     noise = 128 + np.random.RandomState(8).randint(-40, 41, (48, 64, 3))
@@ -1071,8 +1085,8 @@ def test_encode_through_the_wire_on_card(cuda, two_pass):
     _build.reset_launches()
     before = dict(edev.WIRE_BRANCHES)
     got = webp_tpu_torch.encode_frames_lossy_batch(rgbs, 100, 3, two_pass, device=cuda)
-    assert {k: _build.LAUNCHES[k] for k in ("prepack", "pack_levels", "wire")} == {
-        "prepack": 1, "pack_levels": 1, "wire": 1}
+    assert {k: _build.LAUNCHES[k] for k in ("prepack", "pack_levels", "prepack_pack", "wire")} == {
+        "prepack": 0, "pack_levels": 0, "prepack_pack": 1, "wire": 1}
     assert {k: edev.WIRE_BRANCHES[k] - n for k, n in before.items()} == {
         "sparse": 1, "dense_row": 1, "dense_arrays": 0}
     assert got == want

@@ -11,6 +11,10 @@ carry.  Image b takes case b % 5:
 3. an MB of 5 escapes: more than N_ESC, the prepack's overflow (flag 1);
 4. four escapes in every MB: more than ESC_IMG when 4 * nmb > 512 (flag 1),
    else a plain image.
+
+Below 8 MBs the arrays are those of 8 MBs with each image's case MB first
+(the MB of case 1, 2 or 3, else the last MB, which holds an escape), cut to
+nmb: every flag of cases 1-3 still holds.
 """
 
 from __future__ import annotations
@@ -23,8 +27,14 @@ BIG = np.array([128, -128, 129, -300, 900, -2048, 32767, -32768])
 def wire_arrays(B: int, nmb: int, seed: int):
     """(arrays dict of numpy [B, nmb, ...], levels int32 [B, nmb, 400],
     expected wire flags uint8 [B, 2])."""
+    if nmb < 1:
+        raise ValueError(f"nmb must be at least 1, got {nmb}")
     if nmb < 8:
-        raise ValueError("the cases need 8 MBs")
+        arrays, lv, flags = wire_arrays(B, 8, seed)
+        first = [{1: 2, 2: 3, 3: 4}.get(b % 5, 7) for b in range(B)]
+        order = np.array([[f] + [m for m in range(8) if m != f] for f in first])[:, :nmb]
+        rows = np.arange(B)[:, None]
+        return {k: a[rows, order] for k, a in arrays.items()}, lv[rows, order], flags
     rng = np.random.RandomState(seed)
     lv = (rng.randint(-3, 4, (B, nmb, 400)) * (rng.rand(B, nmb, 400) < 0.2)).astype(np.int32)
     flags = np.zeros((B, 2), np.uint8)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time the flagship's statistics kernels and the decode's K1 and K4 on one
-NVIDIA GPU, each beside an earlier commit's build of the same kernel: K8
-analysis (`webp_tpu_torch/csrc/analysis.cu`), K6 token_stats
-(`csrc/token_stats.cu`), K1 residual (`csrc/residual.cu`) and K4 yuv2rgb
-(`csrc/yuv2rgb.cu`); rank the flagship kernels by their own device time;
-and time the wrappers' shared launch path.
+"""Time the flagship's statistics kernels, the decode's K1 and K4 and the
+encode wire's K18 and K19 on one NVIDIA GPU, each beside an earlier
+commit's build of the same kernel: K8 analysis
+(`webp_tpu_torch/csrc/analysis.cu`), K6 token_stats (`csrc/token_stats.cu`),
+K1 residual (`csrc/residual.cu`), K4 yuv2rgb (`csrc/yuv2rgb.cu`), K18
+prepack, K19 pack_levels and their fused launch (`csrc/wire.cu`); rank the
+flagship kernels by their own device time; and time the wrappers' shared
+launch path.
 
     python3 tools/stats_split.py [--rank] [--launch]
                                  [--csrc DIR [--split K,K] [--probe] [--segs 8,16]]
@@ -18,8 +20,9 @@ through K8, the host k-means and K5's pass 1 (and, for --rank, pass 2) on
 the card.
 
 --rank times K1 residual, K4 yuv2rgb, K6 token_stats, K7 enc_tables, K8
-analysis and the wire's K18 prepack, K19 pack_levels and K20 wire (on the
-flagship's pass-2 arrays) through their wrappers in three rounds: each
+analysis and the wire's K18 prepack, K19 pack_levels, the fused K18 + K19
+prepack_pack (the main path's call) and K20 wire (on the flagship's pass-2
+arrays) through their wrappers in three rounds: each
 call by CUDA events (the wrapper's host work included) and its kernels'
 device time by the profiler, beside the kernel's bound, with flagship
 launches x (device time - bound), the rule's ranking.
@@ -44,17 +47,27 @@ through the package's wrappers with either library bound, so the host
 work is the same; DIR's C entry points must take the package's arguments.
 K8 and K6 (`--split analysis,token_stats`) run through the C entry points
 of commit 3066949's kernels with their outputs and scratch allocated as
-its wrappers did.  Call by CUDA events over the call, device time by the
-profiler.
+its wrappers did.  K18 and K19 (`--split prepack,pack_levels`, DIR from
+commit 819b51f, whose `webp_prepack` and `webp_pack_levels` take the
+package's arguments) run through the package's wrappers with either
+library bound, on the flagship's pass-2 arrays (K19 on K18's lv8 at
+CAP_MB), alone and as the pair (K18 then K19), beside the package's fused
+launch (`prepack_pack`, equal to the pair's outputs; DIR's too where its
+library has one) in the same rounds.
+Call by CUDA events over the call, device time by the profiler.
 
 --probe adds `clock64()` probes to the package's copies of the kernels:
 per CTA, thread 0's cycles from the kernel's start to the end of each
 phase (K8: stage, rounds, flush; K6: stage, contexts, lists, count, flush;
 K1 on the sparse form: loads, escape run, dequant + IWHT, IDCT, store; K4:
 loads (the chroma taps formed), compute (to the last row's pixels,
-the first row's stores sent), store), the means over CTAs printed.  A
-clock read does not wait for loads in flight: a phase holds the wait for
-the loads whose values it uses first.
+the first row's stores sent), store; K18: loads (to the clip of the
+levels), ranks (the lv8 stores, the escape ballot and, where the warp has
+an escape, the scan), stores (meta8); K19: loads (to the runs' bitmap
+bytes), ranks (the bitmap stores, the scan), stores (tile and copy-out);
+the fused kernel K18's three phases then K19's), the means over CTAs
+printed.  A clock read does not wait for loads in flight: a phase holds
+the wait for the loads whose values it uses first.
 
 --segs 8,16,... also times the package's K8 and K6 with CTAs of that many
 MBs of a row (the wrappers' default is 64).
@@ -78,9 +91,10 @@ ROOT = Path(__file__).resolve().parent.parent
 WIDTH, HEIGHT = 768, 512
 QUALITY, METHOD = 75, 4
 RANKED = ("residual", "yuv2rgb", "token_stats", "enc_tables", "analysis", "prepack",
-          "pack_levels", "wire")
+          "pack_levels", "prepack_pack", "wire")
 # The profiler's names of each ranked kernel's __global__ functions.
 WIRE_DEVICE = {"prepack": ["prepack_kernel"], "pack_levels": ["pack_levels_kernel"],
+               "prepack_pack": ["prepack_pack_kernel"],
                "wire": ["wire_mb_kernel", "wire_list_kernel"]}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 PARENT_SIGNATURES = {  # the one-warp-per-MB K8 and one-thread-per-block K6 (commit 3066949)
@@ -94,11 +108,14 @@ DECODE_ENTRIES = ("webp_residual", "webp_yuv2rgb")  # K1 and K4: the package's s
 # Probes: thread 0 of each CTA stores clock64() - its start at the end of
 # each phase.  (file, anchor, inserted after the anchor); each anchor must
 # occur exactly once.
-N_PROBE, MAX_CTAS = 5, 65536
+N_PROBE, MAX_CTAS = 7, 65536
 PROBE_DECL = f"""
 static __device__ long long stats_probe[{MAX_CTAS} * {N_PROBE}];
-#define PROBE(k) do {{ if ((threadIdx.x | threadIdx.y) == 0) stats_probe[((blockIdx.z * gridDim.y + blockIdx.y) \
-    * gridDim.x + blockIdx.x) * {N_PROBE} + (k)] = clock64() - probe_t0; }} while (0)
+#define PROBE_SLOT(k) stats_probe[((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) \
+    * {N_PROBE} + (k)]
+#define PROBE_THREAD ((threadIdx.x | threadIdx.y) == 0)
+#define PROBE(k) do {{ if (PROBE_THREAD) PROBE_SLOT(k) = clock64() - probe_t0; }} while (0)
+#define PROBE_AT(k) do {{ if (PROBE_THREAD) PROBE_SLOT(k) = clock64(); }} while (0)
 """
 PROBE_API = """
 WEBP_API int webp_{name}_probe(void* host, int n) {{
@@ -112,6 +129,15 @@ PHASES = {"analysis": ("stage", "rounds", "flush"),
           "token_stats": ("stage", "contexts", "lists", "count", "flush"),
           "residual": ("loads", "escape run", "dequant + IWHT", "IDCT", "store"),
           "yuv2rgb": ("loads", "compute", "store")}
+# The wire kernels' probes store the clock itself (PROBE_AT: the shared
+# device functions have no start of their own): kernel -> (phase, slot),
+# each phase ending at its slot and starting at the one before.
+WIRE_PHASES = {
+    "prepack": (("start", 0), ("loads", 1), ("ranks", 2), ("stores", 3)),
+    "pack_levels": (("start", 0), ("loads", 4), ("ranks", 5), ("stores", 6)),
+    "prepack_pack": (("start", 0), ("K18 loads", 1), ("K18 ranks", 2), ("K18 stores", 3),
+                     ("K19 bitmap", 4), ("K19 ranks", 5), ("K19 stores", 6)),
+}
 PATCHES = {
     "analysis.cu": [
         ('#include "common.cuh"\n', PROBE_DECL),
@@ -150,10 +176,25 @@ PATCHES = {
         ("(width * 3) + j0 * 3;\n", "        PROBE(1);\n"),
         ("        store_row(out, w, n);\n    }\n", "    PROBE(2);\n"),
     ],
+    "wire.cu": [
+        ('#include "common.cuh"\n', PROBE_DECL),
+        ("uint8_t* __restrict__ over, uint2& run_a, uint2& run_b) {\n", "    PROBE_AT(0);\n"),
+        ("    run_b = clip_run(raw_b, esc_b);\n", "    PROBE_AT(1);\n"),
+        ("        if (lane == 0 && n > kEsc) over[b] = 1;\n    }\n", "    PROBE_AT(2);\n"),
+        ("        out[lane] = static_cast<uint8_t>(meta);\n    }\n", "    PROBE_AT(3);\n"),
+        ("    const int8_t* row = lv8 + mb * kSlots;  // 8-byte aligned (the wrapper checks lv8)\n",
+         "    PROBE_AT(0);\n"),
+        ("bits_b = nonzero_bits(run_b);\n", "    PROBE_AT(4);\n"),
+        ("n = n_a + (total >> 16);\n    const int chunks = (cap + 15) / 16;\n",
+         "    PROBE_AT(5);\n"),
+        ("    if (lane == 0 && n > cap) over[b] = 1;\n", "    PROBE_AT(6);\n"),
+    ],
 }
 PTXAS_NAMES = {"analysis_kernel": "analysis", "token_stats_kernel": "token_stats",
                "residual_kernel": "residual", "yuv2rgb_kernelILb1E": "yuv2rgb (vector loads)",
-               "yuv2rgb_kernelILb0E": "yuv2rgb (byte loads)", "yuv2rgb_kernel": "yuv2rgb"}
+               "yuv2rgb_kernelILb0E": "yuv2rgb (byte loads)", "yuv2rgb_kernel": "yuv2rgb",
+               "prepack_pack_kernel": "prepack_pack", "prepack_kernel": "prepack",
+               "pack_levels_kernel": "pack_levels"}
 
 
 def instrument(csrc: Path) -> None:
@@ -296,6 +337,9 @@ def ranked_calls(dev, batch: int) -> dict:
                              n_mb * wire.SLOTS * cs.OPS_PREPACK_SLOT)),
         "pack_levels": (lambda: pack_levels_mb(pre[0], wire.CAP_MB),
                         cs.bound(cs.nbytes(pre[0], *packed), n_mb * wire.SLOTS * cs.OPS_PACK_SLOT)),
+        "prepack_pack": (lambda: wire.prepack_pack(pass2),
+                         cs.bound(cs.nbytes(*pass2.values(), *pre, *packed),
+                                  n_mb * wire.SLOTS * (cs.OPS_PREPACK_SLOT + cs.OPS_PACK_SLOT))),
         "wire": (lambda: wire.wire(*packed, *pre[1:]),
                  cs.bound(cs.nbytes(*packed, *pre[1:], rows),
                           n_mb * (wire.CAP_MB * cs.OPS_WIRE_VALUE
@@ -516,6 +560,136 @@ def split_decode(dev, card: str, batches, lib, parent, probe: bool) -> dict:
     return out
 
 
+WIRE_ENTRIES = ("webp_prepack", "webp_pack_levels")  # K18 and K19: the package's signatures
+
+
+def split_wire(dev, card: str, batches, lib, parent, probe: bool) -> dict:
+    """K18 and K19 of the package beside the parent's, through the
+    package's wrappers with either library bound, alone and as the pair,
+    and the package's fused launch beside both pairs, in turns, per batch,
+    on the flagship's pass-2 arrays."""
+    import torch
+
+    import chip_smoke as cs
+    from webp_tpu_torch import _build
+    from webp_tpu_torch.ops import wire
+    from webp_tpu_torch.ops.sparse import pack_levels_mb
+
+    entries = [n for n in (*WIRE_ENTRIES, "webp_prepack_pack") if hasattr(parent, n)]
+    for name in entries:
+        getattr(parent, name).argtypes = _build._SIGNATURES[name]
+        getattr(parent, name).restype = ctypes.c_int
+    parent.webp_error_string.argtypes = [ctypes.c_int]
+    parent.webp_error_string.restype = ctypes.c_char_p
+    libs = {"package": (lib, dict(_build._entries)),
+            "parent": (parent, {n: getattr(parent, n) for n in entries})}
+    fused_of = ["package"] + (["parent"] if "webp_prepack_pack" in entries else [])
+    names = {"prepack": WIRE_DEVICE["prepack"], "pack_levels": WIRE_DEVICE["pack_levels"],
+             "pair": WIRE_DEVICE["prepack"] + WIRE_DEVICE["pack_levels"],
+             "prepack_pack": WIRE_DEVICE["prepack_pack"]}
+    out = {}
+    for batch in batches:
+        *_, pass2 = encode_inputs(dev, batch, pass2=True)
+        lv8 = wire.prepack(pass2)[0]
+
+        def pair():
+            pre = wire.prepack(pass2)
+            return (*pre, *pack_levels_mb(pre[0], wire.CAP_MB))
+
+        calls = {"prepack": lambda: wire.prepack(pass2),
+                 "pack_levels": lambda: pack_levels_mb(lv8, wire.CAP_MB), "pair": pair}
+        rec = {}
+        for k, fn in calls.items():
+            got = {}
+            for who in ("package", "parent"):
+                bind(_build, *libs[who])
+                got[who] = fn()
+            fused = []
+            for who in fused_of if k == "pair" else ():
+                bind(_build, *libs[who])
+                fused.append(wire.prepack_pack(pass2))
+            bind(_build, *libs["package"])
+            torch.cuda.synchronize()
+            for a, b in zip(got["package"], got["parent"]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{k} at batch {batch}: the package differs from the "
+                                         "parent")
+            if not all(all(map(torch.equal, f, got["package"])) for f in fused):
+                raise AssertionError(f"prepack_pack at batch {batch} differs from the pair")
+            order = ("parent", "package", "package", "parent")
+            if k == "pair":  # the fused launch in the same rounds (a parent's too, if it has one)
+                fused_who = [f"{who} fused" for who in fused_of]
+                order = ("parent", "package", *fused_who, *fused_who[::-1], "package", "parent")
+            r = {"call_ms": {}, "device_ms": {}}
+            for who in order:
+                lib_of = who.split()[0]
+                bind(_build, *libs[lib_of])
+                f = (lambda: wire.prepack_pack(pass2)) if who.endswith("fused") else fn
+                n = names["prepack_pack" if who.endswith("fused") else k]
+                r["call_ms"].setdefault(who, []).append(cs.time_ms(f, 20))
+                r["device_ms"].setdefault(who, []).append(
+                    cs.device_total(cs.device_ms(f, 20, n)))
+            bind(_build, *libs["package"])
+            rec[k] = r
+            text = "; ".join(f"{who} " + ", ".join(
+                f"{what} {' / '.join('n/a' if t is None else f'{t:.4f}' for t in r[key][who])}"
+                for what, key in (("call", "call_ms"), ("device", "device_ms"))) + " ms"
+                for who in r["call_ms"])
+            print(f"batch {batch}: {k}: {text}; outputs equal ({card})", flush=True)
+        if probe:
+            ctas = batch * -(-lv8.shape[1] // 8)
+            for k, fn in (("prepack", calls["prepack"]), ("pack_levels", calls["pack_levels"]),
+                          ("prepack_pack", lambda: wire.prepack_pack(pass2))):
+                rec.setdefault(k, {})["cycles_per_cta"] = wire_probe_cycles(lib, k, ctas, fn,
+                                                                            batch, card)
+        out[batch] = rec
+    return out
+
+
+def wire_probe_cycles(lib, k: str, ctas: int, fn, batch: int, card: str) -> dict:
+    """Mean cycles a CTA (its thread 0) by phase of wire kernel k over one
+    call of fn(), from the clocks its probes stored (WIRE_PHASES)."""
+    import torch
+
+    reader = lib.webp_wire_probe
+    reader.argtypes, reader.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    n = N_PROBE * ctas
+    buf = (ctypes.c_longlong * n)()
+    reader(buf, n)  # read and zero
+    fn()
+    torch.cuda.synchronize()
+    if reader(buf, n) != 0:
+        raise RuntimeError("the probe read failed")
+    slots = WIRE_PHASES[k]
+    cyc = {}
+    for (_, a), (ph, b) in zip(slots, slots[1:]):
+        cyc[ph] = statistics.mean(buf[c * N_PROBE + b] - buf[c * N_PROBE + a] for c in range(ctas))
+    cyc["total"] = sum(cyc.values())
+    print(f"batch {batch}: {k} probe, mean cycles a CTA by phase "
+          f"{({p: round(c) for p, c in cyc.items()})} ({card})", flush=True)
+    return cyc
+
+
+def sass_local(lib_path: Path, kernels) -> list:
+    """Per kernel of `kernels` (a substring of its SASS function name), the
+    local-memory loads and stores (LDL / STL) in the library's SASS."""
+    from webp_tpu_torch import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, on = {k: [0, 0] for k in kernels}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            # the longest name that fits: prepack_pack_kernel before prepack_kernel
+            on = max((k for k in kernels if k in fn), key=len, default=None)
+        elif on is not None:
+            counts[on][0] += " LDL" in line
+            counts[on][1] += " STL" in line
+    return [f"{k}: {ldl} LDL, {stl} STL in the SASS" for k, (ldl, stl) in counts.items()]
+
+
 def launch_profile(dev, card: str, reps: int = 2000, rounds: int = 3) -> dict:
     """The launch path's host work per call, step by step, the earlier path
     against the current one; then K9's call through each beside one add_."""
@@ -614,7 +788,8 @@ def main() -> int:
                     "beside add_")
     ap.add_argument("--csrc", type=Path, help="an earlier csrc whose kernels to time beside")
     ap.add_argument("--split", default="residual,yuv2rgb",
-                    help="the kernels --csrc times: residual,yuv2rgb or analysis,token_stats")
+                    help="the kernels --csrc times: residual,yuv2rgb, analysis,token_stats or "
+                    "prepack,pack_levels")
     ap.add_argument("--probe", action="store_true", help="clock64() probes per phase")
     ap.add_argument("--segs", help="also time K8 / K6 with CTAs of these MBs a row")
     ap.add_argument("--batches", default="8,64", help="batch sizes, comma-separated")
@@ -639,6 +814,7 @@ def main() -> int:
         parent = build(_build, args.csrc.resolve(), ROOT / "build" / "stats_split" / "parent",
                        bind=False)
         parent_ptxas = ptxas_lines(_build.PTXAS_REPORT)
+        parent_lib = _build.LIB_PATH
     lib = build(_build, package_csrc, ROOT / "build" / "stats_split" / "package", args.probe)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -656,11 +832,17 @@ def main() -> int:
             out["split"] = split_stats(dev, card, batches, lib, parent, args.probe,
                                        [int(x) for x in args.segs.split(",")] if args.segs
                                        else ())
+        elif split == ["prepack", "pack_levels"]:
+            out["split"] = split_wire(dev, card, batches, lib, parent, args.probe)
+            out["sass"] = sass_local(_build.LIB_PATH, ("prepack_pack_kernel", "prepack_kernel",
+                                                       "pack_levels_kernel"))
+            out["parent_sass"] = sass_local(parent_lib, ("prepack_kernel", "pack_levels_kernel"))
         else:
-            raise SystemExit(f"--split {args.split}: residual,yuv2rgb or analysis,token_stats")
+            raise SystemExit(f"--split {args.split}: residual,yuv2rgb, analysis,token_stats or "
+                             "prepack,pack_levels")
     if args.rank:
         out["rank"] = rank(dev, card, batches)
-    for who in ("ptxas", "parent_ptxas"):
+    for who in ("ptxas", "parent_ptxas", "sass", "parent_sass"):
         for line in out.get(who, []):
             print(f"{who} {line}")
     print(smi)

@@ -181,6 +181,14 @@ _SIGNATURES = {
         _P, _P, _P,          # bitmap, vals, overflow (zeroed) out
         _P,
     ],
+    "webp_prepack_pack": [
+        _P, _P, _P,          # y, uv, y2 levels
+        _P, _L, _P, _L, _P, _L,   # luma_mode, chroma_mode, bpred (+ batch strides)
+        _I, _I,              # nmb, batch
+        _P, _P, _P, _P, _P,  # lv8, meta8, esc_pos, esc_val, overflow (zeroed) out
+        _P, _P, _P,          # bitmap, vals [B, nmb, 256], sp_over (zeroed) out
+        _P,
+    ],
     "webp_wire": [
         _P, _P, _P, _P, _P,  # bitmap, vals, meta8, esc_pos, esc_val
         _P, _P,              # sp_over, overflow [B] bool
@@ -209,7 +217,8 @@ LAUNCHES = {"residual": 0, "recon": 0, "loopfilter": 0, "recon_filter": 0, "yuv2
             "subtract_green": 0, "color_transform": 0, "color_indexing": 0, "predictor": 0,
             "coeff_tokens": 0, "mb_headers": 0, "bool_lanes": 0,
             "recon_banded": 0, "filter_banded": 0,
-            "prepack": 0, "pack_levels": 0, "wire": 0, "pack_flat": 0, "expand_flat": 0}
+            "prepack": 0, "pack_levels": 0, "prepack_pack": 0, "wire": 0, "pack_flat": 0,
+            "expand_flat": 0}
 
 _lib = None
 _entries = {}  # C entry point -> its bound function in _lib
@@ -375,6 +384,13 @@ def dense(t, dtype, shape) -> int:
             f"expected contiguous {dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}"
         )
     return t.data_ptr()
+
+
+def aligned(ptr: int, n: int, what: str) -> int:
+    """`ptr`, checked to be a multiple of n (a kernel's vector loads)."""
+    if ptr % n:
+        raise ValueError(f"{what} must be {n}-byte aligned for the kernel, got {ptr:#x}")
+    return ptr
 
 
 def plane(t, batch: int, rows: int, cols: int):

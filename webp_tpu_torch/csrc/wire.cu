@@ -13,6 +13,10 @@
 // with an image's overflow flag when one of its MBs has more.  The JAX form
 // is a float32 one-hot matmul per MB.
 //
+// prepack_pack is K18 then K19 at kCapMb in one launch, as the JAX package
+// runs both stages in one program (encode_wavefront2.py:1286
+// encode_analysis_batch_v2_pertbl_packed): the main path's call.
+//
 // K20 replaces encode_wavefront2.py:1200 _wire_stage (with :1178
 // _rank_compact, :1149 _i16_le_bytes): one uint8 row per image holding the
 // flags, the bitmap, the int4 nibbles of the packed values, the per-MB list
@@ -21,21 +25,41 @@
 // positions mb * 400 + pos once they pass 2^24; here every rank is an
 // integer (ADVICE r5).
 //
-// Design: integer arithmetic only.  K18, K19 and K20's per-MB part run one
-// warp per MB (8 warps a block, a grid of (MB chunks, images)); a warp walks
-// its MB's slots 32 at a time, and __ballot_sync + __popc of the lower
-// lanes give each slot its rank in slot order.  Per-image flags are single
-// byte stores of 1 into buffers the caller zeroed (every writer stores the
-// same value).  K20's image list is a second kernel, one block per image,
-// that ranks the nmb * kEsc escape slots with a block-wide scan of warp
-// ballots, in (MB, k) order, and then writes the row's two flag bytes.
-// The list starts at 2 + 260 * nmb, which is 2 mod 4: every multi-byte
-// value is stored byte by byte.
-//
 // Bound: memory.  K18 reads 818 B and writes 400 + 18 + 16 B per MB, K19
-// reads 400 and writes 50 + 256, K20 reads 50 + 256 + 18 + 16 and writes
-// 260 B per MB; the ballots and popcounts are a few integer operations a
-// slot.
+// reads 400 and writes 50 + 256 (at cap 256), the fused kernel K18's bytes
+// and K19's writes; K20 reads 50 + 256 + 18 + 16 and writes 260 B per MB.
+// A slot costs a few integer operations.
+//
+// Design of K18, K19 and the fused kernel: one warp per MB (8 warps a block,
+// a grid of (MB chunks, images)), a lane per run of 8 slots.  Run r holds
+// slots 8r..8r+7; in pass A lane L takes run L (y), in pass B lanes L <
+// kRunsB take run 32 + L (uv for L < 16, y2 for 16 and 17).  A warp issues
+// all of its MB's loads (16 bytes of levels a lane and pass, K19 8 bytes;
+// K18's meta8 source in the same wave) before it uses any, so an MB costs
+// one DRAM round trip; the time a warp waits on a chain of loads, not the
+// bytes, set the earlier 13-pass kernels' time.  Every rank comes from one
+// five-step shuffle scan of a word that holds a lane's pass-A count in its
+// low half and its pass-B count in its high half (a run holds at most 8).
+// K18 clips two int16 at a time (__vmaxs2 / __vmins2), writes a run's int8
+// levels as one 8-byte store, and ranks its escapes only when the warp has
+// one (rare), reading their values again from the levels (an L2 hit) so
+// that no register holds the raw levels past the clip (48 registers, not
+// 52, for the fused kernel: 5 CTAs an SM, not 4).  K19 stores a run's
+// nonzero mask as its bitmap byte, scatters the nonzeros into a zeroed
+// tile of the warp's in shared memory, and copies the tile out (16-byte
+// stores when cap % 16 == 0), which is the zero fill too.  The three
+// kernels share prepack_mb and pack_mb, so the fused kernel is K18's loads
+// and clip with K19's bitmap, scan and tile applied to the clipped levels
+// still in registers (a level is nonzero exactly when its int8 clip is).
+//
+// Design of K20: its per-MB part walks its MB's 256 values 32 at a time,
+// __ballot_sync + __popc of the lower lanes giving each med entry its rank
+// in slot order.  Per-image flags are single byte stores of 1 into buffers
+// the caller zeroed (every writer stores the same value).  K20's image list
+// is a second kernel, one block per image, that ranks the nmb * kEsc escape
+// slots with a block-wide scan of warp ballots, in (MB, k) order, and then
+// writes the row's two flag bytes.  The list starts at 2 + 260 * nmb, which
+// is 2 mod 4: every multi-byte value is stored byte by byte.
 
 #include "common.cuh"
 
@@ -50,11 +74,194 @@ constexpr int kEscImg = 512;      // ESC_IMG
 constexpr int kMeta = 18;
 constexpr int kWarps = 8;         // warps (MBs) a block of the per-MB kernels
 constexpr int kListThreads = 256; // threads of the image-list block
+constexpr int kRunsB = kSlots / 8 - 32;  // runs of pass B: 32..49
+constexpr int kTile = kSlots;     // bytes of a warp's vals tile (cap <= 400)
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
 
 __device__ __forceinline__ void store_le(uint8_t* p, int v, int n) {
     for (int i = 0; i < n; ++i) p[i] = static_cast<uint8_t>((v >> (8 * i)) & 0xFF);
+}
+
+// Exclusive scan of x over the warp's lanes; `total` gets the sum of all.
+// Callers pack two 16-bit counts in x: a half never carries into the other.
+__device__ __forceinline__ unsigned exclusive_scan(unsigned x, int lane, unsigned& total) {
+    unsigned s = x;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const unsigned t = __shfl_up_sync(kFull, s, d);
+        if (lane >= d) s += t;
+    }
+    total = __shfl_sync(kFull, s, 31);
+    return s - x;
+}
+
+// Two int16 (one word) clipped to [-128, 127] in each half; `esc` gets
+// 0xFFFF in each half with |level| > 127 (-128 included).
+__device__ __forceinline__ unsigned clip_pair(unsigned w, unsigned& esc) {
+    esc = __vcmpgts2(__vabsss2(w), 0x007F007Fu);
+    return __vmins2(__vmaxs2(w, 0xFF80FF80u), 0x007F007Fu);
+}
+
+// A run's 8 int16 levels -> their int8 clips (slot 8r + i at byte i) and
+// `esc`, bit i set where slot 8r + i has |level| > 127.
+__device__ __forceinline__ uint2 clip_run(int4 raw, unsigned& esc) {
+    unsigned n0, n1, n2, n3;
+    const unsigned c0 = clip_pair(static_cast<unsigned>(raw.x), n0);
+    const unsigned c1 = clip_pair(static_cast<unsigned>(raw.y), n1);
+    const unsigned c2 = clip_pair(static_cast<unsigned>(raw.z), n2);
+    const unsigned c3 = clip_pair(static_cast<unsigned>(raw.w), n3);
+    esc = (n0 & 1) | ((n0 >> 15) & 2) | ((n1 & 1) << 2) | ((n1 >> 13) & 8) | ((n2 & 1) << 4) |
+          ((n2 >> 11) & 32) | ((n3 & 1) << 6) | ((n3 >> 9) & 128);
+    return make_uint2(__byte_perm(c0, c1, 0x6420), __byte_perm(c2, c3, 0x6420));
+}
+
+// The escapes of one run (bits `esc`, ranks from `rank`), those below kEsc
+// written at their rank, their values read again from the run's levels
+// `src` (an L2 hit; escapes are rare, and the run's registers are free).
+__device__ __forceinline__ void put_escapes(const int16_t* src, unsigned esc, int rank,
+                                            int slot0, int16_t* pos, int16_t* val) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        if ((esc >> i) & 1) {
+            if (rank < kEsc) {
+                pos[rank] = static_cast<int16_t>(slot0 + i);
+                val[rank] = src[i];
+            }
+            ++rank;
+        }
+    }
+}
+
+// K18's work on MB m of image b (mb = b * nmb + m) by its warp: the MB's
+// loads in one wave, the clip, lv8, the escapes, over[b] and meta8.  Returns
+// the lane's int8 runs (pass A's in `run_a`, pass B's in `run_b`, zero past
+// run 49) for K19's pack in the fused kernel.
+__device__ __forceinline__ void prepack_mb(
+    const int16_t* __restrict__ y, const int16_t* __restrict__ uv,
+    const int16_t* __restrict__ y2, const uint8_t* __restrict__ lmode, long long lm_bs,
+    const uint8_t* __restrict__ cmode, long long cm_bs, const uint8_t* __restrict__ bpred,
+    long long bp_bs, int b, int m, long long mb, int lane, int8_t* __restrict__ lv8,
+    uint8_t* __restrict__ meta8, int16_t* __restrict__ esc_pos, int16_t* __restrict__ esc_val,
+    uint8_t* __restrict__ over, uint2& run_a, uint2& run_b) {
+    // bpred's 16 bytes in one load when every MB's are 16-byte aligned.
+    const bool vec_meta =
+        ((reinterpret_cast<uintptr_t>(bpred) | static_cast<uintptr_t>(bp_bs)) & 15) == 0;
+    const int4 raw_a = *reinterpret_cast<const int4*>(y + mb * 256 + 8 * lane);
+    int4 raw_b = make_int4(0, 0, 0, 0);
+    if (lane < 16) {
+        raw_b = *reinterpret_cast<const int4*>(uv + mb * 128 + 8 * lane);
+    } else if (lane < kRunsB) {
+        raw_b = *reinterpret_cast<const int4*>(y2 + mb * 16 + 8 * (lane - 16));
+    }
+    uint4 bp = make_uint4(0, 0, 0, 0);
+    unsigned meta = 0;  // vec_meta: lane kRunsB's two mode bytes; else lane j's byte j
+    const uint8_t* bp_mb = bpred + b * bp_bs + m * 16;
+    if (vec_meta) {
+        if (lane == kRunsB) {
+            bp = *reinterpret_cast<const uint4*>(bp_mb);
+            meta = lmode[b * lm_bs + m] | (cmode[b * cm_bs + m] << 8);
+        }
+    } else if (lane < kMeta) {
+        meta = lane < 16 ? bp_mb[lane] : lane == 16 ? lmode[b * lm_bs + m] : cmode[b * cm_bs + m];
+    }
+
+    unsigned esc_a, esc_b;
+    run_a = clip_run(raw_a, esc_a);
+    run_b = clip_run(raw_b, esc_b);
+    int8_t* row = lv8 + mb * kSlots;
+    *reinterpret_cast<uint2*>(row + 8 * lane) = run_a;
+    if (lane < kRunsB) *reinterpret_cast<uint2*>(row + 256 + 8 * lane) = run_b;
+
+    int16_t* pos = esc_pos + mb * kEsc;
+    int16_t* val = esc_val + mb * kEsc;
+    if (__ballot_sync(kFull, (esc_a | esc_b) != 0) == 0) {  // no escape: the padding
+        if (lane == 0) *reinterpret_cast<uint2*>(pos) = make_uint2(kFull, kFull);
+        if (lane == 1) *reinterpret_cast<uint2*>(val) = make_uint2(0, 0);
+    } else {
+        unsigned total;
+        const unsigned base = exclusive_scan(__popc(esc_a) | (__popc(esc_b) << 16), lane, total);
+        const int n_a = total & 0xFFFF, n = n_a + (total >> 16);
+        put_escapes(y + mb * 256 + 8 * lane, esc_a, base & 0xFFFF, 8 * lane, pos, val);
+        put_escapes(lane < 16 ? uv + mb * 128 + 8 * lane : y2 + mb * 16 + 8 * (lane - 16), esc_b,
+                    n_a + (base >> 16), 256 + 8 * lane, pos, val);
+        if (lane >= n && lane < kEsc) {
+            pos[lane] = -1;
+            val[lane] = 0;
+        }
+        if (lane == 0 && n > kEsc) over[b] = 1;
+    }
+
+    uint8_t* out = meta8 + mb * kMeta;  // 2-byte aligned
+    if (vec_meta) {  // lane j < 9 stores bytes 2j, 2j + 1
+        const unsigned w0 = __shfl_sync(kFull, bp.x, kRunsB);
+        const unsigned w1 = __shfl_sync(kFull, bp.y, kRunsB);
+        const unsigned w2 = __shfl_sync(kFull, bp.z, kRunsB);
+        const unsigned w3 = __shfl_sync(kFull, bp.w, kRunsB);
+        const unsigned modes = __shfl_sync(kFull, meta, kRunsB);
+        if (lane < kMeta / 2) {
+            const unsigned w =
+                lane < 2 ? w0 : lane < 4 ? w1 : lane < 6 ? w2 : lane < 8 ? w3 : modes;
+            reinterpret_cast<uint16_t*>(out)[lane] =
+                static_cast<uint16_t>((lane & 1) && lane < 8 ? w >> 16 : w & 0xFFFF);
+        }
+    } else if (lane < kMeta) {
+        out[lane] = static_cast<uint8_t>(meta);
+    }
+}
+
+// A run's bitmap byte: slot 8r + i (byte i of the run) at bit 7 - i.
+__device__ __forceinline__ unsigned nonzero_bits(uint2 run) {
+    const unsigned x = (__vcmpne4(run.x, 0) & 0x10204080u) | (__vcmpne4(run.y, 0) & 0x01020408u);
+    return (x | (x >> 8) | (x >> 16) | (x >> 24)) & 0xFF;
+}
+
+// The nonzeros of one run (bitmap byte `bits`, ranks from `rank`), those
+// below cap written to the tile at their rank.
+__device__ __forceinline__ void put_values(uint2 run, unsigned bits, int rank, int cap,
+                                           uint8_t* tile) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        if ((bits >> (7 - i)) & 1) {
+            const unsigned word = i < 4 ? run.x : run.y;
+            if (rank < cap) tile[rank] = static_cast<uint8_t>((word >> (8 * (i & 3))) & 0xFF);
+            ++rank;
+        }
+    }
+}
+
+// K19's work on MB mb of image b by its warp, from the lane's int8 runs:
+// the bitmap, the first cap nonzeros through the warp's tile (16-byte
+// aligned, kTile bytes) and over[b].
+__device__ __forceinline__ void pack_mb(uint2 run_a, uint2 run_b, int b, long long mb, int lane,
+                                       int cap, uint8_t* __restrict__ bitmap,
+                                       int8_t* __restrict__ vals, uint8_t* __restrict__ over,
+                                       uint8_t* tile) {
+    const unsigned bits_a = nonzero_bits(run_a), bits_b = nonzero_bits(run_b);
+    uint8_t* bm = bitmap + mb * kBitmap;
+    bm[lane] = static_cast<uint8_t>(bits_a);
+    if (lane < kRunsB) bm[32 + lane] = static_cast<uint8_t>(bits_b);
+    unsigned total;
+    const unsigned base = exclusive_scan(__popc(bits_a) | (__popc(bits_b) << 16), lane, total);
+    const int n_a = total & 0xFFFF, n = n_a + (total >> 16);
+    const int chunks = (cap + 15) / 16;
+    for (int k = lane; k < chunks; k += 32) {
+        reinterpret_cast<uint4*>(tile)[k] = make_uint4(0, 0, 0, 0);
+    }
+    __syncwarp();
+    put_values(run_a, bits_a, base & 0xFFFF, cap, tile);
+    put_values(run_b, bits_b, n_a + (base >> 16), cap, tile);
+    __syncwarp();
+    int8_t* out = vals + mb * cap;
+    if (cap % 16 == 0 && (reinterpret_cast<uintptr_t>(vals) & 15) == 0) {
+        for (int k = lane; k < cap / 16; k += 32) {
+            reinterpret_cast<uint4*>(out)[k] = reinterpret_cast<const uint4*>(tile)[k];
+        }
+    } else {
+        for (int k = lane; k < cap; k += 32) out[k] = static_cast<int8_t>(tile[k]);
+    }
+    if (lane == 0 && n > cap) over[b] = 1;
 }
 
 __global__ void __launch_bounds__(kWarps * 32) prepack_kernel(
@@ -67,64 +274,48 @@ __global__ void __launch_bounds__(kWarps * 32) prepack_kernel(
     const int lane = threadIdx.x & 31;
     const int b = blockIdx.y;
     if (m >= nmb) return;  // the whole warp
-    const long long mb = static_cast<long long>(b) * nmb + m;
-    int n_esc = 0;
-    for (int base = 0; base < kSlots; base += 32) {
-        const int s = base + lane;
-        int v = 0;
-        if (s < kSlots) {
-            v = s < 256 ? y[mb * 256 + s] : s < 384 ? uv[mb * 128 + s - 256] : y2[mb * 16 + s - 384];
-            lv8[mb * kSlots + s] = static_cast<int8_t>(max(-128, min(127, v)));
-        }
-        const bool esc = abs(v) > 127;
-        const unsigned bal = __ballot_sync(0xffffffffu, esc);
-        if (esc) {
-            const int r = n_esc + __popc(bal & lanes_below(lane));
-            if (r < kEsc) {
-                esc_pos[mb * kEsc + r] = static_cast<int16_t>(s);
-                esc_val[mb * kEsc + r] = static_cast<int16_t>(v);
-            }
-        }
-        n_esc += __popc(bal);
-    }
-    if (lane >= n_esc && lane < kEsc) {
-        esc_pos[mb * kEsc + lane] = -1;
-        esc_val[mb * kEsc + lane] = 0;
-    }
-    if (lane == 0 && n_esc > kEsc) over[b] = 1;
-    if (lane < kMeta) {
-        meta8[mb * kMeta + lane] = lane < 16 ? bpred[b * bp_bs + m * 16 + lane]
-                                 : lane == 16 ? lmode[b * lm_bs + m] : cmode[b * cm_bs + m];
-    }
+    uint2 run_a, run_b;
+    prepack_mb(y, uv, y2, lmode, lm_bs, cmode, cm_bs, bpred, bp_bs, b, m,
+               static_cast<long long>(b) * nmb + m, lane, lv8, meta8, esc_pos, esc_val, over,
+               run_a, run_b);
 }
 
 __global__ void __launch_bounds__(kWarps * 32) pack_levels_kernel(
     const int8_t* __restrict__ lv8, int nmb, int cap, uint8_t* __restrict__ bitmap,
     int8_t* __restrict__ vals, uint8_t* __restrict__ over) {
-    const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    __shared__ __align__(16) uint8_t tiles[kWarps][kTile];
+    const int warp = threadIdx.x >> 5;
+    const int m = blockIdx.x * kWarps + warp;
     const int lane = threadIdx.x & 31;
     const int b = blockIdx.y;
     if (m >= nmb) return;
     const long long mb = static_cast<long long>(b) * nmb + m;
-    int count = 0;
-    for (int base = 0; base < kSlots; base += 32) {
-        const int s = base + lane;
-        const int v = s < kSlots ? lv8[mb * kSlots + s] : 0;
-        const unsigned bal = __ballot_sync(0xffffffffu, v != 0);
-        if (v != 0) {
-            const int r = count + __popc(bal & lanes_below(lane));
-            if (r < cap) vals[mb * cap + r] = static_cast<int8_t>(v);
-        }
-        // Lane j < 4 writes byte j of this pass: slots base + 8j .. +7, MSB
-        // first.  The ballot holds slot base + i at bit i; reversed, at 31 - i.
-        const int byte = base / 8 + lane;
-        if (lane < 4 && byte < kBitmap) {
-            bitmap[mb * kBitmap + byte] = static_cast<uint8_t>((__brev(bal) >> (24 - 8 * lane)) & 0xFF);
-        }
-        count += __popc(bal);
-    }
-    for (int k = count + lane; k < cap; k += 32) vals[mb * cap + k] = 0;
-    if (lane == 0 && count > cap) over[b] = 1;
+    const int8_t* row = lv8 + mb * kSlots;  // 8-byte aligned (the wrapper checks lv8)
+    const uint2 run_a = *reinterpret_cast<const uint2*>(row + 8 * lane);
+    const uint2 run_b =
+        lane < kRunsB ? *reinterpret_cast<const uint2*>(row + 256 + 8 * lane) : make_uint2(0, 0);
+    pack_mb(run_a, run_b, b, mb, lane, cap, bitmap, vals, over, tiles[warp]);
+}
+
+// K18 then K19 at kCapMb, the runs handed over in registers.
+__global__ void __launch_bounds__(kWarps * 32) prepack_pack_kernel(
+    const int16_t* __restrict__ y, const int16_t* __restrict__ uv,
+    const int16_t* __restrict__ y2, const uint8_t* __restrict__ lmode, long long lm_bs,
+    const uint8_t* __restrict__ cmode, long long cm_bs, const uint8_t* __restrict__ bpred,
+    long long bp_bs, int nmb, int8_t* __restrict__ lv8, uint8_t* __restrict__ meta8,
+    int16_t* __restrict__ esc_pos, int16_t* __restrict__ esc_val, uint8_t* __restrict__ over,
+    uint8_t* __restrict__ bitmap, int8_t* __restrict__ vals, uint8_t* __restrict__ sp_over) {
+    __shared__ __align__(16) uint8_t tiles[kWarps][kTile];
+    const int warp = threadIdx.x >> 5;
+    const int m = blockIdx.x * kWarps + warp;
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.y;
+    if (m >= nmb) return;
+    const long long mb = static_cast<long long>(b) * nmb + m;
+    uint2 run_a, run_b;
+    prepack_mb(y, uv, y2, lmode, lm_bs, cmode, cm_bs, bpred, bp_bs, b, m, mb, lane, lv8, meta8,
+               esc_pos, esc_val, over, run_a, run_b);
+    pack_mb(run_a, run_b, b, mb, lane, kCapMb, bitmap, vals, sp_over, tiles[warp]);
 }
 
 // K20, per MB: the row's bitmap, nibbles, med list and meta8 of MB m; an
@@ -219,8 +410,9 @@ dim3 mb_grid(int nmb, int batch) { return dim3((nmb + kWarps - 1) / kWarps, batc
 
 }  // namespace
 
-// K18.  lv8 int8 [B, nmb, 400], meta8 uint8 [B, nmb, 18], esc_pos / esc_val
-// int16 [B, nmb, 4] out; over bool [B] zeroed by the caller.
+// K18.  y, uv, y2 int16 levels 16-byte aligned; lv8 int8 [B, nmb, 400]
+// (8-byte aligned), meta8 uint8 [B, nmb, 18], esc_pos / esc_val int16 [B,
+// nmb, 4] (8-byte aligned) out; over bool [B] zeroed by the caller.
 WEBP_API int webp_prepack(const void* y, const void* uv, const void* y2, const void* lmode,
                           long long lm_bs, const void* cmode, long long cm_bs, const void* bpred,
                           long long bp_bs, int nmb, int batch, void* lv8, void* meta8,
@@ -235,8 +427,9 @@ WEBP_API int webp_prepack(const void* y, const void* uv, const void* y2, const v
     return static_cast<int>(cudaGetLastError());
 }
 
-// K19.  bitmap uint8 [B, nmb * 50], vals int8 [B, nmb, cap] out; over bool
-// [B] zeroed by the caller.
+// K19.  lv8 int8 [B, nmb, 400] 8-byte aligned; bitmap uint8 [B, nmb * 50],
+// vals int8 [B, nmb, cap] (cap in 1..400) out; over bool [B] zeroed by the
+// caller.
 WEBP_API int webp_pack_levels(const void* lv8, int nmb, int batch, int cap, void* bitmap,
                               void* vals, void* over, void* stream) {
     if (nmb <= 0 || batch <= 0) return 0;
@@ -244,6 +437,27 @@ WEBP_API int webp_pack_levels(const void* lv8, int nmb, int batch, int cap, void
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(lv8), nmb, cap, static_cast<uint8_t*>(bitmap),
         static_cast<int8_t*>(vals), static_cast<uint8_t*>(over));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K18 + K19 at CAP_MB: K18's arguments and outputs, then K19's bitmap
+// uint8 [B, nmb * 50], vals int8 [B, nmb, 256] and sp_over bool [B]
+// (zeroed by the caller).
+WEBP_API int webp_prepack_pack(const void* y, const void* uv, const void* y2, const void* lmode,
+                               long long lm_bs, const void* cmode, long long cm_bs,
+                               const void* bpred, long long bp_bs, int nmb, int batch, void* lv8,
+                               void* meta8, void* esc_pos, void* esc_val, void* over,
+                               void* bitmap, void* vals, void* sp_over, void* stream) {
+    if (nmb <= 0 || batch <= 0) return 0;
+    prepack_pack_kernel<<<mb_grid(nmb, batch), kWarps * 32, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int16_t*>(y), static_cast<const int16_t*>(uv),
+        static_cast<const int16_t*>(y2), static_cast<const uint8_t*>(lmode), lm_bs,
+        static_cast<const uint8_t*>(cmode), cm_bs, static_cast<const uint8_t*>(bpred), bp_bs, nmb,
+        static_cast<int8_t*>(lv8), static_cast<uint8_t*>(meta8), static_cast<int16_t*>(esc_pos),
+        static_cast<int16_t*>(esc_val), static_cast<uint8_t*>(over),
+        static_cast<uint8_t*>(bitmap), static_cast<int8_t*>(vals),
+        static_cast<uint8_t*>(sp_over));
     return static_cast<int>(cudaGetLastError());
 }
 

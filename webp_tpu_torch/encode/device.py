@@ -19,9 +19,9 @@ The stages, each a function here so that they can be timed apart:
 6. `tables_for`: K7, per-image rate tables from those probabilities.
 7. Pass 2: K5 with the per-image tables, the method's n_try and, for
    methods 4-6, the trellis.
-8. `wire`: K18 prepack, K19 pack_levels and K20 wire pack pass 2's arrays
-   into one uint8 row per image (`ops/wire.py`; 402,434 B at 768x512,
-   against 818 B/MB dense).
+8. `wire`: K18 prepack and K19 pack_levels in one launch (`prepack_pack`),
+   then K20 wire, pack pass 2's arrays into one uint8 row per image
+   (`ops/wire.py`; 402,434 B at 768x512, against 818 B/MB dense).
 9. `d2h` (`fetch_packed`): the rows to the host, in one copy; the dense
    int8 level rows of images whose values did not fit the row (sp_over)
    in a second.  When an escape list overflowed, the dense arrays

@@ -15,8 +15,9 @@ Kernel K19, `pack_levels_mb`, is the device pack of the encode wire
 (`ops/wire.py`): it replaces `webp_tpu/ops/sparse.py:73`
 `device_pack_levels_mb`, jitted as `webp_tpu/ops/encode_wavefront2.py:1113`
 `_pack_levels_stage`.  The JAX form compacts with a float32 one-hot matmul
-per MB; the CUDA kernel (`csrc/wire.cu`) ranks each MB's nonzeros with warp
-ballots, in integers.  `pack_levels_mb_plain` is its torch twin, run for CPU
+per MB; the CUDA kernel (`csrc/wire.cu`) gives each lane of an MB's warp a
+run of 8 slots and ranks the nonzeros by a shuffle scan of the runs' counts,
+in integers.  `pack_levels_mb_plain` is its torch twin, run for CPU
 tensors.
 
 Kernels K21 `pack_levels` and K22 `expand_levels` (`csrc/sparse.cu`) are the
@@ -156,8 +157,8 @@ def _pack_levels_kernel(lv8: torch.Tensor, cap_mb: int):
     vals = torch.empty((B, nmb, cap_mb), dtype=torch.int8, device=dev)
     over = torch.zeros(B, dtype=torch.bool, device=dev)
     _build.launch("pack_levels", "webp_pack_levels", dev,
-                  _build.dense(lv8, torch.int8, (B, nmb, S)), nmb, B, cap_mb,
-                  bitmap.data_ptr(), vals.data_ptr(), over.data_ptr())
+                  _build.aligned(_build.dense(lv8, torch.int8, (B, nmb, S)), 8, "lv8"), nmb, B,
+                  cap_mb, bitmap.data_ptr(), vals.data_ptr(), over.data_ptr())
     return bitmap, vals, over
 
 

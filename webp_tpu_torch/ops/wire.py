@@ -13,6 +13,9 @@ half) and `:1499-1600` (the host half).  Two kernels and the pack of
   `meta8` = [bpred 16, luma mode, chroma mode].
 - K19 `pack_levels` (`ops/sparse.py`): each MB's nonzero bitmap and its
   first CAP_MB nonzeros in slot order (`:1113`, `sparse.py:73`).
+- `prepack_pack`: K18 then K19 at CAP_MB in one launch, K19 taking K18's
+  clipped levels from registers, as the JAX package runs both stages in
+  one program (`:1286`); the main path's call.
 - K20 `wire` replaces `:1200` `_wire_stage` with `:1178` `_rank_compact`
   and `:1149` `_i16_le_bytes`: the int4 nibbles of the packed values (low
   nibble for the even slot), the per-MB list of the |v| > 7 slots (slot
@@ -25,8 +28,8 @@ half) and `:1499-1600` (the host half).  Two kernels and the pack of
 The JAX package compacts the lists with float32 one-hot matmuls, exact only
 while a position stays below 2^24 (nmb <= 41,943); every compaction here
 ranks in integers.  `encode_analysis_batch_packed` is K5 followed by the
-three, for `:1260` `encode_analysis_batch_v2_packed` and `:1286`
-`encode_analysis_batch_v2_pertbl_packed` both: the port's K5 takes shared
+fused K18 + K19 and K20, for `:1260` `encode_analysis_batch_v2_packed` and
+`:1286` `encode_analysis_batch_v2_pertbl_packed` both: the port's K5 takes shared
 or per-image tables alike.  The wrappers launch the CUDA kernels
 (`csrc/wire.cu`) for CUDA tensors and run the `*_plain` torch twins for
 CPU ones.
@@ -46,7 +49,7 @@ import torch
 from .. import _build
 from ..io import native
 from .encode_wavefront import encode_analysis_batch
-from .sparse import compact, host_expand_levels_mb, pack_levels_mb
+from .sparse import compact, host_expand_levels_mb, pack_levels_mb, pack_levels_mb_plain
 
 N_ESC = 4  # per-MB escapes (|level| > 127) the prepack keeps
 CAP_MB = 256  # per-MB nonzeros the wire packs
@@ -87,14 +90,44 @@ def prepack(arrays):
     """K5's output dict (int16 levels, uint8 modes, [B, nmb, ...]) -> (lv8
     int8 [B, nmb, 400], meta8 uint8 [B, nmb, 18], esc_pos, esc_val int16
     [B, nmb, N_ESC], overflow bool [B]), on the arrays' device."""
-    dev = _build.same_device(*(arrays[k] for k in ("luma_mode", "chroma_mode", "bpred",
-                                                   "y_levels", "y2_levels", "uv_levels")))
-    if dev.type == "cpu":
+    if _arrays_device(arrays).type == "cpu":
         return prepack_plain(arrays)
-    return _prepack_kernel(arrays)
+    pre, args = _prepack_args(arrays)
+    _build.launch("prepack", "webp_prepack", pre[0].device, *args)
+    return pre
 
 
-def _prepack_kernel(arrays):
+def prepack_pack_plain(arrays):
+    """Torch twin of the fused K18 + K19 kernel (any device)."""
+    pre = prepack_plain(arrays)
+    return (*pre, *pack_levels_mb_plain(pre[0], CAP_MB))
+
+
+def prepack_pack(arrays):
+    """K18 then K19 at CAP_MB in one launch: `prepack`'s 5-tuple, then
+    `pack_levels_mb(lv8, CAP_MB)`'s (bitmap uint8 [B, nmb*50], vals int8
+    [B, nmb, CAP_MB], sp_over bool [B])."""
+    if _arrays_device(arrays).type == "cpu":
+        return prepack_pack_plain(arrays)
+    pre, args = _prepack_args(arrays)
+    B, nmb = pre[0].shape[:2]
+    dev = pre[0].device
+    bitmap = torch.empty((B, nmb * SLOTS // 8), dtype=torch.uint8, device=dev)
+    vals = torch.empty((B, nmb, CAP_MB), dtype=torch.int8, device=dev)
+    sp_over = torch.zeros(B, dtype=torch.bool, device=dev)
+    _build.launch("prepack_pack", "webp_prepack_pack", dev, *args, bitmap.data_ptr(),
+                  vals.data_ptr(), sp_over.data_ptr())
+    return (*pre, bitmap, vals, sp_over)
+
+
+def _arrays_device(arrays):
+    return _build.same_device(*(arrays[k] for k in ("luma_mode", "chroma_mode", "bpred",
+                                                    "y_levels", "y2_levels", "uv_levels")))
+
+
+def _prepack_args(arrays):
+    """K18's outputs, allocated, and its C entry point's arguments before
+    the stream: the levels 16-byte aligned, the per-MB fields as views."""
     lm = arrays["luma_mode"]
     dev = lm.device
     B, nmb = lm.shape
@@ -103,17 +136,15 @@ def _prepack_kernel(arrays):
     esc_pos = torch.empty((B, nmb, N_ESC), dtype=torch.int16, device=dev)
     esc_val = torch.empty((B, nmb, N_ESC), dtype=torch.int16, device=dev)
     over = torch.zeros(B, dtype=torch.bool, device=dev)
-    _build.launch(
-        "prepack", "webp_prepack", dev,
-        _build.dense(arrays["y_levels"], torch.int16, (B, nmb, 16, 16)),
-        _build.dense(arrays["uv_levels"], torch.int16, (B, nmb, 8, 16)),
-        _build.dense(arrays["y2_levels"], torch.int16, (B, nmb, 16)),
-        *_build.mb_field(lm, B, nmb), *_build.mb_field(arrays["chroma_mode"], B, nmb),
-        *_build.mb_field(arrays["bpred"], B, nmb, 16),
-        nmb, B, lv8.data_ptr(), meta8.data_ptr(), esc_pos.data_ptr(), esc_val.data_ptr(),
-        over.data_ptr(),
-    )
-    return lv8, meta8, esc_pos, esc_val, over
+    levels = [_build.aligned(_build.dense(arrays[k], torch.int16, (B, nmb, *shape)), 16, k)
+              for k, shape in (("y_levels", (16, 16)), ("uv_levels", (8, 16)),
+                               ("y2_levels", (16,)))]
+    args = (*levels, *_build.mb_field(lm, B, nmb),
+            *_build.mb_field(arrays["chroma_mode"], B, nmb),
+            *_build.mb_field(arrays["bpred"], B, nmb, 16),
+            nmb, B, lv8.data_ptr(), meta8.data_ptr(), esc_pos.data_ptr(), esc_val.data_ptr(),
+            over.data_ptr())
+    return (lv8, meta8, esc_pos, esc_val, over), args
 
 
 def escape_list(esc_pos: torch.Tensor, esc_val: torch.Tensor):
@@ -193,12 +224,12 @@ def wire_stage(lv8, meta8, esc_pos, esc_val, overflow):
 
 def encode_analysis_batch_packed(y, u, v, P, tbl, n_try: int, do_trellis: bool = False,
                                  sid=None):
-    """K5 (`encode_analysis_batch`'s arguments), then K18, K19 and K20:
-    (lv8 int8 [B, nmb, 400], wire uint8 [B, wire_bytes(nmb)], K5's arrays),
-    all on the planes' device."""
+    """K5 (`encode_analysis_batch`'s arguments), then the fused K18 + K19
+    and K20: (lv8 int8 [B, nmb, 400], wire uint8 [B, wire_bytes(nmb)], K5's
+    arrays), all on the planes' device."""
     arrays = encode_analysis_batch(y, u, v, P, tbl, n_try, do_trellis, sid)
-    pre = prepack(arrays)
-    return pre[0], wire_stage(*pre), arrays
+    lv8, meta8, esc_pos, esc_val, overflow, bitmap, vals, sp_over = prepack_pack(arrays)
+    return lv8, wire(bitmap, vals, sp_over, meta8, esc_pos, esc_val, overflow), arrays
 
 
 # ---------------------------------------------------------------------------
