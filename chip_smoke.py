@@ -432,8 +432,9 @@ def handoff_ms(dev) -> float:
 
 def ptxas_report() -> list:
     """The row-CTA kernel's three instances', K5's (both instances), K6's,
-    K8's, K12's, K13-K15's, K18's, K19's and the fused K18 + K19's
-    registers, shared memory and spills, from the build's ptxas report."""
+    K7's, K8's, K12's, K13-K15's, K18's, K19's, the fused K18 + K19's and
+    K20's registers, shared memory and spills, from the build's ptxas
+    report."""
     from webp_tpu_torch import _build
 
     names = {"rows_kernelILb1ELb0E": "recon", "rows_kernelILb0ELb1E": "loopfilter",
@@ -444,7 +445,8 @@ def ptxas_report() -> list:
              "mb_headers_kernel": "mb_headers", "bool_lanes_kernel": "bool_lanes",
              "coder_chain_kernel": "coder_chain",
              "predictor_rows_kernel": "predictor", "prepack_pack_kernel": "prepack_pack",
-             "prepack_kernel": "prepack", "pack_levels_kernel": "pack_levels"}
+             "prepack_kernel": "prepack", "pack_levels_kernel": "pack_levels",
+             "wire_kernel": "wire", "enc_tables_kernel": "enc_tables"}
     if not _build.PTXAS_REPORT.exists():  # a library built before the report was kept
         return []
     out, name = [], None
@@ -1184,7 +1186,7 @@ def wire_phase(dev, card: str, name: str, pass2) -> dict:
     calls = {"prepack": (lambda: wire.prepack(pass2), ["prepack_kernel"]),
              "pack_levels": (lambda: pack_levels_mb(pre[0], cap), ["pack_levels_kernel"]),
              "prepack_pack": (lambda: wire.prepack_pack(pass2), ["prepack_pack_kernel"]),
-             "wire": (lambda: wire.wire(*packed, *pre[1:]), ["wire_mb_kernel", "wire_list_kernel"])}
+             "wire": (lambda: wire.wire(*packed, *pre[1:]), ["wire_kernel"])}
     ms = {k: time_ms(fn, 20) for k, (fn, _) in calls.items()}
     dev_ms = device_times(name, dev, calls)
     n_mb = B * nmb

@@ -428,8 +428,11 @@ def test_token_stats_kernel_matches_plain(cuda):
         assert torch.equal(g.cpu(), w)
 
 
-def test_enc_tables_kernel_matches_plain(cuda):
-    probs = torch.from_numpy(_random_probs(5, 3))
+@pytest.mark.parametrize("batch", [3, 1, 8, 64])
+def test_enc_tables_kernel_matches_plain(cuda, batch):
+    """K7 (a CTA per (image, type)) against its twin, at the main path's
+    batches 8 and 64 too."""
+    probs = torch.from_numpy(_random_probs(5, batch))
     want = enc_tables_plain(probs)
     before = _build.LAUNCHES["enc_tables"]
     got = enc_tables(probs.to(cuda))
@@ -1006,15 +1009,21 @@ def test_banded_clusters_fit_on_the_card(cuda):
         assert min(shape.recon_clusters, shape.filter_clusters) >= 1
 
 
-@pytest.mark.parametrize("nmb", [64, 200], ids=["64x256", "200_mbs"])
-def test_wire_kernels_match_plain(cuda, nmb):
+@pytest.mark.parametrize("B,nmb", [(5, 64), (5, 200), (1, 1), (3, 7), (1, 1536), (3, 1536),
+                                   (3, 45_000)],
+                         ids=["64x256", "200_mbs", "1_mb", "7_mbs", "1536_mbs", "3x1536_mbs",
+                              "3x45000_mbs"])
+def test_wire_kernels_match_plain(cuda, B, nmb):
     """K18, K19, the fused K18 + K19 and K20 against their twins on seeded
     pass-2 arrays (`wire_inputs.py`) that set every flag: an MB over CAP_MB
     nonzeros, over MED_CAP med entries, over N_ESC escapes, and (at 200
     MBs) an image over ESC_IMG; one launch each; K19 also at cap 100; K18
     and the fused kernel also on a bpred view that is not 16-byte aligned
-    (the byte loads); `fetch_packed` returns the arrays exactly."""
-    arrays, lv, flags = wire_arrays(5, nmb, 12)
+    (the byte loads); `fetch_packed` returns the arrays exactly.  K20 (a
+    CTA per 32 MBs and a list CTA an image) also with each MB's
+    escape slots permuted (holes between live ones), at batch 1 and 3
+    (rows that start off 16 bytes), and leaves its scratch zero."""
+    arrays, lv, flags = wire_arrays(B, nmb, 12)
     cpu = {k: torch.from_numpy(a) for k, a in arrays.items()}
     dev = {k: t.to(cuda) for k, t in cpu.items()}
     names = ("prepack", "pack_levels", "prepack_pack", "wire")
@@ -1035,8 +1044,14 @@ def test_wire_kernels_match_plain(cuda, nmb):
     assert (rows[:, :2].cpu().numpy() == flags).all()
     for g, w in zip(pack_levels_mb(pre[0], 100), pack_levels_mb_plain(pre_p[0], 100)):
         assert torch.equal(g.cpu(), w)
-    buf = torch.zeros((5, nmb * 16 + 16), dtype=torch.uint8, device=cuda)
-    bpred = buf[:, 3:3 + nmb * 16].view(5, nmb, 16)  # 3 bytes past an aligned start
+    perm = torch.argsort(torch.rand(pre_p[2].shape, generator=torch.Generator().manual_seed(nmb)),
+                         -1)
+    holes = [t.gather(-1, perm) for t in pre_p[2:4]]
+    rows_h = wire.wire(*packed, pre[1], *(t.to(cuda) for t in holes), pre[4])
+    assert torch.equal(rows_h.cpu(), wire.wire_plain(*packed_p, pre_p[1], *holes, pre_p[4]))
+    assert not _build.kept_zeroed("wire", B, torch.int64, cuda).any()
+    buf = torch.zeros((B, nmb * 16 + 16), dtype=torch.uint8, device=cuda)
+    bpred = buf[:, 3:3 + nmb * 16].view(B, nmb, 16)  # 3 bytes past an aligned start
     bpred.copy_(dev["bpred"])
     assert bpred.data_ptr() % 16 == 3
     unaligned = dict(dev, bpred=bpred)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the flagship's statistics kernels, the decode's K1 and K4 and the
-encode wire's K18 and K19 on one NVIDIA GPU, each beside an earlier
-commit's build of the same kernel: K8 analysis
+"""Time the flagship's statistics kernels, the decode's K1 and K4, the
+encode wire's K18, K19 and K20 and the rate tables K7 on one NVIDIA GPU,
+each beside an earlier commit's build of the same kernel: K8 analysis
 (`webp_tpu_torch/csrc/analysis.cu`), K6 token_stats (`csrc/token_stats.cu`),
 K1 residual (`csrc/residual.cu`), K4 yuv2rgb (`csrc/yuv2rgb.cu`), K18
-prepack, K19 pack_levels and their fused launch (`csrc/wire.cu`); rank the
+prepack, K19 pack_levels, their fused launch and K20 wire (`csrc/wire.cu`),
+K7 enc_tables (`csrc/enc_tables.cu`); rank the
 flagship kernels by their own device time; and time the wrappers' shared
 launch path.
 
@@ -54,7 +55,16 @@ library bound, on the flagship's pass-2 arrays (K19 on K18's lv8 at
 CAP_MB), alone and as the pair (K18 then K19), beside the package's fused
 launch (`prepack_pack`, equal to the pair's outputs; DIR's too where its
 library has one) in the same rounds.
-Call by CUDA events over the call, device time by the profiler.
+K20 and K7 (`--split wire,enc_tables`, DIR from commit d2195a0) run in
+turns beside the parent's: K7 through the package's wrapper with either
+library bound, first on seeded probabilities (before the flagship's
+inputs are made), then on the flagship's pass-1 probabilities; K20 on the
+fused K18 + K19's outputs of the flagship's pass-2 arrays, the parent's
+through its C entry point with a zeroed med-over buffer, as its wrapper
+did; a CUDA graph of 20 calls replayed times each back to back, and each
+kernel's local loads and stores in the SASS are counted.
+Call by CUDA events over the call, device time by the profiler.  `--probe`
+times the instrumented build: take the times from a run without it.
 
 --probe adds `clock64()` probes to the package's copies of the kernels:
 per CTA, thread 0's cycles from the kernel's start to the end of each
@@ -65,8 +75,9 @@ the first row's stores sent), store; K18: loads (to the clip of the
 levels), ranks (the lv8 stores, the escape ballot and, where the warp has
 an escape, the scan), stores (meta8); K19: loads (to the runs' bitmap
 bytes), ranks (the bitmap stores, the scan), stores (tile and copy-out);
-the fused kernel K18's three phases then K19's), the means over CTAs
-printed.  A clock read does not wait for loads in flight: a phase holds
+the fused kernel K18's three phases then K19's; K20's MB CTAs: loads,
+scan + staging, copy-out, and its list CTAs; K7: loads, rows, stores),
+the means over CTAs printed.  A clock read does not wait for loads in flight: a phase holds
 the wait for the loads whose values it uses first.
 
 --segs 8,16,... also times the package's K8 and K6 with CTAs of that many
@@ -95,7 +106,7 @@ RANKED = ("residual", "yuv2rgb", "token_stats", "enc_tables", "analysis", "prepa
 # The profiler's names of each ranked kernel's __global__ functions.
 WIRE_DEVICE = {"prepack": ["prepack_kernel"], "pack_levels": ["pack_levels_kernel"],
                "prepack_pack": ["prepack_pack_kernel"],
-               "wire": ["wire_mb_kernel", "wire_list_kernel"]}
+               "wire": ["wire_kernel"]}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 PARENT_SIGNATURES = {  # the one-warp-per-MB K8 and one-thread-per-block K6 (commit 3066949)
     "webp_analysis": [_P, _L, _P, _L, _P, _L, _I, _I, _I, _P, _P, _P],
@@ -190,11 +201,32 @@ PATCHES = {
         ("    if (lane == 0 && n > cap) over[b] = 1;\n", "    PROBE_AT(6);\n"),
     ],
 }
+# K20 and K7 (PROBE, relative to the CTA's start): K20's MB CTAs end at
+# slot 2, its list CTAs (x = 0) store slot 3 alone.
+PHASES["wire"] = ("loads", "scan + staging", "copy-out", "list CTA")
+PHASES["enc_tables"] = ("loads", "rows", "stores")
+PATCHES["wire.cu"] += [
+    ("    uint8_t* w = wire + b * row;\n", "    const long long probe_t0 = clock64();\n"),
+    ("hot[h] = med_bits(run[h]);  // 0 past the image's MBs\n", "    PROBE(0);\n"),
+    ("cta_med = 1;\n    __syncthreads();\n", "    PROBE(1);\n"),
+    ("            *word = 0;\n        }\n    }\n", "    PROBE(2);\n"),
+    ("        wire_list(esc_pos, esc_val, overflow, nmb, b, w, sh.list, sums);\n", "        PROBE(3);\n"),
+]
+PATCHES["enc_tables.cu"] = [
+    ('#include "common.cuh"\n', PROBE_DECL),
+    ("    const long long img_type = static_cast<long long>(blockIdx.y) * 4 + blockIdx.x;\n",
+     "    const long long probe_t0 = clock64();\n"),
+    ("[tid - 64 - kCodes];\n    }\n    __syncthreads();\n", "    PROBE(0);\n"),
+    ("cost[lane * kLevels + v] = c;\n        }\n    }\n    __syncthreads();\n", "    PROBE(1);\n"),
+    ("            make_int4(v[0], v[1], v[2], v[3]);\n    }\n", "    PROBE(2);\n"),
+]
 PTXAS_NAMES = {"analysis_kernel": "analysis", "token_stats_kernel": "token_stats",
                "residual_kernel": "residual", "yuv2rgb_kernelILb1E": "yuv2rgb (vector loads)",
                "yuv2rgb_kernelILb0E": "yuv2rgb (byte loads)", "yuv2rgb_kernel": "yuv2rgb",
                "prepack_pack_kernel": "prepack_pack", "prepack_kernel": "prepack",
-               "pack_levels_kernel": "pack_levels"}
+               "pack_levels_kernel": "pack_levels", "wire_kernel": "wire",
+               "wire_mb_kernel": "wire_mb", "wire_list_kernel": "wire_list",
+               "enc_tables_kernel": "enc_tables"}
 
 
 def instrument(csrc: Path) -> None:
@@ -469,8 +501,10 @@ def split_stats(dev, card: str, batches, lib, parent, probe: bool, segs=()) -> d
     return out
 
 
-def probe_cycles(lib, k: str, ctas: int, fn, batch: int, card: str) -> dict:
-    """Mean cycles a CTA by phase of kernel k over one call of fn()."""
+def probe_cycles(lib, k: str, ctas: int, fn, batch: int, card: str, reached=False) -> dict:
+    """Mean cycles a CTA by phase of kernel k over one call of fn(); with
+    `reached`, each phase's mean is over the CTAs that reached its end (a
+    nonzero slot), for kernels whose CTAs take different paths."""
     import torch
 
     reader = getattr(lib, f"webp_{k}_probe")
@@ -482,10 +516,12 @@ def probe_cycles(lib, k: str, ctas: int, fn, batch: int, card: str) -> dict:
     torch.cuda.synchronize()
     if reader(buf, n) != 0:
         raise RuntimeError("the probe read failed")
-    ends = [statistics.mean(buf[c * N_PROBE + p] for c in range(ctas))
-            for p in range(len(PHASES[k]))]
-    cyc = {ph: ends[i] - (ends[i - 1] if i else 0) for i, ph in enumerate(PHASES[k])}
-    cyc["total"] = ends[-1]
+    cyc = {}
+    for i, ph in enumerate(PHASES[k]):
+        at = [c for c in range(ctas) if buf[c * N_PROBE + i]] if reached else range(ctas)
+        cyc[ph] = statistics.mean(buf[c * N_PROBE + i] - (buf[c * N_PROBE + i - 1] if i else 0)
+                                  for c in at) if at else 0.0
+    cyc["total"] = sum(cyc.values())
     print(f"batch {batch}: {k} probe, mean cycles a CTA by phase "
           f"{({p: round(c) for p, c in cyc.items()})} ({card})", flush=True)
     return cyc
@@ -646,6 +682,150 @@ def split_wire(dev, card: str, batches, lib, parent, probe: bool) -> dict:
     return out
 
 
+TABLES_WIRE_DEVICE = {"wire": ["wire"], "enc_tables": ["enc_tables_kernel"]}  # either build's
+SEEDED_PROBS = 3  # seed of K7's probabilities before the flagship's inputs
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """ms a call of fn() back to back on the device: `calls` calls captured
+    in one CUDA graph, replayed `replays` times between CUDA events (no
+    host work between the kernels)."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (calls * replays)
+
+
+def flagship_jobs(dev, batches, first):
+    """The jobs `first`, then per kernel and batch (kernel, batch, pass 1's
+    probabilities, the fused K18 + K19's outputs) of the flagship, its
+    inputs made only after `first` has run."""
+    from webp_tpu_torch.ops import wire
+
+    yield from first
+    inputs = {}
+    for batch in batches:
+        *_, probs, pass2 = encode_inputs(dev, batch, pass2=True)
+        inputs[batch] = probs, wire.prepack_pack(pass2)
+    for k in ("enc_tables", "wire"):
+        for batch in batches:
+            probs, packed = inputs[batch]
+            yield (k, batch, probs, None) if k == "enc_tables" else (k, batch, None, packed)
+
+
+def split_tables_wire(dev, card: str, batches, lib, parent, probe: bool) -> dict:
+    """K20 and K7 of the package beside commit d2195a0's (K20 as two
+    kernels and a zeroed med-over buffer; K7 a thread per entry), in turns,
+    per batch, on the flagship's pass-2 arrays (K20 on the fused K18 + K19's
+    outputs) and pass 1's adapted probabilities.  K7 runs through the
+    package's wrapper with either library bound; the parent's K20 through
+    its C entry point with its outputs and scratch allocated as its wrapper
+    did."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from webp_tpu_torch import _build
+    from webp_tpu_torch.ops import enc_tables as k7, wire
+    from webp_tpu_torch.ops.enc_params import EncTables
+
+    parent.webp_enc_tables.argtypes = _build._SIGNATURES["webp_enc_tables"]
+    parent.webp_wire.argtypes = _build._SIGNATURES["webp_wire"]
+    for fn in (parent.webp_enc_tables, parent.webp_wire):
+        fn.restype = ctypes.c_int
+    parent.webp_error_string.argtypes = [ctypes.c_int]
+    parent.webp_error_string.restype = ctypes.c_char_p
+    libs = {"package": (lib, dict(_build._entries)),
+            "parent": (parent, {"webp_enc_tables": parent.webp_enc_tables})}
+
+    def parent_wire(bitmap, vals, sp_over, meta8, esc_pos, esc_val, overflow):
+        B, nmb, _ = vals.shape
+        out = torch.empty((B, wire.wire_bytes(nmb)), dtype=torch.uint8, device=dev)
+        med_over = torch.zeros(B, dtype=torch.int32, device=dev)
+        rc = parent.webp_wire(bitmap.data_ptr(), vals.data_ptr(), meta8.data_ptr(),
+                              esc_pos.data_ptr(), esc_val.data_ptr(), sp_over.data_ptr(),
+                              overflow.data_ptr(), nmb, B, med_over.data_ptr(), out.data_ptr(),
+                              torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent webp_wire: CUDA error {rc}")
+        return out
+
+    # K7 first on seeded probabilities (its work does not depend on their
+    # values), before the flagship's inputs are made: in this tool K7's
+    # device time on the flagship's probabilities has read 3-4x that, for
+    # either build, in some processes (not explained; PERF.md section 7).
+    rng = np.random.RandomState(SEEDED_PROBS)
+    seeded = [("enc_tables_seeded", batch, torch.from_numpy(
+        rng.randint(0, 256, (batch, 4, 8, 3, 11)).astype(np.uint8)).to(dev), None)
+        for batch in batches]
+    out = {batch: {} for batch in batches}
+    for k, batch, probs, packed in flagship_jobs(dev, batches, seeded):
+        rec = out[batch]
+        if k == "wire":
+            lv8, meta8, esc_pos, esc_val, over, bitmap, vals, sp_over = packed
+            args = (bitmap, vals, sp_over, meta8, esc_pos, esc_val, over)
+            fns = {"package": lambda: (wire.wire(*args),), "parent": lambda: (parent_wire(*args),)}
+        else:
+            tables = lambda: tuple(getattr(k7._enc_tables_kernel(probs), f)
+                                   for f in EncTables.FIELDS)
+            fns = {"package": tables, "parent": tables}
+        got = {}
+        for who in ("package", "parent"):
+            bind(_build, *libs[who])
+            got[who] = fns[who]()
+        bind(_build, *libs["package"])
+        torch.cuda.synchronize()
+        for a, b in zip(got["package"], got["parent"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{k} at batch {batch}: the package differs from the "
+                                     "parent")
+        r = {"call_ms": {}, "device_ms": {}, "device_all_ms": {}, "graph_ms": {}}
+        for who in ("parent", "package", "package", "parent"):
+            bind(_build, *libs[who])
+            fn = fns[who]
+            r["call_ms"].setdefault(who, []).append(cs.time_ms(fn, 20))
+            r["device_ms"].setdefault(who, []).append(
+                cs.device_total(cs.device_ms(fn, 20, TABLES_WIRE_DEVICE[k.split("_seeded")[0]])))
+            r["device_all_ms"].setdefault(who, []).append(
+                cs.device_total(cs.device_ms(fn, 20, [""])))
+            r["graph_ms"].setdefault(who, []).append(graph_ms(fn))
+        bind(_build, *libs["package"])
+        rec[k] = r
+        text = "; ".join(f"{who} " + ", ".join(
+            f"{what} {' / '.join('n/a' if t is None else f'{t:.4f}' for t in r[key][who])}"
+            for what, key in (("call", "call_ms"), ("device", "device_ms"),
+                              ("device all", "device_all_ms"), ("graph", "graph_ms"))) + " ms"
+            for who in ("package", "parent"))
+        print(f"batch {batch}: {k}: {text}; outputs equal ({card})", flush=True)
+        if probe and k == "wire":
+            rec[k]["cycles_per_cta"] = probe_cycles(
+                lib, k, batch * (1 + -(-vals.shape[1] // wire.WIRE_MBS)), fns["package"],
+                batch, card, reached=True)
+        elif probe and k == "enc_tables":
+            rec[k]["cycles_per_cta"] = probe_cycles(lib, k, batch * 4, fns["package"], batch,
+                                                    card)
+    return out
+
+
 def wire_probe_cycles(lib, k: str, ctas: int, fn, batch: int, card: str) -> dict:
     """Mean cycles a CTA (its thread 0) by phase of wire kernel k over one
     call of fn(), from the clocks its probes stored (WIRE_PHASES)."""
@@ -788,8 +968,8 @@ def main() -> int:
                     "beside add_")
     ap.add_argument("--csrc", type=Path, help="an earlier csrc whose kernels to time beside")
     ap.add_argument("--split", default="residual,yuv2rgb",
-                    help="the kernels --csrc times: residual,yuv2rgb, analysis,token_stats or "
-                    "prepack,pack_levels")
+                    help="the kernels --csrc times: residual,yuv2rgb, analysis,token_stats, "
+                    "prepack,pack_levels or wire,enc_tables")
     ap.add_argument("--probe", action="store_true", help="clock64() probes per phase")
     ap.add_argument("--segs", help="also time K8 / K6 with CTAs of these MBs a row")
     ap.add_argument("--batches", default="8,64", help="batch sizes, comma-separated")
@@ -832,14 +1012,19 @@ def main() -> int:
             out["split"] = split_stats(dev, card, batches, lib, parent, args.probe,
                                        [int(x) for x in args.segs.split(",")] if args.segs
                                        else ())
+        elif split == ["wire", "enc_tables"]:
+            out["split"] = split_tables_wire(dev, card, batches, lib, parent, args.probe)
+            out["sass"] = sass_local(_build.LIB_PATH, ("wire_kernel", "enc_tables_kernel"))
+            out["parent_sass"] = sass_local(parent_lib, ("wire_mb_kernel", "wire_list_kernel",
+                                                         "enc_tables_kernel"))
         elif split == ["prepack", "pack_levels"]:
             out["split"] = split_wire(dev, card, batches, lib, parent, args.probe)
             out["sass"] = sass_local(_build.LIB_PATH, ("prepack_pack_kernel", "prepack_kernel",
                                                        "pack_levels_kernel"))
             out["parent_sass"] = sass_local(parent_lib, ("prepack_kernel", "pack_levels_kernel"))
         else:
-            raise SystemExit(f"--split {args.split}: residual,yuv2rgb, analysis,token_stats or "
-                             "prepack,pack_levels")
+            raise SystemExit(f"--split {args.split}: residual,yuv2rgb, analysis,token_stats, "
+                             "prepack,pack_levels or wire,enc_tables")
     if args.rank:
         out["rank"] = rank(dev, card, batches)
     for who in ("ptxas", "parent_ptxas", "sass", "parent_sass"):

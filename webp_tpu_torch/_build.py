@@ -193,7 +193,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P,  # bitmap, vals, meta8, esc_pos, esc_val
         _P, _P,              # sp_over, overflow [B] bool
         _I, _I,              # nmb, batch
-        _P, _P,              # med-list overflow scratch [B] int32 (zeroed), wire rows out
+        _P, _P,              # ticket words [B] uint64 (kept zeroed), wire rows out
         _P,
     ],
     "webp_pack_flat": [

@@ -52,14 +52,28 @@
 // and clip with K19's bitmap, scan and tile applied to the clipped levels
 // still in registers (a level is nonzero exactly when its int8 clip is).
 //
-// Design of K20: its per-MB part walks its MB's 256 values 32 at a time,
-// __ballot_sync + __popc of the lower lanes giving each med entry its rank
-// in slot order.  Per-image flags are single byte stores of 1 into buffers
-// the caller zeroed (every writer stores the same value).  K20's image list
-// is a second kernel, one block per image, that ranks the nmb * kEsc escape
-// slots with a block-wide scan of warp ballots, in (MB, k) order, and then
-// writes the row's two flag bytes.  The list starts at 2 + 260 * nmb, which
-// is 2 mod 4: every multi-byte value is stored byte by byte.
+// Design of K20 (one launch): a CTA of 8 warps takes 32 consecutive MBs of
+// an image, a warp four of them, a lane a run of 8 packed values of each.
+// A warp issues all of its MBs' loads at once (the run, 8 bytes; the
+// bitmap and meta8 2 bytes a lane).  A lane turns its run into 4 nibble
+// bytes (one 32-bit word) and its |v| > 7 slots into med entries, ranked
+// in slot order by one shuffle scan a pair of MBs (counts in 16-bit
+// halves).  The row's regions start at 2 mod 16 at nmb 1,536 (and image
+// b's row at 2b mod 16), so the CTA stages each contiguous piece of its
+// MBs (bitmap, nibbles, med idx, med val, meta8; zeroed med tiles give the
+// padding) in shared memory at the byte offset mod 16 it has in the row,
+// and copies it out in 16-byte stores, with narrower aligned stores only
+// on the two ragged chunks, which hold no byte of another piece.  A CTA
+// more an image (x = 0 of the grid, dispatched first) writes the image
+// list beside them, since it needs only the inputs: the (pos, val) pairs
+// of 1,024 MBs a round, 4 a thread in one wave of 8-byte loads, ranked by
+// the live mask with one block scan, through a zeroed staged tile in
+// 16-byte stores, and the overflow flag byte.  Each MB CTA adds 1 to its
+// image's ticket word (| 1 << 32 where one of its MBs' med lists is over
+// its cap), one atomic whose latency hides under the copy-out; the one
+// that completes the count writes the sp_over flag byte and leaves the
+// word zero (`_build.kept_zeroed`).  The med flags ride in that word, so
+// no fence is needed.
 
 #include "common.cuh"
 
@@ -73,16 +87,9 @@ constexpr int kMedCap = 32;       // MED_CAP
 constexpr int kEscImg = 512;      // ESC_IMG
 constexpr int kMeta = 18;
 constexpr int kWarps = 8;         // warps (MBs) a block of the per-MB kernels
-constexpr int kListThreads = 256; // threads of the image-list block
 constexpr int kRunsB = kSlots / 8 - 32;  // runs of pass B: 32..49
 constexpr int kTile = kSlots;     // bytes of a warp's vals tile (cap <= 400)
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
-
-__device__ __forceinline__ void store_le(uint8_t* p, int v, int n) {
-    for (int i = 0; i < n; ++i) p[i] = static_cast<uint8_t>((v >> (8 * i)) & 0xFF);
-}
 
 // Exclusive scan of x over the warp's lanes; `total` gets the sum of all.
 // Callers pack two 16-bit counts in x: a half never carries into the other.
@@ -318,91 +325,337 @@ __global__ void __launch_bounds__(kWarps * 32) prepack_pack_kernel(
     pack_mb(run_a, run_b, b, mb, lane, kCapMb, bitmap, vals, sp_over, tiles[warp]);
 }
 
-// K20, per MB: the row's bitmap, nibbles, med list and meta8 of MB m; an
-// image's med_over[b] = 1 when one of its MBs lists more than kMedCap.
-__global__ void __launch_bounds__(kWarps * 32) wire_mb_kernel(
-    const uint8_t* __restrict__ bitmap, const int8_t* __restrict__ vals,
-    const uint8_t* __restrict__ meta8, int nmb, long long row, uint8_t* __restrict__ wire,
-    int* __restrict__ med_over) {
-    const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    const int b = blockIdx.y;
-    if (m >= nmb) return;
-    const long long mb = static_cast<long long>(b) * nmb + m;
-    const long long n = nmb;
-    uint8_t* w = wire + b * row;
-    for (int j = lane; j < kBitmap; j += 32) w[2 + m * kBitmap + j] = bitmap[mb * kBitmap + j];
-    const int8_t* v = vals + mb * kCapMb;
-    uint8_t* v4 = w + 2 + n * kBitmap + m * (kCapMb / 2);
-    for (int j = lane; j < kCapMb / 2; j += 32) {
-        v4[j] = static_cast<uint8_t>((v[2 * j] & 0xF) | ((v[2 * j + 1] & 0xF) << 4));
-    }
-    uint8_t* mi = w + 2 + n * (kBitmap + kCapMb / 2) + m * kMedCap;
-    uint8_t* mv = mi + n * kMedCap;
-    int count = 0;
-    for (int base = 0; base < kCapMb; base += 32) {
-        const int k = base + lane;
-        const int x = v[k];
-        const bool hot = abs(x) > 7;
-        const unsigned bal = __ballot_sync(0xffffffffu, hot);
-        if (hot) {
-            const int r = count + __popc(bal & lanes_below(lane));
-            if (r < kMedCap) {
-                mi[r] = static_cast<uint8_t>(k);
-                mv[r] = static_cast<uint8_t>(x & 0xFF);
-            }
-        }
-        count += __popc(bal);
-    }
-    for (int r = count + lane; r < kMedCap; r += 32) mi[r] = mv[r] = 0;
-    if (lane == 0 && count > kMedCap) med_over[b] = 1;
-    if (lane < kMeta) w[2 + n * (kBitmap + kCapMb / 2 + 2 * kMedCap) + m * kMeta + lane] =
-        meta8[mb * kMeta + lane];
+// ---- K20 (see the design above) ----
+
+constexpr int kNib = kCapMb / 2;                 // nibble bytes an MB
+constexpr int kWireMbs = 32;                     // MBs a K20 CTA
+constexpr int kMbsPerWarp = kWireMbs / kWarps;
+constexpr int kListBytes = 6 * kEscImg;          // the image list: i32 positions, i16 values
+constexpr int kListPer = 4;                      // MBs a thread of a list CTA loads a round
+constexpr int kListMbs = kWarps * 32 * kListPer;  // MBs a list CTA ranks a round
+constexpr int kRegions = 5;
+static_assert(kMbsPerWarp % 2 == 0, "one scan ranks a pair of a warp's MBs in 16-bit halves");
+
+// A CTA's pieces of the row, staged: each 16 bytes longer than its bytes.
+struct WireStage {
+    uint8_t bitmap[kWireMbs * kBitmap + 16];
+    uint8_t nib[kWireMbs * kNib + 16];
+    uint8_t med_idx[kWireMbs * kMedCap + 16];
+    uint8_t med_val[kWireMbs * kMedCap + 16];
+    uint8_t meta[kWireMbs * kMeta + 16];
+};
+
+union WireShared {
+    WireStage s;                      // an MB CTA's pieces
+    uint8_t list[kListBytes + 16];    // a list CTA's image list, staged
+};
+
+// One contiguous piece of the row: where it goes, its staging buffer (the
+// byte at dst lies at stage[dst & 15]) and its length.
+struct Piece {
+    uint8_t* dst;
+    uint8_t* stage;
+    int bytes;
+};
+
+__device__ __forceinline__ int head_of(const uint8_t* p) {
+    return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
 }
 
-// K20, per image: the escape list from the per-MB pairs, then the flags.
-__global__ void __launch_bounds__(kListThreads) wire_list_kernel(
-    const int16_t* __restrict__ esc_pos, const int16_t* __restrict__ esc_val,
-    const uint8_t* __restrict__ sp_over, const uint8_t* __restrict__ overflow,
-    const int* __restrict__ med_over, int nmb, long long row, uint8_t* __restrict__ wire) {
-    __shared__ int warp_count[kListThreads / 32];
-    const int b = blockIdx.x;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    uint8_t* w = wire + b * row;
-    uint8_t* eg_pos = w + 2 + static_cast<long long>(nmb) * (kBitmap + kCapMb / 2 + 2 * kMedCap + kMeta);
-    uint8_t* eg_val = eg_pos + 4 * kEscImg;
-    const long long n = static_cast<long long>(nmb) * kEsc;
-    const int16_t* pos = esc_pos + b * n;
-    const int16_t* val = esc_val + b * n;
-    int total = 0;  // the same in every thread
-    for (long long start = 0; start < n && total <= kEscImg; start += kListThreads) {
-        const long long i = start + tid;
-        const int p = i < n ? pos[i] : -1;
-        const bool live = p >= 0;
-        const unsigned bal = __ballot_sync(0xffffffffu, live);
-        if (lane == 0) warp_count[warp] = __popc(bal);
-        __syncthreads();
-        int before = 0, all = 0;
-        for (int q = 0; q < kListThreads / 32; ++q) {
-            before += q < warp ? warp_count[q] : 0;
-            all += warp_count[q];
-        }
-        const int r = total + before + __popc(bal & lanes_below(lane));
-        if (live && r < kEscImg) {
-            const long long g = (i / kEsc) * kSlots + p;  // below 2^31 for nmb < 5.3e6
-            store_le(eg_pos + 4 * r, static_cast<int>(g), 4);
-            store_le(eg_val + 2 * r, val[i], 2);
-        }
-        total += all;
-        __syncthreads();  // warp_count is rewritten next pass
+__device__ __forceinline__ int chunks_of(const Piece& p) { return (head_of(p.dst) + p.bytes + 15) >> 4; }
+
+__device__ __forceinline__ uint8_t* staged(const Piece& p) { return p.stage + head_of(p.dst); }
+
+// Region r of the MBs [m0, m0 + n) of the image row w (nmb MBs).
+__device__ __forceinline__ Piece region(int r, uint8_t* w, long long nmb, int m0, int n,
+                                        WireStage& s) {
+    uint8_t* base = w + 2;
+    switch (r) {
+    case 0: return {base + static_cast<long long>(m0) * kBitmap, s.bitmap, n * kBitmap};
+    case 1: return {base + nmb * kBitmap + static_cast<long long>(m0) * kNib, s.nib, n * kNib};
+    case 2:
+        return {base + nmb * (kBitmap + kNib) + static_cast<long long>(m0) * kMedCap, s.med_idx,
+                n * kMedCap};
+    case 3:
+        return {base + nmb * (kBitmap + kNib + kMedCap) + static_cast<long long>(m0) * kMedCap,
+                s.med_val, n * kMedCap};
+    default:
+        return {base + nmb * (kBitmap + kNib + 2 * kMedCap) + static_cast<long long>(m0) * kMeta,
+                s.meta, n * kMeta};
     }
-    for (int r = total + tid; r < kEscImg; r += kListThreads) {
-        store_le(eg_pos + 4 * r, 0, 4);
-        store_le(eg_val + 2 * r, 0, 2);
+}
+
+// Bytes [lo, hi) of the 16-byte-aligned chunk g from its staged copy s,
+// in the widest aligned stores that fit.
+__device__ __forceinline__ void store_part(uint8_t* g, const uint8_t* s, int lo, int hi) {
+    while (lo < hi) {
+        if ((lo & 7) == 0 && lo + 8 <= hi) {
+            *reinterpret_cast<uint2*>(g + lo) = *reinterpret_cast<const uint2*>(s + lo);
+            lo += 8;
+        } else if ((lo & 3) == 0 && lo + 4 <= hi) {
+            *reinterpret_cast<unsigned*>(g + lo) = *reinterpret_cast<const unsigned*>(s + lo);
+            lo += 4;
+        } else if ((lo & 1) == 0 && lo + 2 <= hi) {
+            *reinterpret_cast<uint16_t*>(g + lo) = *reinterpret_cast<const uint16_t*>(s + lo);
+            lo += 2;
+        } else {
+            g[lo] = s[lo];
+            lo += 1;
+        }
+    }
+}
+
+// Chunk k of piece p: a uint4 store where the chunk lies wholly inside the
+// piece, else its part of the chunk, so that no byte outside the piece is
+// written (the neighbouring CTA's, or the next image's).
+__device__ __forceinline__ void copy_chunk(const Piece& p, int k) {
+    const int head = head_of(p.dst);
+    uint8_t* g = p.dst - head + 16 * k;
+    const uint8_t* s = p.stage + 16 * k;
+    const int lo = k == 0 ? head : 0;
+    const int hi = min(16, head + p.bytes - 16 * k);
+    if (lo == 0 && hi == 16) {
+        *reinterpret_cast<uint4*>(g) = *reinterpret_cast<const uint4*>(s);
+    } else {
+        store_part(g, s, lo, hi);
+    }
+}
+
+// A 2-byte-aligned 32-bit store into a staging buffer.
+__device__ __forceinline__ void st_stage32(uint8_t* p, unsigned v) {
+    if (reinterpret_cast<uintptr_t>(p) & 3) {
+        reinterpret_cast<uint16_t*>(p)[0] = static_cast<uint16_t>(v);
+        reinterpret_cast<uint16_t*>(p)[1] = static_cast<uint16_t>(v >> 16);
+    } else {
+        *reinterpret_cast<unsigned*>(p) = v;
+    }
+}
+
+// A run of 8 int8 values -> its 4 nibble bytes (low nibble: the even slot).
+__device__ __forceinline__ unsigned nibbles(uint2 run) {
+    const unsigned a = run.x & 0x0F0F0F0Fu, b = run.y & 0x0F0F0F0Fu;
+    return __byte_perm(a | (a >> 4), b | (b >> 4), 0x6420);
+}
+
+// A run's |v| > 7 slots: bit i for byte i (-128 included).
+__device__ __forceinline__ unsigned med_bits(uint2 run) {
+    const unsigned a = __vcmpgtu4(__vabsss4(run.x), 0x07070707u);
+    const unsigned b = __vcmpgtu4(__vabsss4(run.y), 0x07070707u);
+    const unsigned x = (a & 0x08040201u) | (b & 0x80402010u);
+    return (x | (x >> 8) | (x >> 16) | (x >> 24)) & 0xFF;
+}
+
+// The med entries of one run (bits, ranks from `rank`), those below
+// kMedCap written to the staged idx / val tiles of their MB.
+__device__ __forceinline__ void put_med(uint2 run, unsigned bits, int rank, int slot0, uint8_t* mi,
+                                        uint8_t* mv) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        if ((bits >> i) & 1) {
+            if (rank < kMedCap) {
+                const unsigned word = i < 4 ? run.x : run.y;
+                mi[rank] = static_cast<uint8_t>(slot0 + i);
+                mv[rank] = static_cast<uint8_t>(word >> (8 * (i & 3)));
+            }
+            ++rank;
+        }
+    }
+}
+
+// Live escapes (position >= 0) of an MB's 4 int16 positions.
+__device__ __forceinline__ int live_escapes(uint2 pos) {
+    return kEsc - __popc((pos.x & 0x80008000u) | ((pos.y & 0x80008000u) >> 1));
+}
+
+// Exclusive scan of x over the CTA; `total` gets the sum of all.  `sums`
+// holds a word a warp; the caller syncs before it is written again.
+__device__ __forceinline__ unsigned block_exclusive_scan(unsigned x, int lane, int warp,
+                                                         unsigned* sums, unsigned& total) {
+    unsigned warp_total;
+    const unsigned ex = exclusive_scan(x, lane, warp_total);
+    if (lane == 0) sums[warp] = warp_total;
+    __syncthreads();
+    unsigned before = 0;
+    total = 0;
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) {
+        const unsigned t = sums[q];
+        before += q < warp ? t : 0;
+        total += t;
+    }
+    return before + ex;
+}
+
+// K20's list CTA for image b: rounds of kListMbs MBs, a thread kListPer
+// consecutive ones, their positions and values in one wave of 8-byte
+// loads, ranks by the live mask from one block scan, the entries below
+// kEscImg into the zeroed staged tile (no round once the list is over its
+// cap); the list out in 16-byte chunks; the overflow flag byte.
+__device__ __forceinline__ void wire_list(const int16_t* __restrict__ esc_pos,
+                                          const int16_t* __restrict__ esc_val,
+                                          const uint8_t* __restrict__ overflow, int nmb, int b,
+                                          uint8_t* w, uint8_t* stage, unsigned* sums) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    uint8_t* lst = w + 2 + static_cast<long long>(nmb) * (kBitmap + kNib + 2 * kMedCap + kMeta);
+    const Piece lp = {lst, stage, kListBytes};
+    uint8_t* tile = staged(lp);
+    for (int q = tid; q < (kListBytes + 16) / 16; q += kWarps * 32) {
+        reinterpret_cast<uint4*>(stage)[q] = make_uint4(0, 0, 0, 0);
+    }
+    const long long img = static_cast<long long>(b) * nmb;
+    int carry = 0;
+    for (int r0 = 0; r0 < nmb && carry <= kEscImg; r0 += kListMbs) {
+        const int m1 = r0 + tid * kListPer;
+        uint2 p[kListPer], v[kListPer];
+#pragma unroll
+        for (int q = 0; q < kListPer; ++q) {
+            p[q] = make_uint2(kFull, kFull);
+            v[q] = make_uint2(0, 0);
+            if (m1 + q < nmb) {
+                p[q] = *reinterpret_cast<const uint2*>(esc_pos + (img + m1 + q) * kEsc);
+                v[q] = *reinterpret_cast<const uint2*>(esc_val + (img + m1 + q) * kEsc);
+            }
+        }
+        int n = 0;
+#pragma unroll
+        for (int q = 0; q < kListPer; ++q) n += live_escapes(p[q]);
+        unsigned round_total;
+        int rank = carry + static_cast<int>(
+            block_exclusive_scan(static_cast<unsigned>(n), lane, warp, sums, round_total));
+#pragma unroll
+        for (int q = 0; q < kListPer; ++q) {
+#pragma unroll
+            for (int e = 0; e < kEsc; ++e) {
+                const unsigned pw = e < 2 ? p[q].x : p[q].y, vw = e < 2 ? v[q].x : v[q].y;
+                const int pe = static_cast<int16_t>(pw >> (16 * (e & 1)));
+                if (pe >= 0) {
+                    if (rank < kEscImg) {
+                        st_stage32(tile + 4 * rank, static_cast<unsigned>((m1 + q) * kSlots + pe));
+                        reinterpret_cast<uint16_t*>(tile + 4 * kEscImg)[rank] =
+                            static_cast<uint16_t>(vw >> (16 * (e & 1)));
+                    }
+                    ++rank;
+                }
+            }
+        }
+        carry += static_cast<int>(round_total);
+        __syncthreads();  // sums is rewritten next round
+    }
+    for (int q = tid; q < chunks_of(lp); q += kWarps * 32) copy_chunk(lp, q);
+    if (tid == 0) w[1] = overflow[b] || carry > kEscImg;
+}
+
+// K20, CTA (x, b) of a grid (1 + ceil(nmb / 32), B).  x = 0 writes image
+// b's list and its overflow flag byte (`wire_list`: it needs only the
+// inputs, so it runs beside the MB CTAs, and is dispatched first); x = c +
+// 1 writes the row pieces of MBs [32c, 32c + 32) and adds 1 (| 1 << 32
+// where one of its MBs' med lists is over kMedCap) to the image's word in
+// `tickets`.  The CTA that brings the count to the number of MB CTAs
+// writes the sp_over flag byte and zeroes the word: the med flags travel
+// in that one atomic word, so no fence orders the CTAs.
+__global__ void __launch_bounds__(kWarps * 32) wire_kernel(
+    const uint8_t* __restrict__ bitmap, const int8_t* __restrict__ vals,
+    const uint8_t* __restrict__ meta8, const int16_t* __restrict__ esc_pos,
+    const int16_t* __restrict__ esc_val, const uint8_t* __restrict__ sp_over,
+    const uint8_t* __restrict__ overflow, int nmb, long long row,
+    unsigned long long* __restrict__ tickets, uint8_t* __restrict__ wire) {
+    __shared__ __align__(16) WireShared sh;
+    __shared__ unsigned cta_med, sums[kWarps];
+    const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    uint8_t* w = wire + b * row;
+    if (blockIdx.x == 0) {
+        wire_list(esc_pos, esc_val, overflow, nmb, b, w, sh.list, sums);
+        return;
+    }
+    const int n_cta = gridDim.x - 1, m0 = (blockIdx.x - 1) * kWireMbs;
+    const int n_mbs = min(kWireMbs, nmb - m0);
+
+    // 1. Every load of the warp's MBs before any is used: a run of 8
+    //    values a lane, the bitmap and meta8 two bytes a lane.
+    uint2 run[kMbsPerWarp];
+    unsigned bm[kMbsPerWarp], mt[kMbsPerWarp];
+#pragma unroll
+    for (int h = 0; h < kMbsPerWarp; ++h) {
+        const int j = warp * kMbsPerWarp + h;
+        run[h] = make_uint2(0, 0);
+        bm[h] = mt[h] = 0;
+        if (j < n_mbs) {
+            const long long mb = static_cast<long long>(b) * nmb + m0 + j;
+            run[h] = *reinterpret_cast<const uint2*>(vals + mb * kCapMb + 8 * lane);
+            if (lane < kBitmap / 2) bm[h] = reinterpret_cast<const uint16_t*>(bitmap + mb * kBitmap)[lane];
+            if (lane < kMeta / 2) mt[h] = reinterpret_cast<const uint16_t*>(meta8 + mb * kMeta)[lane];
+        }
+    }
+
+    // 2. Zeroed med tiles (the lists' padding).
+    for (int k = tid; k < 2 * (kWireMbs * kMedCap + 16) / 16; k += kWarps * 32) {
+        reinterpret_cast<uint4*>(sh.s.med_idx)[k] = make_uint4(0, 0, 0, 0);
+    }
+    if (tid == 0) cta_med = 0;
+    __syncthreads();
+
+    // 3. Stage the pieces: nibbles a word a lane, bitmap and meta8 two bytes
+    //    a lane, the med entries at their ranks from one scan of both MBs'
+    //    counts (16-bit halves).
+    uint8_t* s_bm = staged(region(0, w, nmb, m0, n_mbs, sh.s));
+    uint8_t* s_nib = staged(region(1, w, nmb, m0, n_mbs, sh.s));
+    uint8_t* s_mi = staged(region(2, w, nmb, m0, n_mbs, sh.s));
+    uint8_t* s_mv = staged(region(3, w, nmb, m0, n_mbs, sh.s));
+    uint8_t* s_mt = staged(region(4, w, nmb, m0, n_mbs, sh.s));
+    unsigned hot[kMbsPerWarp];
+#pragma unroll
+    for (int h = 0; h < kMbsPerWarp; ++h) hot[h] = med_bits(run[h]);  // 0 past the image's MBs
+#pragma unroll
+    for (int h = 0; h < kMbsPerWarp; ++h) {
+        const int j = warp * kMbsPerWarp + h;
+        if (j < n_mbs) {
+            st_stage32(s_nib + j * kNib + 4 * lane, nibbles(run[h]));
+            if (lane < kBitmap / 2) reinterpret_cast<uint16_t*>(s_bm + j * kBitmap)[lane] = bm[h];
+            if (lane < kMeta / 2) reinterpret_cast<uint16_t*>(s_mt + j * kMeta)[lane] = mt[h];
+        }
+    }
+    bool over_cap = false;
+#pragma unroll
+    for (int h = 0; h < kMbsPerWarp; h += 2) {  // one scan a pair of MBs
+        unsigned total;
+        const unsigned base =
+            exclusive_scan(__popc(hot[h]) | (__popc(hot[h + 1]) << 16), lane, total);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int j = warp * kMbsPerWarp + h + i;
+            if (j < n_mbs) {
+                put_med(run[h + i], hot[h + i], (base >> (16 * i)) & 0xFFFF, 8 * lane,
+                        s_mi + j * kMedCap, s_mv + j * kMedCap);
+            }
+        }
+        over_cap |= (total & 0xFFFF) > kMedCap || (total >> 16) > kMedCap;
+    }
+    if (lane == 0 && over_cap) cta_med = 1;
+    __syncthreads();
+
+    // 4. Take the image's ticket (its latency under the copy-out), and copy
+    //    the pieces out, their chunks dealt over the CTA's threads; the
+    //    image's last MB CTA writes the sp_over flag byte.
+    unsigned long long* word = tickets + b;
+    unsigned long long add = 0, old = 0;
+    if (tid == 0) {
+        add = 1ull | (static_cast<unsigned long long>(cta_med) << 32);
+        old = atomicAdd(word, add);
+    }
+    int k = tid;  // the thread's chunk, counted over the pieces in row order
+#pragma unroll
+    for (int r = 0; r < kRegions; ++r) {
+        const Piece p = region(r, w, nmb, m0, n_mbs, sh.s);
+        const int n = chunks_of(p);
+        for (; k < n; k += kWarps * 32) copy_chunk(p, k);
+        k -= n;
     }
     if (tid == 0) {
-        w[0] = (sp_over[b] || med_over[b]) ? 1 : 0;
-        w[1] = (overflow[b] || total > kEscImg) ? 1 : 0;
+        const unsigned long long seen = old + add;
+        if (static_cast<unsigned>(seen) == static_cast<unsigned>(n_cta)) {
+            w[0] = sp_over[b] || (seen >> 32);
+            *word = 0;
+        }
     }
 }
 
@@ -461,26 +714,22 @@ WEBP_API int webp_prepack_pack(const void* y, const void* uv, const void* y2, co
     return static_cast<int>(cudaGetLastError());
 }
 
-// K20: the per-MB kernel, then the image-list kernel on the same stream.
-// wire uint8 [B, 2 + 260 * nmb + 3072] out; med_over int32 [B] zeroed by
-// the caller (scratch).
+// K20, one launch.  wire uint8 [B, 2 + 260 * nmb + 3072] out; tickets
+// uint64 [B], zero before the call and left zero; bitmap and meta8 2-byte
+// aligned, vals, esc_pos and esc_val 8-byte aligned.
 WEBP_API int webp_wire(const void* bitmap, const void* vals, const void* meta8,
                        const void* esc_pos, const void* esc_val, const void* sp_over,
-                       const void* overflow, int nmb, int batch, void* med_over, void* wire,
+                       const void* overflow, int nmb, int batch, void* tickets, void* wire,
                        void* stream) {
     if (nmb <= 0 || batch <= 0) return 0;
-    const auto s = static_cast<cudaStream_t>(stream);
     const long long row = 2 + static_cast<long long>(nmb) *
-                                  (kBitmap + kCapMb / 2 + 2 * kMedCap + kMeta) + 6 * kEscImg;
-    wire_mb_kernel<<<mb_grid(nmb, batch), kWarps * 32, 0, s>>>(
+                                  (kBitmap + kNib + 2 * kMedCap + kMeta) + kListBytes;
+    wire_kernel<<<dim3(1 + (nmb + kWireMbs - 1) / kWireMbs, batch), kWarps * 32, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(bitmap), static_cast<const int8_t*>(vals),
-        static_cast<const uint8_t*>(meta8), nmb, row, static_cast<uint8_t*>(wire),
-        static_cast<int*>(med_over));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    wire_list_kernel<<<batch, kListThreads, 0, s>>>(
-        static_cast<const int16_t*>(esc_pos), static_cast<const int16_t*>(esc_val),
-        static_cast<const uint8_t*>(sp_over), static_cast<const uint8_t*>(overflow),
-        static_cast<const int*>(med_over), nmb, row, static_cast<uint8_t*>(wire));
+        static_cast<const uint8_t*>(meta8), static_cast<const int16_t*>(esc_pos),
+        static_cast<const int16_t*>(esc_val), static_cast<const uint8_t*>(sp_over),
+        static_cast<const uint8_t*>(overflow), nmb, row,
+        static_cast<unsigned long long*>(tickets), static_cast<uint8_t*>(wire));
     return static_cast<int>(cudaGetLastError());
 }

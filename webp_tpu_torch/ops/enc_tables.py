@@ -65,6 +65,7 @@ def _enc_tables_kernel(probs: torch.Tensor) -> EncTables:
         torch.empty((B, 4, 16, 3), dtype=torch.int32, device=dev),
     )
     consts = _build.device_constant("enc_tables", TABLES_NP, dev)
-    _build.launch("enc_tables", "webp_enc_tables", dev, probs.data_ptr(), consts.data_ptr(), B,
+    _build.launch("enc_tables", "webp_enc_tables", dev, _build.aligned(probs.data_ptr(), 8, "probs"),
+                  consts.data_ptr(), B,
                   *(getattr(t, f).data_ptr() for f in EncTables.FIELDS))
     return t

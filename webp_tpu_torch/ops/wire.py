@@ -57,6 +57,7 @@ MED_CAP = 32  # per-MB |v| > 7 entries the wire lists
 ESC_IMG = 512  # escapes the wire lists per image
 SLOTS = 400  # levels per MB: Y 256 | UV 128 | Y2 16
 META = 18  # bpred 16, luma mode, chroma mode
+WIRE_MBS = 32  # MBs a CTA of kernel K20 takes (`csrc/wire.cu` kWireMbs)
 
 
 def wire_bytes(nmb: int) -> int:
@@ -202,15 +203,17 @@ def _wire_kernel(bitmap, vals, sp_over, meta8, esc_pos, esc_val, overflow):
         if t.dtype != torch.bool or tuple(t.shape) != (B,):
             raise ValueError(f"{name} must be bool [{B}], got {t.dtype} {tuple(t.shape)}")
     out = torch.empty((B, wire_bytes(nmb)), dtype=torch.uint8, device=dev)
-    med_over = torch.zeros(B, dtype=torch.int32, device=dev)
+    # A ticket word an image: the image's last MB CTA writes its sp_over
+    # flag byte.
+    tickets = _build.kept_zeroed("wire", B, torch.int64, dev)
     _build.launch(
         "wire", "webp_wire", dev,
-        _build.dense(bitmap, torch.uint8, (B, nmb * SLOTS // 8)),
-        _build.dense(vals, torch.int8, (B, nmb, CAP_MB)),
-        _build.dense(meta8, torch.uint8, (B, nmb, META)),
-        _build.dense(esc_pos, torch.int16, (B, nmb, N_ESC)),
-        _build.dense(esc_val, torch.int16, (B, nmb, N_ESC)),
-        sp_over.data_ptr(), overflow.data_ptr(), nmb, B, med_over.data_ptr(), out.data_ptr(),
+        _build.aligned(_build.dense(bitmap, torch.uint8, (B, nmb * SLOTS // 8)), 2, "bitmap"),
+        _build.aligned(_build.dense(vals, torch.int8, (B, nmb, CAP_MB)), 8, "vals"),
+        _build.aligned(_build.dense(meta8, torch.uint8, (B, nmb, META)), 2, "meta8"),
+        _build.aligned(_build.dense(esc_pos, torch.int16, (B, nmb, N_ESC)), 8, "esc_pos"),
+        _build.aligned(_build.dense(esc_val, torch.int16, (B, nmb, N_ESC)), 8, "esc_val"),
+        sp_over.data_ptr(), overflow.data_ptr(), nmb, B, tickets.data_ptr(), out.data_ptr(),
     )
     return out
 
