@@ -432,9 +432,9 @@ def handoff_ms(dev) -> float:
 
 def ptxas_report() -> list:
     """The row-CTA kernel's three instances', K5's (both instances), K6's,
-    K7's, K8's, K12's, K13-K15's, K18's, K19's, the fused K18 + K19's and
-    K20's registers, shared memory and spills, from the build's ptxas
-    report."""
+    K7's, K8's, K11's (four instances), K12's, K13-K15's, K18's, K19's, the
+    fused K18 + K19's, K20's and K22's registers, shared memory and spills,
+    from the build's ptxas report."""
     from webp_tpu_torch import _build
 
     names = {"rows_kernelILb1ELb0E": "recon", "rows_kernelILb0ELb1E": "loopfilter",
@@ -446,7 +446,12 @@ def ptxas_report() -> list:
              "coder_chain_kernel": "coder_chain",
              "predictor_rows_kernel": "predictor", "prepack_pack_kernel": "prepack_pack",
              "prepack_kernel": "prepack", "pack_levels_kernel": "pack_levels",
-             "wire_kernel": "wire", "enc_tables_kernel": "enc_tables"}
+             "wire_kernel": "wire", "enc_tables_kernel": "enc_tables",
+             "color_indexing_kernelILi0E": "color_indexing<unpacked>",
+             "color_indexing_kernel_2": "color_indexing<2 a byte>",
+             "color_indexing_kernelILi2E": "color_indexing<4 a byte>",
+             "color_indexing_kernelILi3E": "color_indexing<8 a byte>",
+             "expand_flat_kernel": "expand_flat"}
     if not _build.PTXAS_REPORT.exists():  # a library built before the report was kept
         return []
     out, name = [], None
@@ -1536,7 +1541,7 @@ def flat_sparse_phase(dev, card: str, keep: dict) -> dict:
     calls = {"pack_flat": (lambda: sparse.pack_levels(lv8, cap),
                            ["tile_count_kernel", "tile_scan_kernel", "pack_flat_kernel"]),
              "expand_flat": (lambda: sparse.expand_levels(bitmap, vals, N),
-                             ["tile_count_kernel", "tile_scan_kernel", "expand_flat_kernel"])}
+                             ["expand_flat_kernel"])}
     ms = {k: time_ms(fn, 20) for k, (fn, _) in calls.items()}
     library_ms = {"pack_flat": time_ms(pack_library, 20), "expand_flat": time_ms(expand_library, 20)}
     plain_ms = {}
@@ -1845,6 +1850,23 @@ def lossless_phase(dev, card: str, keep: dict) -> dict:
     u_plain = time_ms(lambda: K.color_indexing_plain(px_u, table_u, 200, WIDTH), 5)
     u_lib = time_ms(lambda: table_u[b_idx, idx_u], 20)
     u_bound = bound(nbytes(px_u, table_u) + BATCH * HEIGHT * WIDTH * 4, BATCH * HEIGHT * WIDTH * 8)
+    # K10's and K11's device times (the profiler): K10 on the photo in place,
+    # K11 on the packed palette image and unpacked.
+    _, ct_in, ct_extra, _ = steps[("photo", "color_transform")]
+    _, ci_in, ci_extra, _ = steps[("palette", "color_indexing")]
+    ct_work = ct_in.clone()
+    pw_dev = device_times("lossless", dev, {
+        "color_transform": (lambda: K.color_transform_(ct_work, *ct_extra), ["color_transform"]),
+        "color_indexing": (lambda: K.color_indexing(ci_in, *ci_extra), ["color_indexing"]),
+        "unpacked": (lambda: K.color_indexing(px_u, table_u, 200, WIDTH), ["color_indexing"])})
+    for k in ("color_transform", "color_indexing"):
+        records[k]["device_ms"] = device_total(pw_dev[k])
+    records["color_indexing"]["unpacked_device_ms"] = device_total(pw_dev["unpacked"])
+    print(f"[lossless] device time (profiler): color_transform (photo) "
+          f"{device_text(pw_dev['color_transform'])}; color_indexing packed "
+          f"({LOSSLESS_COLOURS} colours, {tuple(ci_in.shape)}) "
+          f"{device_text(pw_dev['color_indexing'])}, unpacked (200) "
+          f"{device_text(pw_dev['unpacked'])} ({card})", flush=True)
     print(f"[lossless] color_indexing unpacked (200 entries, {tuple(px_u.shape)}): {u_ms:.4f} ms "
           f"kernel, {u_plain:.4f} ms plain, {u_lib:.4f} ms table[b, idx] (int64 indices made "
           f"before), bound {u_bound['bound_ms']:.4f} ms by {u_bound['bound_by']} ({card})",

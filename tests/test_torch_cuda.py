@@ -665,6 +665,26 @@ def test_vp8l_pointwise_kernels_match_plain(cuda, kernel, param):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("width", [4, 8, 29, 767, 768])
+@pytest.mark.parametrize("table_size", [2, 4, 11, 250])
+def test_vp8l_color_indexing_widths(cuda, table_size, width, batch):
+    """K11 at every packing: rows that start on 16 bytes (widths 4, 8, 768)
+    and rows that do not (29, 767: heads and tails of 4-byte stores, packed
+    words read 4 bytes at a time), 768 the main path's width, a run of rows
+    a CTA (h = 37 is 4 runs at width 29, one run per row at 767-768 is 8
+    rows); indices past the table read the zero padding."""
+    h = 37
+    px = _bytes(5, batch, h, L.subsample(width, L.pack_bits(table_size)), 4)
+    table = torch.zeros((batch, 256, 4), dtype=torch.uint8)
+    table[:, :table_size] = _bytes(6, batch, table_size, 4)
+    before = _build.LAUNCHES["color_indexing"]
+    got = L.color_indexing(px.to(cuda), table.to(cuda), table_size, width)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["color_indexing"] == before + 1
+    assert torch.equal(got.cpu(), L.color_indexing_plain(px, table, table_size, width))
+
+
 @pytest.mark.parametrize("size_bits,h,w,n_modes,batch",
                          [(2, 8, 8, 14, 2), (2, 13, 29, 14, 2), (3, 17, 40, 14, 2),
                           (4, 31, 65, 14, 2), (2, 1, 7, 14, 2), (2, 5, 1, 14, 2),
@@ -1133,3 +1153,44 @@ def test_flat_sparse_kernels_match_plain(cuda, name, B, nmb):
                            sparse.expand_levels_plain(want[0], want[1], n))
     within = (flat != 0).sum(1) <= cap
     assert torch.equal(full.cpu()[within], cpu[within])
+
+
+@pytest.mark.parametrize("case", ["batch1_flagship", "single_tile", "span_over_cap",
+                                  "ragged_rows", "odd_cap"])
+def test_flat_expand_kernel_edges(cuda, case):
+    """K22 (one launch, a decoupled look-back) at batch 1 over 75 tiles, an
+    image of one tile, a tile whose value span crosses the cap, rows that
+    neither start nor end on 16 bytes (n = N - 5, N - 13, and a bitmap
+    wider than ceil(n / 8) with random bits past n), and rows of values
+    that start off 16 bytes (an odd cap); twice, so that the state the
+    kernel leaves zero is reused, and the state checked zero after."""
+    rng = np.random.RandomState(len(case))
+    if case == "batch1_flagship":  # 1536 MBs: 614,400 slots, 75 tiles
+        flat, cap = flat_cases(1, 1536, 7)["density_0.23"]
+        ns = [flat.shape[1]]
+    elif case == "single_tile":
+        flat, cap = flat_cases(3, 20, 8)["density_0.31"]
+        ns = [flat.shape[1], 8]
+    elif case == "span_over_cap":  # ranks past cap - 1 inside one tile
+        flat, cap = flat_cases(2, 8, 9)["over_cap"]
+        ns = [flat.shape[1]]
+    elif case == "ragged_rows":
+        flat, cap = flat_cases(3, 300, 10)["density_0.05"]
+        ns = [flat.shape[1] - 5, flat.shape[1] - 13, 8193]
+    else:
+        flat, cap = flat_cases(2, 40, 11)["extremes"]
+        cap += 7
+        ns = [flat.shape[1], flat.shape[1] - 3]
+    bitmap, vals, _ = sparse.pack_levels_plain(torch.from_numpy(flat), cap)
+    bitmap = torch.cat([bitmap, torch.from_numpy(
+        rng.randint(0, 256, (bitmap.shape[0], 9)).astype(np.uint8))], 1)
+    for n in ns:
+        want = sparse.expand_levels_plain(bitmap, vals, n)
+        for _ in range(2):
+            before = _build.LAUNCHES["expand_flat"]
+            got = sparse.expand_levels(bitmap.to(cuda), vals.to(cuda), n)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["expand_flat"] == before + 1
+            assert torch.equal(got.cpu(), want), n
+        state = _build.kept_zeroed("expand_flat", 1, torch.int64, cuda)
+        assert not state.any()

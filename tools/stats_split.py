@@ -5,7 +5,8 @@ each beside an earlier commit's build of the same kernel: K8 analysis
 (`webp_tpu_torch/csrc/analysis.cu`), K6 token_stats (`csrc/token_stats.cu`),
 K1 residual (`csrc/residual.cu`), K4 yuv2rgb (`csrc/yuv2rgb.cu`), K18
 prepack, K19 pack_levels, their fused launch and K20 wire (`csrc/wire.cu`),
-K7 enc_tables (`csrc/enc_tables.cu`); rank the
+K7 enc_tables (`csrc/enc_tables.cu`), the lossless K9-K11 (`csrc/vp8l.cu`)
+and the flat sparse K21 and K22 (`csrc/sparse.cu`); rank the
 flagship kernels by their own device time; and time the wrappers' shared
 launch path.
 
@@ -63,10 +64,24 @@ fused K18 + K19's outputs of the flagship's pass-2 arrays, the parent's
 through its C entry point with a zeroed med-over buffer, as its wrapper
 did; a CUDA graph of 20 calls replayed times each back to back, and each
 kernel's local loads and stores in the SASS are counted.
+K9, K10 and K11 (`--split vp8l`, DIR from commit 8e0eae3) run through
+the package's wrappers with either library bound on the lossless phase's
+streams tiled to each batch (K9 and K10 on the photo's inputs, the colour
+transform at size_bits 3; K11 at 2, 4, 12 and 200 colours: 8, 4, 2 and 1
+indices a byte, 12 from the palette stream, the others seeded), checked
+equal on fresh copies and timed in place on one; K21 and K22 (`--split
+sparse`) on the flagship's pass-2 levels (K18's lv8 flattened), K21
+through the package's wrapper with either library bound, the parent's
+K22 through its C entry point with its tile-count scratch, checked equal
+at n = N and N - 5.  Each prints call, device time (every kernel of the
+call), every device op, a CUDA graph of 20 calls, the bound and the
+device time's share of it, and counts LDL / STL in both builds' SASS.
 Call by CUDA events over the call, device time by the profiler.  `--probe`
 times the instrumented build: take the times from a run without it.
 
---probe adds `clock64()` probes to the package's copies of the kernels:
+--probe adds `clock64()` probes to the package's copies of the kernels
+(K11: the loads, palette and barrier included, then the gathers and
+stores; K22: ticket + scan, look-back, staging, stores):
 per CTA, thread 0's cycles from the kernel's start to the end of each
 phase (K8: stage, rounds, flush; K6: stage, contexts, lists, count, flush;
 K1 on the sparse form: loads, escape run, dequant + IWHT, IDCT, store; K4:
@@ -220,7 +235,33 @@ PATCHES["enc_tables.cu"] = [
     ("cost[lane * kLevels + v] = c;\n        }\n    }\n    __syncthreads();\n", "    PROBE(1);\n"),
     ("            make_int4(v[0], v[1], v[2], v[3]);\n    }\n", "    PROBE(2);\n"),
 ]
-PTXAS_NAMES = {"analysis_kernel": "analysis", "token_stats_kernel": "token_stats",
+# K11 and K22 (PROBE, relative to the CTA's start).
+PHASES["color_indexing"] = ("loads", "gather + stores")
+PHASES["expand_flat"] = ("ticket + scan", "look-back", "staging", "stores")
+PATCHES["vp8l.cu"] = [
+    ('#include "common.cuh"\n', PROBE_DECL),
+    ("    const int b = blockIdx.y, tid = threadIdx.x, r0 = blockIdx.x * rows;\n",
+     "    const long long probe_t0 = clock64();\n"),
+    ("            palette[tid] = pal;\n            __syncthreads();\n", "            PROBE(0);\n"),
+    ("if (x + j >= 0 && x + j < width) o[j] = v[j];\n                }\n            }\n        }\n"
+     "    }\n", "    PROBE(1);\n"),
+]
+PATCHES["sparse.cu"] = [
+    ('#include "common.cuh"\n', PROBE_DECL),
+    ("    __shared__ __align__(16) ExpandShared sh;\n", "    const long long probe_t0 = clock64();\n"),
+    ("    int before = inc - c, total = 0;\n", "    PROBE(0);\n"),
+    ("    const int off = sh.off;\n", "    PROBE(1);\n"),
+    ("    // 4. The thread's bytes: slot k takes the value of its rank if set.\n",
+     "    PROBE(2);\n"),
+    ("    // 5. Done: the image's last CTA resets its tickets and status words.\n",
+     "    PROBE(3);\n"),
+]
+PTXAS_NAMES = {"color_indexing_kernelILi0E": "color_indexing<unpacked>",
+               "color_indexing_kernel_2": "color_indexing<2 a byte>",
+               "color_indexing_kernelILi2E": "color_indexing<4 a byte>",
+               "color_indexing_kernelILi3E": "color_indexing<8 a byte>",
+               "color_indexing_kernel": "color_indexing", "expand_flat_kernel": "expand_flat",
+               "analysis_kernel": "analysis", "token_stats_kernel": "token_stats",
                "residual_kernel": "residual", "yuv2rgb_kernelILb1E": "yuv2rgb (vector loads)",
                "yuv2rgb_kernelILb0E": "yuv2rgb (byte loads)", "yuv2rgb_kernel": "yuv2rgb",
                "prepack_pack_kernel": "prepack_pack", "prepack_kernel": "prepack",
@@ -501,13 +542,15 @@ def split_stats(dev, card: str, batches, lib, parent, probe: bool, segs=()) -> d
     return out
 
 
-def probe_cycles(lib, k: str, ctas: int, fn, batch: int, card: str, reached=False) -> dict:
+def probe_cycles(lib, k: str, ctas: int, fn, batch: int, card: str, reached=False,
+                 source: str = "") -> dict:
     """Mean cycles a CTA by phase of kernel k over one call of fn(); with
     `reached`, each phase's mean is over the CTAs that reached its end (a
-    nonzero slot), for kernels whose CTAs take different paths."""
+    nonzero slot), for kernels whose CTAs take different paths.  `source`:
+    the stem of the kernel's file where it is not k."""
     import torch
 
-    reader = getattr(lib, f"webp_{k}_probe")
+    reader = getattr(lib, f"webp_{source or k}_probe")
     reader.argtypes, reader.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
     n = N_PROBE * ctas
     buf = (ctypes.c_longlong * n)()
@@ -826,6 +869,265 @@ def split_tables_wire(dev, card: str, batches, lib, parent, probe: bool) -> dict
     return out
 
 
+# The lossless split: K9, K10 on the photo's colour transform (size_bits
+# 3), K11 at these palette sizes (8, 4, 2 and 1 indices a byte: 12 from the
+# palette stream, the others seeded); the flat split: K21 and K22 on the
+# flagship's pass-2 levels.  Profiler names: every __global__ function of
+# either build whose name holds one of these.
+INDEX_COLOURS = (2, 4, 12, 200)
+INDEX_SEED = 23
+SPLIT_DEVICE = {"subtract_green": ["subtract_green"], "color_transform": ["color_transform"],
+                "color_indexing": ["color_indexing"],
+                "pack_flat": ["tile_count", "tile_scan", "pack_flat"],
+                "expand_flat": ["tile_count", "tile_scan", "expand_flat"]}
+SAME_ARGS_ENTRIES = ("webp_vp8l_subtract_green", "webp_vp8l_color_transform",
+                     "webp_vp8l_color_indexing", "webp_pack_flat")
+# K22's C entry point since 8e0eae3 (its scratch: 8e0eae3's tile counts, or
+# a later build's kept-zeroed state words).
+PARENT_EXPAND = [_P, _L, _P, _I, _L, _I, _P, _P, _P]
+
+
+def device_sum(fn, reps: int, subs) -> dict:
+    """{kernel: mean device ms a call} of fn()'s kernels whose names hold
+    one of `subs`, and their sum under "total" (None if the trace holds
+    none), from one torch.profiler trace of `reps` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    got = {}
+    for event in prof.key_averages():
+        if event.self_device_time_total and any(s in event.key for s in subs):
+            name = event.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0]
+            got[name] = got.get(name, 0.0) + event.self_device_time_total / reps / 1000
+    return {**got, "total": sum(got.values()) if got else None}
+
+
+def lossless_steps(dev, batch: int) -> dict:
+    """(name, kernel) -> (wrapper, input, extra args) of the lossless
+    phase's streams tiled to `batch`: each transform's input as the
+    decode meets it (the stepped kernels' outputs feeding the next), and
+    K11 at INDEX_COLOURS (12 from the palette stream, the rest seeded)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from webp_tpu_torch.decode import vp8l_device as ldev
+    from webp_tpu_torch.ops import vp8l_device as K
+
+    _, streams = cs.lossless_inputs(WIDTH, HEIGHT)
+    ops = {0: ("predictor", K.inverse_predictor_), 1: ("color_transform", K.color_transform_),
+           2: ("subtract_green", K.subtract_green_), 3: ("color_indexing", K.color_indexing)}
+    steps = {}
+    for name, stream in (("photo", streams[0]), ("palette", streams[1])):
+        results = ldev.entropy_batch([stream] * batch, WIDTH, HEIGHT)
+        sig = ldev.signature(results[0][1], results[0][0].shape[1])
+        params = [None if p is None else torch.from_numpy(p).to(dev)
+                  for p in ldev.stack_params(results, list(range(batch)), sig, HEIGHT)]
+        px = torch.from_numpy(np.stack([r[0] for r in results])).to(dev)
+        for (ttype, size_bits, table_size), param in zip(reversed(sig[:-1]), reversed(params)):
+            kname, kernel = ops[ttype]
+            extra = {0: (param, size_bits), 1: (param, size_bits), 2: (),
+                     3: (param, table_size, WIDTH)}[ttype]
+            steps[(name, kname)] = (kernel, px, extra)
+            px = kernel(px.clone(), *extra)
+    rng = np.random.RandomState(INDEX_SEED)
+    out = {("photo", "subtract_green"): steps[("photo", "subtract_green")],
+           ("photo", "color_transform"): steps[("photo", "color_transform")]}
+    for colours in INDEX_COLOURS:
+        if colours == cs.LOSSLESS_COLOURS:
+            out[(f"{colours} colours", "color_indexing")] = steps[("palette", "color_indexing")]
+            continue
+        pw = K.subsample(WIDTH, K.pack_bits(colours))
+        px = rng.randint(0, 256, (batch, HEIGHT, pw, 4)).astype(np.uint8)
+        if K.pack_bits(colours) == 0:
+            px[..., 1] = rng.randint(0, colours, (batch, HEIGHT, pw))
+        table = np.zeros((batch, 256, 4), np.uint8)
+        table[:, :colours] = rng.randint(0, 256, (batch, colours, 4))
+        out[(f"{colours} colours", "color_indexing")] = (
+            K.color_indexing, torch.from_numpy(px).to(dev),
+            (torch.from_numpy(table).to(dev), colours, WIDTH))
+    return out
+
+
+def split_bound(kname: str, inp, extra, batch: int) -> dict:
+    """chip_smoke's bound of a lossless kernel on these inputs."""
+    import chip_smoke as cs
+
+    npx = inp.shape[0] * inp.shape[1] * inp.shape[2]
+    if kname == "subtract_green":
+        return cs.bound(2 * cs.nbytes(inp), npx * 8)
+    if kname == "color_transform":
+        return cs.bound(2 * cs.nbytes(inp) + cs.nbytes(extra[0]), npx * 25)
+    return cs.bound(cs.nbytes(inp, extra[0]) + batch * HEIGHT * WIDTH * 4,
+                    batch * HEIGHT * WIDTH * 8)
+
+
+def turns(libs, k: str, batch: int, fns: dict, subs, bound: dict, card: str) -> dict:
+    """fns[who]() of each build in turns (parent, package, package,
+    parent): call by CUDA events, device time of the kernels named `subs`
+    (the profiler), every device op, and a CUDA graph of 20 calls; the
+    share of the bound from the median device time."""
+    import chip_smoke as cs
+    from webp_tpu_torch import _build
+
+    r = {"call_ms": {}, "device_ms": {}, "device_all_ms": {}, "graph_ms": {}, "kernels": {}}
+    for who in ("parent", "package", "package", "parent"):
+        bind(_build, *libs[who])
+        fn = fns[who]
+        r["call_ms"].setdefault(who, []).append(cs.time_ms(fn, 20))
+        per = device_sum(fn, 20, subs)
+        r["device_ms"].setdefault(who, []).append(per.pop("total"))
+        r["kernels"].setdefault(who, []).append(per)
+        r["device_all_ms"].setdefault(who, []).append(
+            cs.device_total(cs.device_ms(fn, 20, [""])))
+        r["graph_ms"].setdefault(who, []).append(graph_ms(fn))
+    bind(_build, *libs["package"])
+    r.update(bound)
+    r["share_of_bound"] = {who: bound["bound_ms"] / statistics.median(ts)
+                           for who, ts in r["device_ms"].items() if None not in ts}
+    text = "; ".join(f"{who} " + ", ".join(
+        f"{what} {' / '.join('n/a' if t is None else f'{t:.4f}' for t in r[key][who])}"
+        for what, key in (("call", "call_ms"), ("device", "device_ms"),
+                          ("device all", "device_all_ms"), ("graph", "graph_ms"))) + " ms"
+        + f" (kernels {r['kernels'][who][0]})" for who in ("package", "parent"))
+    share = ", ".join(f"{who} {s:.0%}" for who, s in r["share_of_bound"].items())
+    print(f"batch {batch}: {k}: {text}; bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']}, share of bound {share}; outputs equal ({card})", flush=True)
+    return r
+
+
+def same_args_libs(lib, parent):
+    """The two builds' bindings of K9-K11 and K21, whose C entry points
+    take the same arguments in both."""
+    from webp_tpu_torch import _build
+
+    for name in SAME_ARGS_ENTRIES:
+        getattr(parent, name).argtypes = _build._SIGNATURES[name]
+        getattr(parent, name).restype = ctypes.c_int
+    parent.webp_error_string.argtypes = [ctypes.c_int]
+    parent.webp_error_string.restype = ctypes.c_char_p
+    return {"package": (lib, dict(_build._entries)),
+            "parent": (parent, {n: getattr(parent, n) for n in SAME_ARGS_ENTRIES})}
+
+
+def split_vp8l(dev, card: str, batches, lib, parent, probe: bool) -> dict:
+    """K9, K10 and K11 (four packings) of the package beside the parent's,
+    through the package's wrappers with either library bound, in turns,
+    per batch; outputs checked equal first (the in-place kernels on fresh
+    copies; timed in place on one copy)."""
+    import torch
+
+    from webp_tpu_torch import _build
+    from webp_tpu_torch.ops import vp8l_device as K
+
+    libs = same_args_libs(lib, parent)
+    out = {}
+    for batch in batches:
+        rec = {}
+        for (name, kname), (kernel, inp, extra) in lossless_steps(dev, batch).items():
+            got = {}
+            for who in ("package", "parent"):
+                bind(_build, *libs[who])
+                got[who] = kernel(inp.clone(), *extra)
+            bind(_build, *libs["package"])
+            torch.cuda.synchronize()
+            if not torch.equal(got["package"], got["parent"]):
+                raise AssertionError(f"{kname} ({name}) at batch {batch}: the package differs "
+                                     "from the parent")
+            work = inp.clone()
+            fn = (lambda: kernel(inp, *extra)) if kname == "color_indexing" else (
+                lambda: kernel(work, *extra))
+            key = f"{kname} ({name})"
+            rec[key] = turns(libs, key, batch, {"package": fn, "parent": fn},
+                             SPLIT_DEVICE[kname], split_bound(kname, inp, extra, batch), card)
+            if probe and kname == "color_indexing":
+                ctas = batch * -(-HEIGHT // K.index_rows(WIDTH, HEIGHT))
+                rec[key]["cycles_per_cta"] = probe_cycles(lib, "color_indexing", ctas, fn, batch,
+                                                          card, source="vp8l")
+        out[batch] = rec
+    return out
+
+
+def split_sparse(dev, card: str, batches, lib, parent, probe: bool) -> dict:
+    """K21 and K22 of the package beside the parent's on the flagship's
+    pass-2 levels (K18's lv8, flattened: N = 614,400 slots an image, cap =
+    cap_for(1536)), in turns, per batch: K21 through the package's wrapper
+    with either library bound, the parent's K22 through its C entry point
+    with a zeroed scratch (8e0eae3's tile counts, or a later build's state
+    words).  K22's outputs are checked equal at n = N and N - 5."""
+    import torch
+
+    import chip_smoke as cs
+    from webp_tpu_torch import _build
+    from webp_tpu_torch.ops import sparse, wire
+
+    libs = same_args_libs(lib, parent)
+    parent.webp_expand_flat.argtypes = PARENT_EXPAND
+    parent.webp_expand_flat.restype = ctypes.c_int
+
+    def parent_expand(bitmap, vals, n):
+        B, nb = bitmap.shape
+        out = torch.empty((B, n), dtype=torch.int8, device=dev)
+        # 8e0eae3's tile counts (int32, one per 2,048 slots), or a later
+        # build's state words (tickets and statuses, zero before the call).
+        tiles = torch.zeros(B * (1 + -(-n // 2048)), dtype=torch.int64, device=dev)
+        rc = parent.webp_expand_flat(bitmap.data_ptr(), nb, vals.data_ptr(), vals.shape[1], n, B,
+                                     tiles.data_ptr(), out.data_ptr(),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent webp_expand_flat: CUDA error {rc}")
+        return out
+
+    out = {}
+    for batch in batches:
+        *_, pass2 = encode_inputs(dev, batch, pass2=True)
+        lv8 = wire.prepack(pass2)[0]
+        N = lv8.shape[1] * lv8.shape[2]
+        lv8 = lv8.reshape(batch, N).contiguous()
+        cap = sparse.cap_for(lv8.shape[1] // wire.SLOTS)
+        got = {}
+        for who in ("package", "parent"):
+            bind(_build, *libs[who])
+            got[who] = sparse.pack_levels(lv8, cap)
+        bind(_build, *libs["package"])
+        bitmap, vals, over = got["package"]
+        for n in (N, N - 5):
+            got[f"package {n}"] = sparse.expand_levels(bitmap, vals, n)
+            got[f"parent {n}"] = parent_expand(bitmap, vals, n)
+        torch.cuda.synchronize()
+        if over.any() or not all(map(torch.equal, got["package"], got["parent"])) or not all(
+                torch.equal(got[f"package {n}"], got[f"parent {n}"]) for n in (N, N - 5)):
+            raise AssertionError(f"flat sparse at batch {batch}: the package differs from the "
+                                 "parent, or the levels overflow the cap")
+        if not torch.equal(got[f"package {N}"], lv8):
+            raise AssertionError(f"flat sparse at batch {batch}: the round trip differs")
+        count = int((lv8 != 0).sum())
+        bounds = {"pack_flat": cs.bound(cs.nbytes(lv8, bitmap, vals, over),
+                                        batch * N * cs.OPS_FLAT_SLOT),
+                  "expand_flat": cs.bound(cs.nbytes(lv8, bitmap) + count,
+                                          batch * N * cs.OPS_FLAT_SLOT)}
+        pack = lambda: sparse.pack_levels(lv8, cap)
+        fns = {"pack_flat": {"package": pack, "parent": pack},
+               "expand_flat": {"package": lambda: sparse.expand_levels(bitmap, vals, N),
+                               "parent": lambda: parent_expand(bitmap, vals, N)}}
+        rec = {k: turns(libs, k, batch, f, SPLIT_DEVICE[k], bounds[k], card)
+               for k, f in fns.items()}
+        if probe:
+            ctas = batch * -(-N // sparse.EXPAND_TILE)
+            rec["expand_flat"]["cycles_per_cta"] = probe_cycles(
+                lib, "expand_flat", ctas, fns["expand_flat"]["package"], batch, card,
+                source="sparse")
+        out[batch] = rec
+    return out
+
+
 def wire_probe_cycles(lib, k: str, ctas: int, fn, batch: int, card: str) -> dict:
     """Mean cycles a CTA (its thread 0) by phase of wire kernel k over one
     call of fn(), from the clocks its probes stored (WIRE_PHASES)."""
@@ -969,7 +1271,7 @@ def main() -> int:
     ap.add_argument("--csrc", type=Path, help="an earlier csrc whose kernels to time beside")
     ap.add_argument("--split", default="residual,yuv2rgb",
                     help="the kernels --csrc times: residual,yuv2rgb, analysis,token_stats, "
-                    "prepack,pack_levels or wire,enc_tables")
+                    "prepack,pack_levels, wire,enc_tables, vp8l, sparse or vp8l,sparse")
     ap.add_argument("--probe", action="store_true", help="clock64() probes per phase")
     ap.add_argument("--segs", help="also time K8 / K6 with CTAs of these MBs a row")
     ap.add_argument("--batches", default="8,64", help="batch sizes, comma-separated")
@@ -1017,6 +1319,14 @@ def main() -> int:
             out["sass"] = sass_local(_build.LIB_PATH, ("wire_kernel", "enc_tables_kernel"))
             out["parent_sass"] = sass_local(parent_lib, ("wire_mb_kernel", "wire_list_kernel",
                                                          "enc_tables_kernel"))
+        elif set(split) <= {"vp8l", "sparse"}:
+            out["split"] = {}
+            if "vp8l" in split:
+                out["split"]["vp8l"] = split_vp8l(dev, card, batches, lib, parent, args.probe)
+            if "sparse" in split:
+                out["split"]["sparse"] = split_sparse(dev, card, batches, lib, parent, args.probe)
+            out["sass"] = sass_local(_build.LIB_PATH, ("color_indexing", "expand_flat"))
+            out["parent_sass"] = sass_local(parent_lib, ("color_indexing", "expand_flat"))
         elif split == ["prepack", "pack_levels"]:
             out["split"] = split_wire(dev, card, batches, lib, parent, args.probe)
             out["sass"] = sass_local(_build.LIB_PATH, ("prepack_pack_kernel", "prepack_kernel",
@@ -1024,7 +1334,7 @@ def main() -> int:
             out["parent_sass"] = sass_local(parent_lib, ("prepack_kernel", "pack_levels_kernel"))
         else:
             raise SystemExit(f"--split {args.split}: residual,yuv2rgb, analysis,token_stats, "
-                             "prepack,pack_levels or wire,enc_tables")
+                             "prepack,pack_levels, wire,enc_tables, vp8l, sparse or vp8l,sparse")
     if args.rank:
         out["rank"] = rank(dev, card, batches)
     for who in ("ptxas", "parent_ptxas", "sass", "parent_sass"):

@@ -205,7 +205,8 @@ _SIGNATURES = {
     "webp_expand_flat": [
         _P, _L, _P, _I,      # bitmap [B, nb], nb, vals [B, cap], cap
         _L, _I,              # n, batch
-        _P, _P,              # tile counts scratch, int8 [B, n] out
+        _P,                  # tickets and tile statuses [B + B * ceil(n / 8192)] uint64, kept zeroed
+        _P,                  # int8 [B, n] out
         _P,
     ],
 }

@@ -6,10 +6,13 @@
 // [B, h, w, 4] in R, G, B, A byte order, each read and written as one
 // little-endian 32-bit word (R in the low byte).
 //
-// K9-K11 are bound by memory: a few integer ops per 4-byte pixel.  One
-// thread per pixel, consecutive threads on consecutive pixels, the grid's
-// y index the image.  K9 and K10 work in place; K11 keeps its image's
-// palette (1 KB) in shared memory and writes a new, wider image.
+// K9-K11 are bound by memory: a few integer ops per 4-byte pixel.  K9 and
+// K10: one thread per pixel, consecutive threads on consecutive pixels, the
+// grid's y index the image, in place.  K11 writes a new, wider image: a CTA
+// per run of rows of an image (at least 16 KB of output) loads the image's
+// palette (1 KB) into shared memory once, beside its first packed loads, and
+// a thread expands groups of 4 (or 8) pixels into 16-byte stores
+// (color_indexing_kernel below).
 //
 // K12 is a 2D recurrence: pixel (x, y) needs the final values of its left,
 // top-left, top and top-right neighbours, so an image is one chain of
@@ -104,21 +107,137 @@ __global__ void __launch_bounds__(kThreads) color_transform_kernel(
     *p = (v & 0xff00ff00u) | static_cast<uint32_t>(red) | (static_cast<uint32_t>(blue) << 16);
 }
 
-__global__ void __launch_bounds__(kThreads) color_indexing_kernel(
-    const uint32_t* __restrict__ px, int pw, const uint32_t* __restrict__ table, int wbits,
-    int width, int h, uint32_t* __restrict__ out) {
+// K11: a CTA per (image, run of `rows` rows) of 256 threads; the image's
+// palette loaded once a CTA, one word a thread, beside the thread's first
+// packed loads and before the CTA's one barrier.  An item is a group of G
+// output pixels of a row (8 at 8 indices a byte, else 4) on the output's
+// 16-byte lattice: a row whose first word lies m words past an aligned
+// address starts its lattice at x = -m, so every group that lies wholly in
+// its row is one (or two) 16-byte stores, and the groups that hold the row's
+// head or tail store 4 bytes a pixel.  An aligned group reads its packed
+// words in one load (16 B unpacked, 8 B at 2 indices a byte, 4 B at 4 or
+// 8); one whose packed words are not aligned reads them 4 bytes at a time.
+// Items run over the CTA's rows in the order (row, group), tid + 256 k for
+// the thread's k-th item, stepped without a division.
+constexpr int kIndexBatch = 8;  // items a thread loads before it gathers any
+
+template <int kWbits>
+struct IndexItem {
+    static constexpr int G = kWbits == 3 ? 8 : 4;           // output pixels of a group
+    static constexpr int Q = kWbits == 3 ? 1 : 4 >> kWbits; // packed words of an aligned group
+    static constexpr int kBits = 8 >> kWbits;               // bits of an index
+};
+
+// Palette index of pixel j of a row in its packed word w (j mod the
+// indices a byte picks its bits).
+template <int kWbits>
+__device__ __forceinline__ int packed_index(uint32_t w, int j) {
+    constexpr int kBits = IndexItem<kWbits>::kBits;
+    return (channel(w, 1) >> ((j & ((1 << kWbits) - 1)) * kBits)) & ((1 << kBits) - 1);
+}
+
+template <int kWbits>
+__device__ __forceinline__ void color_indexing_rows(
+    const uint32_t* __restrict__ px, int pw, const uint32_t* __restrict__ table, int width,
+    int h, int rows, uint32_t* __restrict__ out) {
+    using I = IndexItem<kWbits>;
+    constexpr int G = I::G, Q = I::Q;
     __shared__ uint32_t palette[256];
-    const int b = blockIdx.y;
-    palette[threadIdx.x] = table[b * 256 + threadIdx.x];  // kThreads == 256
-    __syncthreads();
-    const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-    if (i >= static_cast<long long>(width) * h) return;
-    const int y = static_cast<int>(i / width), x = static_cast<int>(i % width);
-    const int packed =
-        channel(px[(static_cast<long long>(b) * h + y) * pw + (x >> wbits)], 1);
-    const int bits = 8 >> wbits;
-    const int idx = (packed >> ((x & ((1 << wbits) - 1)) * bits)) & ((1 << bits) - 1);
-    out[static_cast<long long>(b) * width * h + i] = palette[idx];
+    const int b = blockIdx.y, tid = threadIdx.x, r0 = blockIdx.x * rows;
+    const uint32_t pal = table[b * 256 + tid];  // kThreads == 256
+    // The lattice: words from an aligned address to each row's first word.
+    const unsigned base = static_cast<unsigned>(reinterpret_cast<uintptr_t>(out) >> 2) & 3;
+    const bool even = width % 4 == 0 && base == 0;  // every row starts aligned
+    const int ng = even ? (width + G - 1) / G : (width + 3 + G - 1) / G;  // groups a row
+    const int items = min(rows, h - r0) * ng;
+    const int step_rows = kThreads / ng, step_g = kThreads % ng;
+    int row = tid / ng, g = tid % ng;  // the thread's item, stepped by kThreads
+
+    for (int first = 0; first < items; first += kThreads * kIndexBatch) {
+        uint32_t q[kIndexBatch][Q];
+        int x0[kIndexBatch], rr[kIndexBatch];
+        bool vec_load[kIndexBatch];
+#pragma unroll
+        for (int k = 0; k < kIndexBatch; ++k) {  // every load of the batch before any gather
+            const bool live = first + k * kThreads + tid < items;
+            const long long img_row = static_cast<long long>(b) * h + r0 + row;
+            const int m = static_cast<int>(
+                (static_cast<unsigned>(img_row) * static_cast<unsigned>(width) + base) & 3);
+            x0[k] = g * G - m;
+            rr[k] = row;
+            const uint32_t* p = px + img_row * pw + (x0[k] >> kWbits);
+            vec_load[k] = live && m == 0 && x0[k] + G <= width &&
+                          (reinterpret_cast<uintptr_t>(p) & (4 * Q - 1)) == 0;
+            if (!live) x0[k] = width;  // an empty item
+            if (vec_load[k]) {
+                if constexpr (Q == 4) {
+                    const uint4 v = *reinterpret_cast<const uint4*>(p);
+                    q[k][0] = v.x; q[k][1] = v.y; q[k][2] = v.z; q[k][3] = v.w;
+                } else if constexpr (Q == 2) {
+                    const uint2 v = *reinterpret_cast<const uint2*>(p);
+                    q[k][0] = v.x; q[k][1] = v.y;
+                } else {
+                    q[k][0] = *p;
+                }
+            }
+            g += step_g;
+            row += step_rows;
+            if (g >= ng) { g -= ng; ++row; }
+        }
+        if (first == 0) {
+            palette[tid] = pal;
+            __syncthreads();
+        }
+#pragma unroll
+        for (int k = 0; k < kIndexBatch; ++k) {
+            const int x = x0[k];
+            if (x >= width) continue;
+            const long long img_row = static_cast<long long>(b) * h + r0 + rr[k];
+            uint32_t* o = out + img_row * width + x;
+            uint32_t v[G];
+            if (vec_load[k]) {
+#pragma unroll
+                for (int j = 0; j < G; ++j) v[j] = palette[packed_index<kWbits>(q[k][j * Q / G], j)];
+            } else {
+                const uint32_t* prow = px + img_row * pw;
+#pragma unroll
+                for (int j = 0; j < G; ++j) {
+                    const int xj = x + j;
+                    v[j] = xj >= 0 && xj < width
+                               ? palette[packed_index<kWbits>(prow[xj >> kWbits], xj)]
+                               : 0;
+                }
+            }
+            if (x >= 0 && x + G <= width) {  // on the lattice: 16-byte stores
+#pragma unroll
+                for (int j = 0; j < G; j += 4) {
+                    *reinterpret_cast<uint4*>(o + j) = make_uint4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+                }
+            } else {  // the row's head or tail
+#pragma unroll
+                for (int j = 0; j < G; ++j) {
+                    if (x + j >= 0 && x + j < width) o[j] = v[j];
+                }
+            }
+        }
+    }
+}
+
+// The instances: 2 indices a byte (palettes of 5-16 colours) held to 3 CTAs
+// an SM (80 registers; 7% less time at batch 8 and 64 than as the compiler
+// allots, PERF.md section 6), the others as the compiler allots (a bound
+// made them spill or slower).
+template <int kWbits>
+__global__ void __launch_bounds__(kThreads) color_indexing_kernel(
+    const uint32_t* __restrict__ px, int pw, const uint32_t* __restrict__ table, int width,
+    int h, int rows, uint32_t* __restrict__ out) {
+    color_indexing_rows<kWbits>(px, pw, table, width, h, rows, out);
+}
+
+__global__ void __launch_bounds__(kThreads, 3) color_indexing_kernel_2(
+    const uint32_t* __restrict__ px, int pw, const uint32_t* __restrict__ table, int width,
+    int h, int rows, uint32_t* __restrict__ out) {
+    color_indexing_rows<1>(px, pw, table, width, h, rows, out);
 }
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -498,15 +617,31 @@ WEBP_API int webp_vp8l_color_transform(void* px, const void* tf, int size_bits, 
     return static_cast<int>(cudaGetLastError());
 }
 
+// Rows of a K11 CTA: the fewest (a power of two, at most h) whose output
+// is at least 16 KB.
+static int index_rows(int width, int h) {
+    int rows = 1;
+    while (rows < h && static_cast<long long>(rows) * width < 4096) rows <<= 1;
+    return rows < h ? rows : h;
+}
+
 WEBP_API int webp_vp8l_color_indexing(const void* px, int pw, const void* table, int table_size,
                                       int width, int h, int batch, void* out, void* stream) {
     if (width <= 0 || h <= 0 || batch <= 0) return 0;
     const int wbits = table_size <= 2 ? 3 : table_size <= 4 ? 2 : table_size <= 16 ? 1 : 0;
     if (pw != (width + (1 << wbits) - 1) >> wbits) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(blocks_for(static_cast<long long>(width) * h), batch);
-    color_indexing_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(px), pw, static_cast<const uint32_t*>(table), wbits, width,
-        h, static_cast<uint32_t*>(out));
+    const int rows = index_rows(width, h);
+    const dim3 grid((h + rows - 1) / rows, batch);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const auto* p = static_cast<const uint32_t*>(px);
+    const auto* t = static_cast<const uint32_t*>(table);
+    auto* o = static_cast<uint32_t*>(out);
+    switch (wbits) {
+        case 0: color_indexing_kernel<0><<<grid, kThreads, 0, s>>>(p, pw, t, width, h, rows, o); break;
+        case 1: color_indexing_kernel_2<<<grid, kThreads, 0, s>>>(p, pw, t, width, h, rows, o); break;
+        case 2: color_indexing_kernel<2><<<grid, kThreads, 0, s>>>(p, pw, t, width, h, rows, o); break;
+        default: color_indexing_kernel<3><<<grid, kThreads, 0, s>>>(p, pw, t, width, h, rows, o);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,7 +23,9 @@ tensors.
 Kernels K21 `pack_levels` and K22 `expand_levels` (`csrc/sparse.cu`) are the
 image-flat pack and expansion: they replace `webp_tpu/ops/sparse.py:42`
 `device_pack_levels` (a cumsum and a searchsorted per value) and `:110`
-`device_expand_levels` (a cumsum and a take_along_axis), bit for bit.  No
+`device_expand_levels` (a cumsum and a take_along_axis), bit for bit.  K22
+is one launch: a CTA per tile of EXPAND_TILE slots finds its offset by a
+decoupled look-back over per-tile status words.  No
 path of either package calls them; `chip_smoke.py` holds them to their
 twins `pack_levels_plain` and `expand_levels_plain`.  The flat expansion
 differs from the host one on an image over its cap: a set slot of rank r
@@ -203,8 +205,12 @@ def pack_levels(flat_i8: torch.Tensor, cap: int):
     return _pack_flat_kernel(flat_i8, cap)
 
 
+# Slots of a K22 CTA's tile (`csrc/sparse.cu` kTileSlots): 32 a thread.
+EXPAND_TILE = 8192
+
+
 def _tiles(B: int, nbytes: int, dev) -> torch.Tensor:
-    """Scratch of the flat kernels: one count per 256 bitmap bytes."""
+    """Scratch of K21: one count per 256 bitmap bytes."""
     return torch.empty((B, -(-nbytes // 256)), dtype=torch.int32, device=dev)
 
 
@@ -255,8 +261,11 @@ def _expand_flat_kernel(bitmap: torch.Tensor, vals: torch.Tensor, n: int) -> tor
     B, nb = bitmap.shape
     cap = vals.shape[1]
     out = torch.empty((B, n), dtype=torch.int8, device=dev)
+    # An image's ticket and done count, then its tiles' status words: the
+    # kernel leaves them zero.
+    state = _build.kept_zeroed("expand_flat", B * (1 + -(-n // EXPAND_TILE)), torch.int64, dev)
     _build.launch("expand_flat", "webp_expand_flat", dev,
                   _build.dense(bitmap, torch.uint8, (B, nb)), nb,
                   _build.dense(vals, torch.int8, (B, cap)), cap, n, B,
-                  _tiles(B, -(-n // 8), dev).data_ptr(), out.data_ptr())
+                  state.data_ptr(), out.data_ptr())
     return out

@@ -116,6 +116,21 @@ def color_transform_(px: torch.Tensor, tf: torch.Tensor, size_bits: int) -> torc
 # ---- K11 colour indexing ---------------------------------------------------
 
 
+# K11's schedule (csrc/vp8l.cu): a CTA of INDEX_THREADS threads per run of
+# `index_rows` rows of an image; a thread per group of 4 output pixels (8 at
+# 8 indices a byte) on the output's 16-byte lattice.
+INDEX_THREADS = 256
+
+
+def index_rows(width: int, h: int) -> int:
+    """Rows of a K11 CTA: the fewest (a power of two, at most h) whose
+    output is at least 16 KB."""
+    rows = 1
+    while rows < h and rows * width < 4096:
+        rows <<= 1
+    return min(rows, h)
+
+
 def pack_bits(table_size: int) -> int:
     """log2 of the palette indices packed into one green byte."""
     return 3 if table_size <= 2 else 2 if table_size <= 4 else 1 if table_size <= 16 else 0
