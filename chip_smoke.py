@@ -451,7 +451,7 @@ def ptxas_report() -> list:
              "color_indexing_kernel_2": "color_indexing<2 a byte>",
              "color_indexing_kernelILi2E": "color_indexing<4 a byte>",
              "color_indexing_kernelILi3E": "color_indexing<8 a byte>",
-             "expand_flat_kernel": "expand_flat"}
+             "pack_flat_kernel": "pack_flat", "expand_flat_kernel": "expand_flat"}
     if not _build.PTXAS_REPORT.exists():  # a library built before the report was kept
         return []
     out, name = [], None
@@ -1322,6 +1322,7 @@ def token_phase(dev, card: str, name: str, pass2, probs, sid, segs, mbw: int, mb
     step_ns = coder_step_ns(dev)
     k13_floor(card, name, k13_ms, lanes, step_ns)
     k14_floor(card, name, k14_ms, heads, step_ns)
+    k15_floor(card, name, ms["bool_lanes"], k15, step_ns)
 
     # The yardstick: the host C++ coders on the same arrays, one thread.
     host = edev.fetch(pass2)
@@ -1463,6 +1464,15 @@ def k14_floor(card: str, name: str, k14_ms: dict, heads, step_ns: float) -> None
           f"{k14_ms[1] * 1e6 / longest_b1:.1f} at batch 1 ({card})", flush=True)
 
 
+def k15_floor(card: str, name: str, k15_ms: float, k15, step_ns: float) -> None:
+    """K15 on the carry streams beside its chain floor: the longest
+    stream's ops times one coder step."""
+    longest = int(k15.n_ops.max())
+    print(f"[{name}] bool_lanes: {k15_ms:.4f} ms ({k15.n_ops.numel()} lanes); chain floor "
+          f"{longest * step_ns / 1e6:.5f} ms = {longest} ops x the step {step_ns:.3f} ns; "
+          f"{k15_ms * 1e6 / longest:.1f} ns an op of the longest stream ({card})", flush=True)
+
+
 # Integer operations a slot of K21 / K22 (`csrc/sparse.cu`): the load and
 # compare or bit test, the byte's shift and or, its share of the popcount
 # and the block scan, the rank and the store.
@@ -1538,8 +1548,7 @@ def flat_sparse_phase(dev, card: str, keep: dict) -> dict:
 
     if not torch.equal(pack_library(), vals) or not torch.equal(expand_library(), lv8):
         raise AssertionError("the library calls disagree with K21 / K22")
-    calls = {"pack_flat": (lambda: sparse.pack_levels(lv8, cap),
-                           ["tile_count_kernel", "tile_scan_kernel", "pack_flat_kernel"]),
+    calls = {"pack_flat": (lambda: sparse.pack_levels(lv8, cap), ["pack_flat_kernel"]),
              "expand_flat": (lambda: sparse.expand_levels(bitmap, vals, N),
                              ["expand_flat_kernel"])}
     ms = {k: time_ms(fn, 20) for k, (fn, _) in calls.items()}

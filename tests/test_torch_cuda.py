@@ -1155,6 +1155,44 @@ def test_flat_sparse_kernels_match_plain(cuda, name, B, nmb):
     assert torch.equal(full.cpu()[within], cpu[within])
 
 
+@pytest.mark.parametrize("case", ["batch1_flagship", "batch3", "batch8", "n_mod16_8",
+                                  "misaligned_input", "cap_0", "cap_at_count", "cap_over_count"])
+def test_flat_pack_kernel_edges(cuda, case):
+    """K21 (one launch, a decoupled look-back, the pad and the flag written
+    by the kernel) bit-exact to its twin at batch 1 over 75 tiles, batch 3
+    and 8, N % 16 = 8 (rows of levels and bitmap off 16 bytes), a levels
+    view one byte off its allocation, cap 0, a cap of exactly the largest
+    image's count and one less; on vals filled with garbage beforehand
+    (every byte is the kernel's); twice, so that the state the kernel
+    leaves zero is reused, and the state checked zero after."""
+    nmb, B, seed = {"batch1_flagship": (1536, 1, 7), "batch8": (300, 8, 13)}.get(case, (40, 3, 12))
+    flat, cap = flat_cases(B, nmb, seed)["density_0.23"]
+    most = int((flat != 0).sum(1).max())
+    cap = {"cap_0": 0, "cap_at_count": most, "cap_over_count": most - 1}.get(case, cap)
+    if case == "n_mod16_8":
+        flat = np.ascontiguousarray(flat[:, :-8])
+    cpu = torch.from_numpy(flat)
+    dev = cpu.to(cuda)
+    if case == "misaligned_input":
+        raw = torch.empty(flat.size + 1, dtype=torch.int8, device=cuda)
+        dev = raw[1:].view(flat.shape)
+        dev.copy_(cpu)
+    want = sparse.pack_levels_plain(cpu, cap)
+    assert int(want[2].sum()) == {"cap_0": B, "cap_at_count": 0, "cap_over_count": 1}.get(case, 0)
+    for _ in range(2):
+        garbage = [torch.empty(shape, dtype=torch.int8, device=cuda).fill_(-77)
+                   for shape in ((B, flat.shape[1] // 8), (B, cap), (B,))]
+        del garbage  # the outputs' blocks, reused by the allocator
+        before = _build.LAUNCHES["pack_flat"]
+        got = sparse.pack_levels(dev, cap)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["pack_flat"] == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w), case
+    state = _build.kept_zeroed("pack_flat", 1, torch.int64, cuda)
+    assert not state.any()
+
+
 @pytest.mark.parametrize("case", ["batch1_flagship", "single_tile", "span_over_cap",
                                   "ragged_rows", "odd_cap"])
 def test_flat_expand_kernel_edges(cuda, case):

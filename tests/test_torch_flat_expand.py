@@ -38,7 +38,7 @@ CASES = ("density_0", "density_0.05", "density_0.23", "density_0.31", "density_1
 EXTRA_BYTES = 5  # bitmap bytes past the N slots, random
 AGGREGATE, PREFIX = 1, 2
 # (tile slots, look-back window, B, nmb): the kernel's, and short ones.
-SHAPES = [(S.EXPAND_TILE, 128, 2, 100), (256, 4, 3, 8), (512, 2, 2, 40)]
+SHAPES = [(S.FLAT_TILE, 128, 2, 100), (256, 4, 3, 8), (512, 2, 2, 40)]
 
 
 def expand_flat_lookback_plain(bitmap: np.ndarray, vals: np.ndarray, n: int, tile: int,
@@ -191,8 +191,8 @@ def test_lookback_twin_single_tile_and_span_across_the_cap():
     flat, bitmap, vals = _packed("over_cap", 2, 8)
     n = flat.shape[1]
     want = S.expand_levels_plain(torch.from_numpy(bitmap), torch.from_numpy(vals), n).numpy()
-    got, _ = expand_flat_lookback_plain(bitmap, vals, n, S.EXPAND_TILE, 32, seed=1)
-    assert -(-n // S.EXPAND_TILE) == 1 and np.array_equal(got, want)
+    got, _ = expand_flat_lookback_plain(bitmap, vals, n, S.FLAT_TILE, 32, seed=1)
+    assert -(-n // S.FLAT_TILE) == 1 and np.array_equal(got, want)
     got, _ = expand_flat_lookback_plain(bitmap, vals, n, 256, 4, seed=2)
     assert np.array_equal(got, want)
 

@@ -11,7 +11,7 @@ flagship kernels by their own device time; and time the wrappers' shared
 launch path.
 
     python3 tools/stats_split.py [--rank] [--launch]
-                                 [--csrc DIR [--split K,K] [--probe] [--segs 8,16]]
+                                 [--csrc DIR [--split K,K] [--probe] [--cold] [--segs 8,16]]
                                  [--batches 8,64] [--out FILE]
 
 Inputs are `chip_smoke.py`'s at 768x512, tiled to each batch: the decode's
@@ -70,18 +70,31 @@ streams tiled to each batch (K9 and K10 on the photo's inputs, the colour
 transform at size_bits 3; K11 at 2, 4, 12 and 200 colours: 8, 4, 2 and 1
 indices a byte, 12 from the palette stream, the others seeded), checked
 equal on fresh copies and timed in place on one; K21 and K22 (`--split
-sparse`) on the flagship's pass-2 levels (K18's lv8 flattened), K21
-through the package's wrapper with either library bound, the parent's
-K22 through its C entry point with its tile-count scratch, checked equal
-at n = N and N - 5.  Each prints call, device time (every kernel of the
-call), every device op, a CUDA graph of 20 calls, the bound and the
-device time's share of it, and counts LDL / STL in both builds' SASS.
-Call by CUDA events over the call, device time by the profiler.  `--probe`
-times the instrumented build: take the times from a run without it.
+sparse`, DIR from commit aa03fa0) on the flagship's pass-2 levels (K18's
+lv8 flattened), the package's through its wrappers, the parent's through
+its C entry points: K21 with its int32 tile-count scratch and vals zeroed
+(the zero fill counted in its device time), K22 with its scratch zeroed;
+checked equal, K22's at n = N and N - 5.  Each prints call, device time
+(every kernel of the call), every device op, a CUDA graph of 20 calls,
+the bound and the device time's share of it, and counts LDL / STL in
+both builds' SASS.  Call by CUDA events over the call, device time by
+the profiler.  `--probe` times the instrumented build: take the times
+from a run without it.
+
+--cold (with --split vp8l / sparse) also times K11 at 200 colours, K21
+and K22 with their inputs cold: each call after an add_ over a 128 MB
+buffer (past the 50 MB L2), which the profiler's sum leaves out; device
+time only, in the same turns.
 
 --probe adds `clock64()` probes to the package's copies of the kernels
 (K11: the loads, palette and barrier included, then the gathers and
-stores; K22: ticket + scan, look-back, staging, stores):
+stores; K22: ticket + scan, look-back, staging, stores, finish; K21, whose
+CTAs loop over tickets, each phase's cycles summed over a CTA's items:
+tickets, loads + bitmap + scan (the wait for the tile's loads included),
+publish + staging, look-back (to the barrier after it), stores, pad wait,
+pad zeros, the reset's wait, and the tiles and pad parts a CTA took; for
+K21 and K22 also each CTA's %globaltimer at its start and end: the span
+of the launch, the last start, a CTA's mean life):
 per CTA, thread 0's cycles from the kernel's start to the end of each
 phase (K8: stage, rounds, flush; K6: stage, contexts, lists, count, flush;
 K1 on the sparse form: loads, escape run, dequant + IWHT, IDCT, store; K4:
@@ -134,7 +147,7 @@ DECODE_ENTRIES = ("webp_residual", "webp_yuv2rgb")  # K1 and K4: the package's s
 # Probes: thread 0 of each CTA stores clock64() - its start at the end of
 # each phase.  (file, anchor, inserted after the anchor); each anchor must
 # occur exactly once.
-N_PROBE, MAX_CTAS = 7, 65536
+N_PROBE, MAX_CTAS = 12, 65536
 PROBE_DECL = f"""
 static __device__ long long stats_probe[{MAX_CTAS} * {N_PROBE}];
 #define PROBE_SLOT(k) stats_probe[((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) \
@@ -142,6 +155,11 @@ static __device__ long long stats_probe[{MAX_CTAS} * {N_PROBE}];
 #define PROBE_THREAD ((threadIdx.x | threadIdx.y) == 0)
 #define PROBE(k) do {{ if (PROBE_THREAD) PROBE_SLOT(k) = clock64() - probe_t0; }} while (0)
 #define PROBE_AT(k) do {{ if (PROBE_THREAD) PROBE_SLOT(k) = clock64(); }} while (0)
+#define PROBE_SPAN(k) do {{ const long long t_ = clock64(); \
+    if (PROBE_THREAD) PROBE_SLOT(k) += t_ - probe_t0; probe_t0 = t_; }} while (0)
+#define PROBE_COUNT(k) do {{ if (PROBE_THREAD) PROBE_SLOT(k) += 1; }} while (0)
+#define PROBE_GT(k) do {{ if (PROBE_THREAD) {{ unsigned long long t_; \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); PROBE_SLOT(k) = (long long)t_; }} }} while (0)
 """
 PROBE_API = """
 WEBP_API int webp_{name}_probe(void* host, int n) {{
@@ -237,7 +255,7 @@ PATCHES["enc_tables.cu"] = [
 ]
 # K11 and K22 (PROBE, relative to the CTA's start).
 PHASES["color_indexing"] = ("loads", "gather + stores")
-PHASES["expand_flat"] = ("ticket + scan", "look-back", "staging", "stores")
+PHASES["expand_flat"] = ("ticket + scan", "look-back", "staging", "stores", "finish")
 PATCHES["vp8l.cu"] = [
     ('#include "common.cuh"\n', PROBE_DECL),
     ("    const int b = blockIdx.y, tid = threadIdx.x, r0 = blockIdx.x * rows;\n",
@@ -248,19 +266,46 @@ PATCHES["vp8l.cu"] = [
 ]
 PATCHES["sparse.cu"] = [
     ('#include "common.cuh"\n', PROBE_DECL),
-    ("    __shared__ __align__(16) ExpandShared sh;\n", "    const long long probe_t0 = clock64();\n"),
-    ("    int before = inc - c, total = 0;\n", "    PROBE(0);\n"),
-    ("    const int off = sh.off;\n", "    PROBE(1);\n"),
+    # K22
+    ("int8_t* __restrict__ out) {\n", "    const long long probe_t0 = clock64();\n    PROBE_GT(10);\n"),
+    ("&total);\n\n    // 2. The tile's offset in the image.\n", "    PROBE(0);\n"),
+    ("    // 3. The values of ranks off .. off + total - 1 (each at most cap - 1),\n",
+     "    PROBE(1);\n"),
     ("    // 4. The thread's bytes: slot k takes the value of its rank if set.\n",
      "    PROBE(2);\n"),
-    ("    // 5. Done: the image's last CTA resets its tickets and status words.\n",
-     "    PROBE(3);\n"),
+    ("        store_span<false>(dst, sh.tile_bytes, len, tid);\n    }\n", "    PROBE(3);\n"),
+    ("    PROBE(3);\n    if (warp == 0) finish(head, status, ntiles, lane);\n",
+     "    PROBE(4);\n    PROBE_GT(11);\n"),
+    # K21: each phase's cycles summed over the CTA's items (PROBE_SPAN)
+    ("uint8_t* __restrict__ over) {\n", "    long long probe_t0 = clock64();\n    PROBE_GT(10);\n"),
+    ("    if (item < ntiles) load_slots(row, N, item, tid, w);\n", "    PROBE_SPAN(0);\n"),
+    ("            const int count = sh.count, part = item - ntiles;\n", "            PROBE_SPAN(5);\n"),
+    ("cap - count, tid, part, pads);\n", "            PROBE_SPAN(6);\n            PROBE_COUNT(9);\n"),
+    ("            item = take_ticket(head, &sh.tile);  // past the tiles: a part of the pad or none\n",
+     "            PROBE_SPAN(0);\n"),
+    ("&total);\n\n        // 2. The tile's count published; the nonzeros staged at their rank\n",
+     "        PROBE_SPAN(1);\n"),
+    ("        const int next = sh.tile;\n", "        PROBE_SPAN(2);\n"),
+    ("        const int off = sh.off;\n", "        PROBE_SPAN(3);\n"),
+    ("max(0, min(total, cap - off)),\n                          tid);\n",
+     "        PROBE_SPAN(4);\n        PROBE_COUNT(8);\n"),
+    ("        reset_when_done(head, status, gridDim.x - 1, ntiles, lane);\n",
+     "        PROBE_SPAN(7);\n"),
+    ("        reset_when_done(head, status, gridDim.x - 1, ntiles, lane);\n        PROBE_SPAN(7);\n    }\n",
+     "    PROBE_GT(11);\n"),
 ]
+# The CTAs' %globaltimer at their start and end (after the last phase).
+TIMELINE = {"pack_flat": (10, 11), "expand_flat": (10, 11)}
+PHASES["pack_flat"] = ("tickets", "loads + bitmap + scan", "publish + staging", "look-back",
+                       "stores", "pad wait", "pad zeros", "reset wait", "tiles", "pad parts")
+SPANS = {"pack_flat"}  # each slot holds its phase's sum over the CTA's items
 PTXAS_NAMES = {"color_indexing_kernelILi0E": "color_indexing<unpacked>",
                "color_indexing_kernel_2": "color_indexing<2 a byte>",
                "color_indexing_kernelILi2E": "color_indexing<4 a byte>",
                "color_indexing_kernelILi3E": "color_indexing<8 a byte>",
                "color_indexing_kernel": "color_indexing", "expand_flat_kernel": "expand_flat",
+               "pack_flat_kernel": "pack_flat", "tile_count_kernel": "tile_count",
+               "tile_scan_kernel": "tile_scan",
                "analysis_kernel": "analysis", "token_stats_kernel": "token_stats",
                "residual_kernel": "residual", "yuv2rgb_kernelILb1E": "yuv2rgb (vector loads)",
                "yuv2rgb_kernelILb0E": "yuv2rgb (byte loads)", "yuv2rgb_kernel": "yuv2rgb",
@@ -560,13 +605,30 @@ def probe_cycles(lib, k: str, ctas: int, fn, batch: int, card: str, reached=Fals
     if reader(buf, n) != 0:
         raise RuntimeError("the probe read failed")
     cyc = {}
-    for i, ph in enumerate(PHASES[k]):
+    if k in SPANS:  # the means over the CTAs that ran of each slot
+        ran = [c for c in range(ctas) if buf[c * N_PROBE + TIMELINE[k][0]]]
+        for i, ph in enumerate(PHASES[k]):
+            cyc[ph] = statistics.mean(buf[c * N_PROBE + i] for c in ran)
+        cyc["CTAs"] = len(ran)
+    for i, ph in enumerate(() if k in SPANS else PHASES[k]):
         at = [c for c in range(ctas) if buf[c * N_PROBE + i]] if reached else range(ctas)
         cyc[ph] = statistics.mean(buf[c * N_PROBE + i] - (buf[c * N_PROBE + i - 1] if i else 0)
                                   for c in at) if at else 0.0
-    cyc["total"] = sum(cyc.values())
+    cyc["total"] = sum(v for p, v in cyc.items() if p not in ("tiles", "pad parts", "CTAs"))
     print(f"batch {batch}: {k} probe, mean cycles a CTA by phase "
-          f"{({p: round(c) for p, c in cyc.items()})} ({card})", flush=True)
+          f"{({p: round(c, 2) for p, c in cyc.items()})} ({card})", flush=True)
+    if k in TIMELINE:
+        first, last = TIMELINE[k]
+        ran = [c for c in range(ctas) if buf[c * N_PROBE + first]]
+        start = [buf[c * N_PROBE + first] for c in ran]
+        end = [buf[c * N_PROBE + last] for c in ran]
+        t0 = min(start)
+        cyc["timeline_us"] = line = {
+            "span": (max(end) - t0) / 1e3, "last start": (max(start) - t0) / 1e3,
+            "mean CTA": statistics.mean(e - s for s, e in zip(start, end)) / 1e3,
+            "median end": (statistics.median(end) - t0) / 1e3}
+        print(f"batch {batch}: {k} timeline (%globaltimer, us from the first CTA's start) "
+              f"{({p: round(v, 2) for p, v in line.items()})} ({card})", flush=True)
     return cyc
 
 
@@ -878,13 +940,17 @@ INDEX_COLOURS = (2, 4, 12, 200)
 INDEX_SEED = 23
 SPLIT_DEVICE = {"subtract_green": ["subtract_green"], "color_transform": ["color_transform"],
                 "color_indexing": ["color_indexing"],
-                "pack_flat": ["tile_count", "tile_scan", "pack_flat"],
-                "expand_flat": ["tile_count", "tile_scan", "expand_flat"]}
+                # K21: aa03fa0's three launches and its wrapper's zero fill of vals
+                "pack_flat": ["tile_count", "tile_scan", "pack_flat", "FillFunctor"],
+                "expand_flat": ["expand_flat"]}
 SAME_ARGS_ENTRIES = ("webp_vp8l_subtract_green", "webp_vp8l_color_transform",
-                     "webp_vp8l_color_indexing", "webp_pack_flat")
-# K22's C entry point since 8e0eae3 (its scratch: 8e0eae3's tile counts, or
-# a later build's kept-zeroed state words).
+                     "webp_vp8l_color_indexing")
+# K21's and K22's C entry points since 8e0eae3 (K21's scratch: aa03fa0's
+# tile counts, int32 [B, ceil(N / 2048)], with vals zeroed by the caller;
+# K22's: 8e0eae3's tile counts, or a later build's kept-zeroed state words).
+PARENT_PACK = [_P, _L, _I, _I, _P, _P, _P, _P, _P]
 PARENT_EXPAND = [_P, _L, _P, _I, _L, _I, _P, _P, _P]
+SCRUB_BYTES = 128 << 20  # --cold: written between timed calls, past the 50 MB L2
 
 
 def device_sum(fn, reps: int, subs) -> dict:
@@ -1003,9 +1069,48 @@ def turns(libs, k: str, batch: int, fns: dict, subs, bound: dict, card: str) -> 
     return r
 
 
+_scrub = []
+
+
+def scrubbed(fn):
+    """fn() after a write of SCRUB_BYTES (add_, not a kernel that `subs`
+    names): the 50 MB L2 then holds none of fn's inputs."""
+    import torch
+
+    if not _scrub:
+        _scrub.append(torch.zeros(SCRUB_BYTES, dtype=torch.uint8, device="cuda"))
+
+    def call():
+        _scrub[0].add_(1)
+        return fn()
+    return call
+
+
+def cold_turns(libs, k: str, batch: int, fns: dict, subs, bound: dict, card: str) -> dict:
+    """The device time of fns[who]()'s kernels named `subs` (the profiler)
+    with the inputs cold, each call after the scrub, in turns (parent,
+    package, package, parent); the share of the bound."""
+    from webp_tpu_torch import _build
+
+    r = {"device_ms": {}}
+    for who in ("parent", "package", "package", "parent"):
+        bind(_build, *libs[who])
+        r["device_ms"].setdefault(who, []).append(device_sum(scrubbed(fns[who]), 20, subs)["total"])
+    bind(_build, *libs["package"])
+    r["share_of_bound"] = {who: bound["bound_ms"] / statistics.median(ts)
+                           for who, ts in r["device_ms"].items() if None not in ts}
+    text = "; ".join(f"{who} {' / '.join(f'{t:.4f}' for t in r['device_ms'][who])} ms"
+                     for who in ("package", "parent"))
+    share = ", ".join(f"{who} {s:.0%}" for who, s in r["share_of_bound"].items())
+    print(f"batch {batch}: {k} cold (a {SCRUB_BYTES >> 20} MB write before each call): device "
+          f"{text}; bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}, share of bound "
+          f"{share} ({card})", flush=True)
+    return r
+
+
 def same_args_libs(lib, parent):
-    """The two builds' bindings of K9-K11 and K21, whose C entry points
-    take the same arguments in both."""
+    """The two builds' bindings of K9-K11, whose C entry points take the
+    same arguments in both."""
     from webp_tpu_torch import _build
 
     for name in SAME_ARGS_ENTRIES:
@@ -1017,11 +1122,12 @@ def same_args_libs(lib, parent):
             "parent": (parent, {n: getattr(parent, n) for n in SAME_ARGS_ENTRIES})}
 
 
-def split_vp8l(dev, card: str, batches, lib, parent, probe: bool) -> dict:
+def split_vp8l(dev, card: str, batches, lib, parent, probe: bool, cold: bool) -> dict:
     """K9, K10 and K11 (four packings) of the package beside the parent's,
     through the package's wrappers with either library bound, in turns,
     per batch; outputs checked equal first (the in-place kernels on fresh
-    copies; timed in place on one copy)."""
+    copies; timed in place on one copy); with `cold`, K11 at 200 colours
+    again with its inputs cold."""
     import torch
 
     from webp_tpu_torch import _build
@@ -1047,6 +1153,10 @@ def split_vp8l(dev, card: str, batches, lib, parent, probe: bool) -> dict:
             key = f"{kname} ({name})"
             rec[key] = turns(libs, key, batch, {"package": fn, "parent": fn},
                              SPLIT_DEVICE[kname], split_bound(kname, inp, extra, batch), card)
+            if cold and name == "200 colours":
+                rec[key]["cold"] = cold_turns(libs, key, batch, {"package": fn, "parent": fn},
+                                              SPLIT_DEVICE[kname],
+                                              split_bound(kname, inp, extra, batch), card)
             if probe and kname == "color_indexing":
                 ctas = batch * -(-HEIGHT // K.index_rows(WIDTH, HEIGHT))
                 rec[key]["cycles_per_cta"] = probe_cycles(lib, "color_indexing", ctas, fn, batch,
@@ -1055,13 +1165,18 @@ def split_vp8l(dev, card: str, batches, lib, parent, probe: bool) -> dict:
     return out
 
 
-def split_sparse(dev, card: str, batches, lib, parent, probe: bool) -> dict:
+def split_sparse(dev, card: str, batches, lib, parent, parent_csrc: Path, probe: bool,
+                 cold: bool) -> dict:
     """K21 and K22 of the package beside the parent's on the flagship's
     pass-2 levels (K18's lv8, flattened: N = 614,400 slots an image, cap =
-    cap_for(1536)), in turns, per batch: K21 through the package's wrapper
-    with either library bound, the parent's K22 through its C entry point
-    with a zeroed scratch (8e0eae3's tile counts, or a later build's state
-    words).  K22's outputs are checked equal at n = N and N - 5."""
+    cap_for(1536)), in turns, per batch; the package's through its
+    wrappers, the parent's through its C entry points with a scratch made
+    zero once (aa03fa0's K21 overwrites it with its tile counts and needs
+    vals zeroed, as its wrapper did; a one-launch K21, whose source has no
+    tile_count_kernel, leaves it zero and writes every byte of vals; K22's
+    scratch: 8e0eae3's tile counts or a later build's state words).
+    Outputs checked equal, K22's at n = N and N - 5; with `cold`, the
+    device times again with the inputs cold."""
     import torch
 
     import chip_smoke as cs
@@ -1069,18 +1184,35 @@ def split_sparse(dev, card: str, batches, lib, parent, probe: bool) -> dict:
     from webp_tpu_torch.ops import sparse, wire
 
     libs = same_args_libs(lib, parent)
+    parent.webp_pack_flat.argtypes = PARENT_PACK
     parent.webp_expand_flat.argtypes = PARENT_EXPAND
-    parent.webp_expand_flat.restype = ctypes.c_int
+    parent.webp_pack_flat.restype = parent.webp_expand_flat.restype = ctypes.c_int
+
+    one_launch = "tile_count_kernel" not in (parent_csrc / "sparse.cu").read_text()
+    scratch = {}
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def parent_pack(flat, cap):
+        B, N = flat.shape
+        bitmap = torch.empty((B, N // 8), dtype=torch.uint8, device=dev)
+        vals = (torch.empty if one_launch else torch.zeros)((B, cap), dtype=torch.int8, device=dev)
+        over = torch.empty(B, dtype=torch.bool, device=dev)
+        if B not in scratch:  # int32 [B, ceil(N / 2048)] or int64 [B + B * ceil(N / 8192)]
+            scratch[B] = torch.zeros(B * (1 + -(-N // 2048)), dtype=torch.int64, device=dev)
+        rc = parent.webp_pack_flat(flat.data_ptr(), N, B, cap, scratch[B].data_ptr(),
+                                   bitmap.data_ptr(), vals.data_ptr(), over.data_ptr(), stream())
+        if rc:
+            raise RuntimeError(f"parent webp_pack_flat: CUDA error {rc}")
+        return bitmap, vals, over
 
     def parent_expand(bitmap, vals, n):
         B, nb = bitmap.shape
         out = torch.empty((B, n), dtype=torch.int8, device=dev)
-        # 8e0eae3's tile counts (int32, one per 2,048 slots), or a later
-        # build's state words (tickets and statuses, zero before the call).
         tiles = torch.zeros(B * (1 + -(-n // 2048)), dtype=torch.int64, device=dev)
         rc = parent.webp_expand_flat(bitmap.data_ptr(), nb, vals.data_ptr(), vals.shape[1], n, B,
-                                     tiles.data_ptr(), out.data_ptr(),
-                                     torch.cuda.current_stream(dev).cuda_stream)
+                                     tiles.data_ptr(), out.data_ptr(), stream())
         if rc:
             raise RuntimeError(f"parent webp_expand_flat: CUDA error {rc}")
         return out
@@ -1092,11 +1224,7 @@ def split_sparse(dev, card: str, batches, lib, parent, probe: bool) -> dict:
         N = lv8.shape[1] * lv8.shape[2]
         lv8 = lv8.reshape(batch, N).contiguous()
         cap = sparse.cap_for(lv8.shape[1] // wire.SLOTS)
-        got = {}
-        for who in ("package", "parent"):
-            bind(_build, *libs[who])
-            got[who] = sparse.pack_levels(lv8, cap)
-        bind(_build, *libs["package"])
+        got = {"package": sparse.pack_levels(lv8, cap), "parent": parent_pack(lv8, cap)}
         bitmap, vals, over = got["package"]
         for n in (N, N - 5):
             got[f"package {n}"] = sparse.expand_levels(bitmap, vals, n)
@@ -1113,17 +1241,20 @@ def split_sparse(dev, card: str, batches, lib, parent, probe: bool) -> dict:
                                         batch * N * cs.OPS_FLAT_SLOT),
                   "expand_flat": cs.bound(cs.nbytes(lv8, bitmap) + count,
                                           batch * N * cs.OPS_FLAT_SLOT)}
-        pack = lambda: sparse.pack_levels(lv8, cap)
-        fns = {"pack_flat": {"package": pack, "parent": pack},
+        fns = {"pack_flat": {"package": lambda: sparse.pack_levels(lv8, cap),
+                             "parent": lambda: parent_pack(lv8, cap)},
                "expand_flat": {"package": lambda: sparse.expand_levels(bitmap, vals, N),
                                "parent": lambda: parent_expand(bitmap, vals, N)}}
         rec = {k: turns(libs, k, batch, f, SPLIT_DEVICE[k], bounds[k], card)
                for k, f in fns.items()}
+        if cold:
+            for k, f in fns.items():
+                rec[k]["cold"] = cold_turns(libs, k, batch, f, SPLIT_DEVICE[k], bounds[k], card)
         if probe:
-            ctas = batch * -(-N // sparse.EXPAND_TILE)
-            rec["expand_flat"]["cycles_per_cta"] = probe_cycles(
-                lib, "expand_flat", ctas, fns["expand_flat"]["package"], batch, card,
-                source="sparse")
+            ctas = batch * (-(-N // sparse.FLAT_TILE) + 8)  # K21: at most a CTA a ticket
+            for k, f in fns.items():
+                rec[k]["cycles_per_cta"] = probe_cycles(lib, k, ctas, f["package"], batch, card,
+                                                        reached=True, source="sparse")
         out[batch] = rec
     return out
 
@@ -1273,6 +1404,8 @@ def main() -> int:
                     help="the kernels --csrc times: residual,yuv2rgb, analysis,token_stats, "
                     "prepack,pack_levels, wire,enc_tables, vp8l, sparse or vp8l,sparse")
     ap.add_argument("--probe", action="store_true", help="clock64() probes per phase")
+    ap.add_argument("--cold", action="store_true", help="with --split vp8l / sparse, also time "
+                    "K11 at 200 colours, K21 and K22 with a 128 MB write before each call")
     ap.add_argument("--segs", help="also time K8 / K6 with CTAs of these MBs a row")
     ap.add_argument("--batches", default="8,64", help="batch sizes, comma-separated")
     ap.add_argument("--out", type=Path, help="also write the numbers to this JSON file")
@@ -1322,11 +1455,14 @@ def main() -> int:
         elif set(split) <= {"vp8l", "sparse"}:
             out["split"] = {}
             if "vp8l" in split:
-                out["split"]["vp8l"] = split_vp8l(dev, card, batches, lib, parent, args.probe)
+                out["split"]["vp8l"] = split_vp8l(dev, card, batches, lib, parent, args.probe,
+                                                  args.cold)
             if "sparse" in split:
-                out["split"]["sparse"] = split_sparse(dev, card, batches, lib, parent, args.probe)
-            out["sass"] = sass_local(_build.LIB_PATH, ("color_indexing", "expand_flat"))
-            out["parent_sass"] = sass_local(parent_lib, ("color_indexing", "expand_flat"))
+                out["split"]["sparse"] = split_sparse(dev, card, batches, lib, parent,
+                                                      args.csrc.resolve(), args.probe, args.cold)
+            flat = ("color_indexing", "expand_flat", "pack_flat", "tile_count", "tile_scan")
+            out["sass"] = sass_local(_build.LIB_PATH, flat)
+            out["parent_sass"] = sass_local(parent_lib, flat)
         elif split == ["prepack", "pack_levels"]:
             out["split"] = split_wire(dev, card, batches, lib, parent, args.probe)
             out["sass"] = sass_local(_build.LIB_PATH, ("prepack_pack_kernel", "prepack_kernel",

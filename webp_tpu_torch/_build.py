@@ -198,8 +198,8 @@ _SIGNATURES = {
     ],
     "webp_pack_flat": [
         _P, _L, _I, _I,      # flat int8 [B, N], N, batch, cap
-        _P,                  # tile counts scratch [B, ceil(N / 2048)] int32
-        _P, _P, _P,          # bitmap, vals (zeroed), overflow out
+        _P,                  # tickets and tile statuses [B + B * ceil(N / 8192)] uint64, kept zeroed
+        _P, _P, _P,          # bitmap, vals, overflow out
         _P,
     ],
     "webp_expand_flat": [

@@ -23,9 +23,12 @@ tensors.
 Kernels K21 `pack_levels` and K22 `expand_levels` (`csrc/sparse.cu`) are the
 image-flat pack and expansion: they replace `webp_tpu/ops/sparse.py:42`
 `device_pack_levels` (a cumsum and a searchsorted per value) and `:110`
-`device_expand_levels` (a cumsum and a take_along_axis), bit for bit.  K22
-is one launch: a CTA per tile of EXPAND_TILE slots finds its offset by a
-decoupled look-back over per-tile status words.  No
+`device_expand_levels` (a cumsum and a take_along_axis), bit for bit.  Each
+is one launch over tiles of FLAT_TILE slots taken by a per-image ticket; a
+tile finds its offset by a decoupled look-back over per-tile status words.
+K22 is a CTA per tile; K21 runs as many CTAs an image as the card holds
+at once, each taking tiles, then parts of the zeros past the image's
+count, until the image's tickets run out.  No
 path of either package calls them; `chip_smoke.py` holds them to their
 twins `pack_levels_plain` and `expand_levels_plain`.  The flat expansion
 differs from the host one on an image over its cap: a set slot of rank r
@@ -205,24 +208,25 @@ def pack_levels(flat_i8: torch.Tensor, cap: int):
     return _pack_flat_kernel(flat_i8, cap)
 
 
-# Slots of a K22 CTA's tile (`csrc/sparse.cu` kTileSlots): 32 a thread.
-EXPAND_TILE = 8192
+# Slots of a K21 or K22 CTA's tile (`csrc/sparse.cu` kTileSlots): 32 a thread.
+FLAT_TILE = 8192
 
 
-def _tiles(B: int, nbytes: int, dev) -> torch.Tensor:
-    """Scratch of K21: one count per 256 bitmap bytes."""
-    return torch.empty((B, -(-nbytes // 256)), dtype=torch.int32, device=dev)
+def _flat_state(name: str, B: int, slots: int, dev) -> torch.Tensor:
+    """Each image's ticket and done count, then its tiles' status words:
+    the kernel leaves them zero."""
+    return _build.kept_zeroed(name, B * (1 + -(-slots // FLAT_TILE)), torch.int64, dev)
 
 
 def _pack_flat_kernel(flat_i8: torch.Tensor, cap: int):
     dev = flat_i8.device
     B, N = flat_i8.shape
     bitmap = torch.empty((B, N // 8), dtype=torch.uint8, device=dev)
-    vals = torch.zeros((B, cap), dtype=torch.int8, device=dev)  # the pad past the count
+    vals = torch.empty((B, cap), dtype=torch.int8, device=dev)  # the kernel writes the pad
     over = torch.empty(B, dtype=torch.bool, device=dev)
     _build.launch("pack_flat", "webp_pack_flat", dev,
                   _build.dense(flat_i8, torch.int8, (B, N)), N, B, cap,
-                  _tiles(B, N // 8, dev).data_ptr(),
+                  _flat_state("pack_flat", B, N, dev).data_ptr(),
                   bitmap.data_ptr(), vals.data_ptr(), over.data_ptr())
     return bitmap, vals, over
 
@@ -261,11 +265,8 @@ def _expand_flat_kernel(bitmap: torch.Tensor, vals: torch.Tensor, n: int) -> tor
     B, nb = bitmap.shape
     cap = vals.shape[1]
     out = torch.empty((B, n), dtype=torch.int8, device=dev)
-    # An image's ticket and done count, then its tiles' status words: the
-    # kernel leaves them zero.
-    state = _build.kept_zeroed("expand_flat", B * (1 + -(-n // EXPAND_TILE)), torch.int64, dev)
     _build.launch("expand_flat", "webp_expand_flat", dev,
                   _build.dense(bitmap, torch.uint8, (B, nb)), nb,
                   _build.dense(vals, torch.int8, (B, cap)), cap, n, B,
-                  state.data_ptr(), out.data_ptr())
+                  _flat_state("expand_flat", B, n, dev).data_ptr(), out.data_ptr())
     return out
