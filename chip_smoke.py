@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the host entropy library (g++) and the kernels (`webp_tpu_torch/csrc`,
-nvcc, one process per source), then drives both ported paths at 768x512
+nvcc, one process per source), then drives the ported paths at 768x512
 through their public entry points, each with the launch counts set to 0
 just before it and read just after:
 
@@ -85,6 +85,27 @@ image at batch 8 and batch 1, beside its chain floor: the image's pixel
 steps times one step (a one-band chain at two widths) plus a row
 hand-over between each two of its CTAs.
 
+Container: the decoder API, after the lossless phase.  Seeded 768x512
+WebP files from the jax-free writer `tests/random_webp.py`: two VP8X
+stills (a VP8 keyframe with an ALPH chunk, VP8L-compressed through a
+palette with the gradient filter in one and raw with the horizontal filter
+in the other, and ICCP, EXIF and XMP), a VP8L still with alpha, and a
+six-frame animation (a full-canvas VP8 frame; a smaller one at an even
+offset, blended; an ALPH + VP8 frame that disposes; VP8L frames with
+alpha that blend and that do not; a full-canvas ALPH + VP8 frame that does
+not blend; a background colour set through `set_background_color`).
+`decode_rgba` decodes the stills and `WebPDecoder.read_frame` the
+animation on the card, each file with the counts set to 0 just before it:
+K1, recon_filter and K4 once a VP8 payload, K9-K12 once per transform of
+each VP8L stream and compressed ALPH.  The outputs must be bit-exact with
+the same API on the CPU (the plain twins), the stills' RGB with
+`decode_vp8_batch_device` on the card, the VP8L still and the alpha planes
+with their sources, the metadata chunks with the writer's, and each canvas
+with the sources composed on the host.  Timed, host clock beside CUDA
+events: a VP8X still's stages (parse, entropy + upload, K1 +
+recon_filter + K4, fetch, alpha), each still's `read_image`, each frame of
+the animation, and the gradient and horizontal alpha defilters.
+
 Scale-out, last.  The decode batches of both filter kinds go through
 `parallel.decode_wavefront_banded` at 2, 4 and 8 bands an image (K16
 recon_banded and K17 filter_banded, one cluster of that many CTAs per
@@ -111,7 +132,7 @@ device time of the call's kernels; K9 also beside one in-place add over a
 strided view, the one PyTorch call that computes it), the encodes' per-stage
 host-clock split (both flows) and d2h bytes (the wire rows beside the
 dense arrays), the images by wire branch, the lossless decode's ms/img beside the host C++
-decode's, one JSON line of kernel records and, last,
+decode's, the decoder API's ms per still and per frame, one JSON line of kernel records and, last,
 {"ok": true, "device": {...}}.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails.  Imports neither jax nor the JAX package; needs no network.
@@ -228,6 +249,15 @@ LOSSLESS_KERNELS = [
     ("color_indexing", "webp_tpu_torch/csrc/vp8l.cu", "webp_tpu/ops/vp8l_device.py:74"),
     ("predictor", "webp_tpu_torch/csrc/vp8l.cu", "webp_tpu/ops/vp8l_device.py:159"),
 ]
+
+
+# The container phase: seeds of its two VP8X stills, its VP8L still and its
+# animation (tests/random_webp.py), the background colour the animation is
+# given through set_background_color, and the kernels its files launch.
+CONTAINER_SEEDS = (51, 52, 53, 54)
+CONTAINER_BACKGROUND = (40, 80, 120, 160)
+CONTAINER_KERNELS = ("residual", "recon_filter", "yuv2rgb", "subtract_green", "color_transform",
+                     "color_indexing", "predictor")
 
 
 def _import_paths() -> None:
@@ -1907,6 +1937,240 @@ def lossless_phase(dev, card: str, keep: dict) -> dict:
             for k, _, _ in LOSSLESS_KERNELS}
 
 
+def both_clocks(fn):
+    """(fn(), host-clock ms, CUDA-event ms): one run, ended by a synchronise."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1000, start.elapsed_time(stop)
+
+
+def median_clocks(fn, reps: int):
+    """Medians of both clocks over `reps` runs of fn() after a warm-up."""
+    runs = [both_clocks(fn)[1:] for _ in range(reps + 1)][1:]
+    return statistics.median(r[0] for r in runs), statistics.median(r[1] for r in runs)
+
+
+def container_inputs(width: int, height: int):
+    """The container phase's files: two VP8X stills (ALPH VP8L-compressed
+    through a palette with the gradient filter, and raw with the horizontal
+    one; ICCP, EXIF, XMP), a VP8L still with alpha and an animation
+    (`tests/random_webp.py`); name -> (file, its VP8 payloads, its VP8L
+    streams as (stream, width, height, implicit))."""
+    _import_paths()
+    import random_webp as rw
+    from random_vp8l import PALETTE, SUBTRACT_GREEN, color, predictor, vp8l_stream
+
+    s = CONTAINER_SEEDS
+    stills = {"vp8x_gradient_vp8l": rw.demo_still(width, height, s[0], 3, True, (PALETTE,)),
+              "vp8x_horizontal_raw": rw.demo_still(width, height, s[1], 1, False)}
+    rgba = rw.rgba_frame(width, height, s[2])
+    stream = vp8l_stream(rgba, s[2], (SUBTRACT_GREEN, predictor(2), color(3)))
+    anim, frames = rw.demo_animation(width, height, s[3])
+    files = {name: (st.data, [st.vp8], [(st.alph[1:], width, height, True)] if st.alph[0] & 1
+                    else []) for name, st in stills.items()}
+    files["vp8l_alpha"] = (rw.still_vp8l(stream), [], [(stream, width, height, False)])
+    files["animation"] = (anim, [f.vp8 for f in frames if f.vp8 is not None],
+                          [(f.alph[1:], f.width, f.height, True) for f in frames
+                           if f.alph is not None and f.alph[0] & 1]
+                          + [(f.vp8l, f.width, f.height, False) for f in frames
+                             if f.vp8l is not None])
+    return stills, rgba, frames, files
+
+
+def container_decode(name: str, data: bytes, device, upsampling: str = "bilinear"):
+    """The decoder API on one of the container phase's files: a still's
+    RGBA by decode_rgba (by read_image for upsampling="simple"), or the
+    animation's (canvas, duration) of every read_frame, its background
+    colour set."""
+    import webp_tpu_torch as api
+
+    if name == "animation":
+        d = api.WebPDecoder(data, upsampling=upsampling, device=device)
+        d.set_background_color(CONTAINER_BACKGROUND)
+        return [d.read_frame() for _ in range(d.num_frames)]
+    if upsampling == "simple":
+        return api.WebPDecoder(data, upsampling=upsampling, device=device).read_image()
+    return api.decode_rgba(data, device=device)[0]
+
+
+def container_reference():
+    """(container_decode of every file on the CPU, and of the VP8X stills
+    with upsampling="simple"; its seconds), in a worker: the plain twins run
+    a wavefront step at a time, seconds a full-size frame."""
+    t0 = time.perf_counter()
+    stills, _, _, files = container_inputs(WIDTH, HEIGHT)
+    out = {name: container_decode(name, data, "cpu") for name, (data, _, _) in files.items()}
+    out["simple"] = {name: container_decode(name, st.data, "cpu", "simple")
+                     for name, st in stills.items()}
+    return out, time.perf_counter() - t0
+
+
+def container_phase(dev, card: str, keep: dict) -> dict:
+    """The decoder API on WebP files, counted, checked and timed; name ->
+    its launches in the phase's main-path run (K1, recon_filter, K4, K9-K12)."""
+    import numpy as np
+    import torch
+
+    import webp_tpu_torch as api
+    from webp_tpu_torch import _build
+    from webp_tpu_torch.container import chunks as ck
+    from webp_tpu_torch.container.composite import composite_frame
+    from webp_tpu_torch.decode import device as tdev
+    from webp_tpu_torch.decode.alpha import decode_alpha_plane, defilter_alpha
+    from webp_tpu_torch.io import native
+    from webp_tpu_torch.ops.yuv import fancy_yuv420_to_rgb
+
+    # 1. Inputs at WIDTH x HEIGHT, and the launches each file's decode must take.
+    t0 = time.perf_counter()
+    stills, vp8l_src, frames, files = container_inputs(WIDTH, HEIGHT)
+    kinds = {0: "predictor", 1: "color_transform", 2: "subtract_green", 3: "color_indexing"}
+    expect = {}
+    for name, (data, vp8s, streams) in files.items():
+        e = dict.fromkeys(CONTAINER_KERNELS, 0)
+        for k in ("residual", "recon_filter", "yuv2rgb"):
+            e[k] = len(vp8s)
+        for stream, w, h, implicit in streams:
+            for t, *_ in native.vp8l_decode_entropy(stream, w, h, implicit)[1]:
+                e[kinds[t]] += 1
+        expect[name] = e
+    print(f"[container] files {({n: len(f[0]) for n, f in files.items()})} bytes; "
+          f"{len(frames)} animation frames; write {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 2. The main path, counted file by file: decode_rgba for the stills,
+    #    WebPDecoder.read_frame over the animation with a background colour.
+    launches = dict.fromkeys(CONTAINER_KERNELS, 0)
+    got = {}
+    for name, (data, _, _) in files.items():
+        _build.reset_launches()
+        got[name] = container_decode(name, data, dev)
+        torch.cuda.synchronize()
+        counts = {k: _build.LAUNCHES[k] for k in CONTAINER_KERNELS}
+        off_path(_build.LAUNCHES, keep)
+        if counts != expect[name]:
+            raise AssertionError(f"{name} launched {counts}, expected {expect[name]}")
+        print(f"[container] {name}: launches {counts}", flush=True)
+        for k, n in counts.items():
+            launches[k] += n
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the decoder API's path never launched: {launches}")
+    simple = {name: container_decode(name, st.data, dev, "simple") for name, st in stills.items()}
+
+    # 3. Checks, tolerance 0: the same API on the CPU (the plain twins, from
+    #    the worker); the VP8 payloads through decode_vp8_batch_device on the
+    #    card; the VP8L and alpha sources; the metadata chunks; the
+    #    animation's canvases composed from those.
+    t0 = time.perf_counter()
+    ref, ref_s = keep["container_reference"].get()
+    waited = time.perf_counter() - t0
+    for name in files:
+        if name == "animation":
+            same = len(got[name]) == len(ref[name]) and all(
+                g_ms == w_ms and np.array_equal(g, w)
+                for (g, g_ms), (w, w_ms) in zip(got[name], ref[name]))
+        else:
+            same = np.array_equal(got[name], ref[name])
+        if not same:
+            raise AssertionError(f"{name}: the card's API output differs from the CPU's")
+    for name, st in stills.items():
+        if not np.array_equal(simple[name], ref["simple"][name]):
+            raise AssertionError(f"{name}: simple upsampling differs from the CPU's")
+        rgb = tdev.decode_vp8_batch_device([st.vp8], device=dev)[0]
+        if not (np.array_equal(got[name][..., :3], rgb)
+                and np.array_equal(got[name][..., 3], st.alpha)):
+            raise AssertionError(f"{name}: pixels differ from the VP8 decode or the alpha source")
+        dec = api.WebPDecoder(st.data, device=dev)
+        if (dec.icc_profile(), dec.exif_metadata(), dec.xmp_metadata()) != (
+                st.iccp, st.exif, st.xmp):
+            raise AssertionError(f"{name}: metadata chunks differ from the writer's")
+    if not np.array_equal(got["vp8l_alpha"], vp8l_src):
+        raise AssertionError("vp8l_alpha differs from its source")
+    canvas = np.empty((HEIGHT, WIDTH, 4), np.uint8)
+    canvas[:] = CONTAINER_BACKGROUND
+    prev, clear = (0, 0, 0, 0), True
+    for i, (f, (g, g_ms)) in enumerate(zip(frames, got["animation"])):
+        if f.rgba is not None:
+            px = f.rgba
+        else:
+            px = tdev.decode_vp8_batch_device([f.vp8], device=dev)[0]
+            if f.alpha is not None:
+                px = np.dstack([px, f.alpha])
+        composite_frame(canvas, CONTAINER_BACKGROUND if clear else None, px, f.x, f.y,
+                        px.shape[2] == 4, f.blend, *prev)
+        prev, clear = (f.x, f.y, f.width, f.height), f.dispose
+        if g_ms != f.duration or not np.array_equal(g, canvas):
+            raise AssertionError(f"animation frame {i} differs from its sources composed")
+    print(f"[container] bit-exact (tolerance 0) vs the same API with device='cpu' (worker "
+          f"process: {ref_s:.1f} s, waited {waited:.1f} s), decode_vp8_batch_device, the "
+          f"VP8L and alpha sources, the metadata chunks, {len(frames)} canvases composed from "
+          f"the sources; checks {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 4. Times, host clock beside CUDA events: a VP8X still's stages as
+    #    read_image runs them, each still and each frame whole, the filters.
+    reps = 3
+    for name, st in stills.items():
+        d = api.WebPDecoder(st.data, device=dev)
+        parse = median_clocks(lambda: api.WebPDecoder(st.data, device=dev), reps)
+        entropy = median_clocks(
+            lambda: tdev.to_device_batch(tdev.parse_levels_batch([st.vp8]), dev), reps)
+        db = tdev.to_device_batch(tdev.parse_levels_batch([st.vp8]), dev)
+
+        def kernels():
+            packed = tdev.decode_core(db, "yuv")
+            y, u, v = tdev.split_planes(packed, (WIDTH + 15) // 16, (HEIGHT + 15) // 16)
+            return (y, u, v), fancy_yuv420_to_rgb(y, u, v, WIDTH, HEIGHT)
+
+        decode = median_clocks(kernels, reps)
+        planes, rgb = kernels()
+        fetch = median_clocks(lambda: ([p[0].cpu() for p in planes], rgb[0].cpu()), reps)
+        alph = d._chunk_bytes(ck.ALPH)
+        alpha = median_clocks(lambda: decode_alpha_plane(alph, WIDTH, HEIGHT, dev), reps)
+        whole = median_clocks(d.read_image, reps)
+        print(f"[container] {name} ms per still, host clock / CUDA events: parse "
+              f"{parse[0]:.4f} / {parse[1]:.4f}, entropy + upload {entropy[0]:.4f} / "
+              f"{entropy[1]:.4f}, device decode (K1, recon_filter, K4) {decode[0]:.4f} / "
+              f"{decode[1]:.4f}, fetch {fetch[0]:.4f} / {fetch[1]:.4f}, alpha "
+              f"{alpha[0]:.4f} / {alpha[1]:.4f}; read_image {whole[0]:.4f} / {whole[1]:.4f} "
+              f"({card})", flush=True)
+    d = api.WebPDecoder(files["vp8l_alpha"][0], device=dev)
+    parse = median_clocks(lambda: api.WebPDecoder(files["vp8l_alpha"][0], device=dev), reps)
+    whole = median_clocks(d.read_image, reps)
+    print(f"[container] vp8l_alpha ms per still, host clock / CUDA events: parse "
+          f"{parse[0]:.4f} / {parse[1]:.4f}; read_image (entropy, K9, K10, K12, fetch) "
+          f"{whole[0]:.4f} / {whole[1]:.4f} ({card})", flush=True)
+    d = api.WebPDecoder(files["animation"][0], device=dev)
+    d.set_background_color(CONTAINER_BACKGROUND)
+    per_frame = []
+    for rep in range(2):
+        d.reset_animation()
+        runs = [both_clocks(d.read_frame)[1:] for _ in range(d.num_frames)]
+        per_frame.append(runs)
+    runs = per_frame[-1]
+    print(f"[container] animation ms per frame, host clock / CUDA events (second pass): "
+          + ", ".join(f"{i}: {h:.4f} / {e:.4f}" for i, (h, e) in enumerate(runs))
+          + f"; mean {statistics.mean(r[0] for r in runs):.4f} / "
+          f"{statistics.mean(r[1] for r in runs):.4f} ({card})", flush=True)
+    from random_webp import filter_alpha
+
+    plane = stills["vp8x_gradient_vp8l"].alpha
+    for filtering, label in ((3, "gradient"), (1, "horizontal")):
+        filtered = filter_alpha(plane, filtering)
+        t0 = time.perf_counter()
+        out = defilter_alpha(filtered.copy(), filtering)
+        ms = (time.perf_counter() - t0) * 1000
+        if not np.array_equal(out, plane):
+            raise AssertionError(f"the {label} defilter does not invert the writer's filter")
+        print(f"[container] {label} defilter at {WIDTH}x{HEIGHT}: {ms:.4f} ms, host, one "
+              f"thread ({card})", flush=True)
+    return launches
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2176,12 +2440,15 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    keep = {}
 
     # The encode phases' plain CPU encodes take minutes of host time: worker
     # processes make them while the card builds, decodes and encodes; the
     # pool's exit stops the workers.
-    with multiprocessing.get_context("spawn").Pool(len(ENCODES), reference_worker) as pool:
+    # The container phase's plain CPU decodes run in a third worker.
+    with multiprocessing.get_context("spawn").Pool(len(ENCODES) + 1, reference_worker) as pool:
         refs = {job: pool.apply_async(reference_job, job) for job in ENCODES}
+        keep["container_reference"] = pool.apply_async(container_reference)
 
         # Build the host library and the kernels from the checkout.
         t0 = time.perf_counter()
@@ -2198,9 +2465,10 @@ def main() -> int:
         card = f"{torch.cuda.get_device_name(0)}, {smi.split(',')[-1].strip()}"
         print(f"card: {card}", flush=True)
 
-        keep = {}
         records = phase("decode", decode_phase, dev, card, keep)
         records.update(phase("lossless", lossless_phase, dev, card, keep))
+        for k, n in phase("container", container_phase, dev, card, keep).items():
+            records[k]["launches"] += n
         for job in ENCODES:
             # A kernel on both encode paths: launches and errors over both,
             # the times of the flagship's (the last) path.

@@ -25,7 +25,10 @@ seeded random keyframes at every band count that divides their MB rows.
 The encode wire (K18-K20) runs on the seeded pass-2 arrays of
 `wire_inputs.py`, which set each of its flags, at 45,000 MBs for positions
 past 2^24, and inside the encode of Q100 frames that take its sparse and
-dense-row branches.  Tolerance: bit-exact (integer arithmetic).
+dense-row branches.  The decoder API (`WebPDecoder`, `decode_rgba`) runs
+on `random_webp.py`'s VP8X stills (ALPH raw and VP8L-compressed) and
+animations, held to its own device="cpu" run.  Tolerance: bit-exact
+(integer arithmetic).
 """
 
 import numpy as np
@@ -64,6 +67,7 @@ from token_inputs import (CARRY_PATTERNS, header_inputs, prefix_coders, steered_
                           token_arrays)
 from torch_fixtures import encode_frame, force_escapes, mixed_payloads, scalar_decode
 from wire_inputs import wire_arrays
+import random_webp as rw
 
 pytestmark = pytest.mark.cuda
 
@@ -1232,3 +1236,31 @@ def test_flat_expand_kernel_edges(cuda, case):
             assert torch.equal(got.cpu(), want), n
         state = _build.kept_zeroed("expand_flat", 1, torch.int64, cuda)
         assert not state.any()
+
+
+WEBP_FILES = {
+    "still_gradient_vp8l": lambda: rw.demo_still(75, 41, 1, 3, True).data,
+    "still_horizontal_raw": lambda: rw.demo_still(64, 48, 2, 1, False).data,
+    "vp8l": lambda: rw.still_vp8l(vp8l_stream(rw.rgba_frame(61, 37, 3), 3,
+                                              (SUBTRACT_GREEN, predictor(2), color(3)))),
+    "animation": lambda: rw.demo_animation(96, 64, 4)[0],
+}
+
+
+@pytest.mark.parametrize("upsampling", ["bilinear", "simple"])
+@pytest.mark.parametrize("name", list(WEBP_FILES))
+def test_decoder_api_on_card_matches_cpu(cuda, name, upsampling):
+    data = WEBP_FILES[name]()
+    card = webp_tpu_torch.WebPDecoder(data, upsampling=upsampling)
+    host = webp_tpu_torch.WebPDecoder(data, upsampling=upsampling, device="cpu")
+    assert card.device.type == "cuda"
+    if card.is_animated():
+        for d in (card, host):
+            d.set_background_color((9, 8, 7, 6))
+        for _ in range(card.num_frames):
+            (got, got_ms), (want, want_ms) = card.read_frame(), host.read_frame()
+            assert got_ms == want_ms and np.array_equal(got, want)
+    else:
+        np.testing.assert_array_equal(card.read_image(), host.read_image())
+    got, w, h = webp_tpu_torch.decode_rgba(data)
+    np.testing.assert_array_equal(got, webp_tpu_torch.decode_rgba(data, device="cpu")[0])

@@ -27,7 +27,7 @@ from ..io import native
 from ..ops.recon_filter import recon_filter_
 from ..ops.residual import SLOTS, residuals_dense, residuals_sparse
 from ..ops.sparse import host_pack_levels_mb
-from ..ops.yuv import fancy_yuv420_to_rgb
+from ..ops.yuv import fancy_yuv420_to_rgb, simple_yuv420_to_rgb
 
 N_ESC_DEC = 4096  # per-image escape budget of the sparse upload (|level| > 127)
 CAP_MB_DEC = 256  # per-MB nonzero cap of the sparse upload
@@ -340,15 +340,21 @@ def decode_vp8_batch_device_mixed(payloads, device="cuda", device_out: bool = Fa
     return out
 
 
-def decode_vp8_frame_device(data: bytes, device="cuda"):
+def decode_vp8_frame_device(data: bytes, device="cuda", upsampling: str = "bilinear"):
     """Decode one VP8 payload -> (Frame with the filtered planes, RGB
-    [height, width, 3]), both on the host."""
+    [height, width, 3]), both on the host.  upsampling="bilinear" converts
+    with K4 on `device`; "simple" fetches the planes and converts them on
+    the host (`simple_yuv420_to_rgb`), launching no K4."""
+    if upsampling not in ("bilinear", "simple"):
+        raise ValueError(f"upsampling must be 'bilinear' or 'simple', not {upsampling!r}")
     batch = parse_levels_batch([data])
     mbw, mbh, _, width, height = geometry(batch["headers"])
     packed = decode_core(to_device_batch(batch, device), "yuv")
     y, u, v = split_planes(packed, mbw, mbh)
-    rgb = fancy_yuv420_to_rgb(y, u, v, width, height)
+    rgb = fancy_yuv420_to_rgb(y, u, v, width, height) if upsampling == "bilinear" else None
     frame = Frame(width, height, *(p[0].cpu().numpy() for p in (y, u, v)))
+    if rgb is None:
+        return frame, simple_yuv420_to_rgb(frame.ybuf, frame.ubuf, frame.vbuf, width, height)
     return frame, rgb[0].cpu().numpy()
 
 

@@ -93,8 +93,8 @@ def decode_lossless_batch_device(datas, width: int, height: int, implicit_dims: 
     has one transform signature.
 
     `implicit_dims`: the payloads have no header (ALPH payloads).  Raises
-    ValueError, with the C++ error code, on a stream the entropy pass
-    rejects.
+    `io.native.StreamError` (a ValueError), with the C++ error code, on a
+    stream the entropy pass rejects.
     """
     results = entropy_batch(datas, width, height, implicit_dims)
     groups = {}

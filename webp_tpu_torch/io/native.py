@@ -37,6 +37,16 @@ _i16p = ctypes.POINTER(ctypes.c_int16)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 
+
+
+class StreamError(ValueError):
+    """A C++ decoder rejected its stream; `code` is its return code."""
+
+    def __init__(self, entry: str, code: int):
+        super().__init__(f"{entry} failed: {code}")
+        self.code = code
+
+
 _DEFAULT_PROBS = np.ascontiguousarray(T.COEFF_PROBS_DEFAULT, dtype=np.uint8)
 _UPDATE_PROBS = np.ascontiguousarray(T.COEFF_UPDATE_PROBS, dtype=np.uint8)
 _BPRED_PROBS = np.ascontiguousarray(T.KEYFRAME_BPRED_MODE_PROBS, dtype=np.uint8)
@@ -109,13 +119,14 @@ def _p(arr, ctype):
 
 
 def parse_dims(payload) -> tuple[int, int]:
-    """(width, height) of a VP8 payload, from its frame header."""
+    """(width, height) of a VP8 payload, from its frame header; StreamError
+    when the payload has no keyframe header."""
     buf = np.frombuffer(bytes(payload), np.uint8)
     w, h = ctypes.c_int32(), ctypes.c_int32()
     rc = load().vp8_parse_dims(_p(buf, ctypes.c_uint8), len(buf), ctypes.byref(w),
                                ctypes.byref(h))
     if rc != 0:
-        raise ValueError(f"vp8_parse_dims failed: {rc}")
+        raise StreamError("vp8_parse_dims", rc)
     return w.value, h.value
 
 
@@ -127,7 +138,7 @@ def entropy_decode16_into(data, header, seg, luma_mode, chroma_mode, segment_ids
     headers; the per-MB mode arrays are uint8 (bpred [nmb*16]); levels is
     int16 [nmb*25*16], the raw quantizer levels (block 24 = Y2).  Every
     array must be a C-contiguous, zero-filled view: only nonzero values are
-    written.
+    written.  Raises StreamError on a stream the C++ pass rejects.
     """
     buf = np.frombuffer(bytes(data), np.uint8)
     rc = load().vp8_entropy_decode16(
@@ -141,7 +152,7 @@ def entropy_decode16_into(data, header, seg, luma_mode, chroma_mode, segment_ids
         _p(levels, ctypes.c_int16),
     )
     if rc != 0:
-        raise ValueError(f"vp8_entropy_decode16 failed: {rc}")
+        raise StreamError("vp8_entropy_decode16", rc)
 
 
 def yuv420_to_rgb_fancy(ybuf: np.ndarray, ubuf: np.ndarray, vbuf: np.ndarray,
@@ -277,7 +288,7 @@ def vp8l_decode_entropy(data, width: int, height: int, implicit: bool = False):
     data) in stream order: type 0 predictor, 1 colour, 2 subtract-green,
     3 colour indexing; data is the sub-image (bh * bw * 4 bytes) or the
     delta-decoded palette (table_size * 4 bytes) as uint8.  `implicit`: the
-    stream has no header (an ALPH payload).  Raises ValueError with the C++
+    stream has no header (an ALPH payload).  Raises StreamError with the C++
     error code on a stream it rejects.
     """
     src = np.frombuffer(bytes(data), np.uint8)
@@ -291,7 +302,7 @@ def vp8l_decode_entropy(data, width: int, height: int, implicit: bool = False):
         _p(out, ctypes.c_uint8), _p(meta, ctypes.c_int32), _p(tdata, ctypes.c_uint8), len(tdata),
     )
     if tw <= 0:
-        raise ValueError(f"vp8l_decode_entropy failed: {tw}")
+        raise StreamError("vp8l_decode_entropy", tw)
     transforms, off = [], 0
     for i in range(int(meta[0])):
         ttype, size_bits, table_size, dlen = (int(v) for v in meta[1 + 4 * i: 5 + 4 * i])
@@ -302,12 +313,12 @@ def vp8l_decode_entropy(data, width: int, height: int, implicit: bool = False):
 
 def vp8l_decode(data, width: int, height: int, implicit: bool = False) -> np.ndarray:
     """Full host decode of one VP8L stream, transforms included ->
-    RGBA [height, width, 4] uint8.  Raises ValueError with the C++ error
+    RGBA [height, width, 4] uint8.  Raises StreamError with the C++ error
     code on a stream it rejects."""
     src = np.frombuffer(bytes(data), np.uint8)
     out = np.empty((height, width, 4), np.uint8)
     rc = load().vp8l_decode(_p(src, ctypes.c_uint8), len(src), width, height,
                             int(bool(implicit)), _p(out, ctypes.c_uint8))
     if rc != 0:
-        raise ValueError(f"vp8l_decode failed: {rc}")
+        raise StreamError("vp8l_decode", rc)
     return out

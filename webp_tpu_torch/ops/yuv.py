@@ -3,10 +3,13 @@
 Replaces `webp_tpu/ops/jax_ops.py:189` `fancy_yuv420_to_rgb` (with
 `fancy_upsample` :149 and `yuv_to_rgb` :139).  The CUDA kernel is
 `csrc/yuv2rgb.cu`; `fancy_yuv420_to_rgb_plain` is its torch twin.
+`simple_yuv420_to_rgb`, the decoder API's `upsampling="simple"`, runs on
+the host, as in the JAX package (`webp_tpu/ops/yuv.py:59`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -56,6 +59,15 @@ def fancy_yuv420_to_rgb_plain(y, u, v, width: int, height: int) -> torch.Tensor:
     uu = fancy_upsample(u[..., :ch, :cw], height, width)
     vv = fancy_upsample(v[..., :ch, :cw], height, width)
     return yuv_to_rgb(y[..., :height, :width], uu, vv)
+
+
+def simple_yuv420_to_rgb(ybuf: np.ndarray, ubuf: np.ndarray, vbuf: np.ndarray, width: int,
+                         height: int) -> np.ndarray:
+    """MB-padded host planes -> RGB [height, width, 3] uint8 numpy, each
+    chroma sample repeated over its 2x2 pixels (no filtering)."""
+    rows, cols = np.arange(height) // 2, np.arange(width) // 2
+    planes = (ybuf[:height, :width], ubuf[rows][:, cols], vbuf[rows][:, cols])
+    return yuv_to_rgb(*(torch.from_numpy(np.ascontiguousarray(p)) for p in planes)).numpy()
 
 
 RUN = 8  # output columns a K4 thread takes, in two rows (csrc/yuv2rgb.cu kRun)
