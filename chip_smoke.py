@@ -106,6 +106,29 @@ events: a VP8X still's stages (parse, entropy + upload, K1 +
 recon_filter + K4, fetch, alpha), each still's `read_image`, each frame of
 the animation, and the gradient and horizontal alpha defilters.
 
+Encoder API, after the encode phases.  Seeded synthetic frames
+(`tests/synthetic_rgb.py`, alpha planes from `tests/random_webp.py`)
+through `Encoder`, `encode_lossless_rgba` and `AnimationEncoder` on the
+card, each file with the counts set to 0 just before it: the default
+`Encoder.new_rgb(...).encode()` of the encode phases' first frame at
+768x512 (Q75, method 4, segments on at 1,536 MBs, one partition) and its
+RGBA with ALPH, each one launch of K8,
+K6, K7, the fused K18 + K19 and K20 and two of K5; at 256x256 an RGBA
+with ALPH, an L8, a PHOTO preset (sharp YUV) with ICCP / EXIF / XMP, an
+alpha_quality 50 and a target_size file, three-frame lossy and lossless
+animations; a lossless 768x512 RGBA still (host code only).  The 768x512
+VP8 chunks must be byte-equal to the plain CPU encode of that frame at one
+partition (the flagship encode phase's worker codes it), the other files
+to the same API calls on the CPU (a fourth worker process makes them from
+the start); every file decodes through `WebPDecoder` on the card with the
+lossless pixels, the ALPH planes and the near-lossless alpha exact, and
+the lossy files' PSNR against their sources printed.  Timed, host clock
+beside CUDA events, median of 3 after a warm-up: the 768x512 stills'
+`encode()` stage by stage (colour conversion, then the encode phases'
+stages at a batch of one: upload, segment, pass 1, stats d2h +
+probabilities, tables, pass 2, wire, d2h, finish; then ALPH or VP8L, mux)
+and whole.
+
 Scale-out, last.  The decode batches of both filter kinds go through
 `parallel.decode_wavefront_banded` at 2, 4 and 8 bands an image (K16
 recon_banded and K17 filter_banded, one cluster of that many CTAs per
@@ -132,7 +155,8 @@ device time of the call's kernels; K9 also beside one in-place add over a
 strided view, the one PyTorch call that computes it), the encodes' per-stage
 host-clock split (both flows) and d2h bytes (the wire rows beside the
 dense arrays), the images by wire branch, the lossless decode's ms/img beside the host C++
-decode's, the decoder API's ms per still and per frame, one JSON line of kernel records and, last,
+decode's, the decoder API's ms per still and per frame, the encoder API's ms per
+stage, one JSON line of kernel records and, last,
 {"ok": true, "device": {...}}.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails.  Imports neither jax nor the JAX package; needs no network.
@@ -258,6 +282,19 @@ CONTAINER_SEEDS = (51, 52, 53, 54)
 CONTAINER_BACKGROUND = (40, 80, 120, 160)
 CONTAINER_KERNELS = ("residual", "recon_filter", "yuv2rgb", "subtract_green", "color_transform",
                      "color_indexing", "predictor")
+
+# The encoder-API phase: seeds of its 768x512 frame and of its small
+# images and animation frames (tests/synthetic_rgb.py, tests/random_webp.py
+# alpha), the small files' side (256 MBs: segments on), the target_size it
+# asks of one of them, its metadata chunks, and the kernels one lossy
+# encode() launches from 256 MBs (K8, K5 twice, K6, K7, the fused K18 +
+# K19, K20).
+API_SEEDS = (61, 62, 63, 64)
+API_SMALL = 256
+API_TARGET = 3500
+API_META = (b"ICC profile of the smoke", b"Exif\x00\x00MM\x00*", b"<x:xmpmeta/>")
+API_KERNELS = {"analysis": 1, "enc": 2, "token_stats": 1, "enc_tables": 1, "prepack_pack": 1,
+               "wire": 1}
 
 
 def _import_paths() -> None:
@@ -748,21 +785,30 @@ def encode_inputs(width: int, height: int):
     return distinct, [distinct[i % len(distinct)] for i in range(BATCH)]
 
 
-def encode_reference(distinct, method: int, segments: bool):
-    """The port's plain encode of the distinct frames on the CPU, for both
-    flows: two_pass -> (per-image arrays, payloads, segmentations)."""
+def plain_analysis(distinct, method: int, segments: bool):
+    """The port's plain analysis of the distinct frames on the CPU, for both
+    flows: two_pass -> (per-image arrays, probabilities, segmentations)."""
+    _import_paths()
+    from webp_tpu_torch.encode import device as edev
+
+    planes = edev.rgb_to_planes(distinct)
+    return {two_pass: edev.analyze_frames_lossy_batch(planes, QUALITY, method, two_pass, segments,
+                                                      device="cpu")
+            for two_pass in (True, False)}
+
+
+def encode_reference(distinct, method: int, segments: bool, analysis=None):
+    """The port's plain encode of the distinct frames on the CPU (from
+    `analysis`, `plain_analysis`'s, when given), for both flows: two_pass ->
+    (per-image arrays, payloads, segmentations)."""
     _import_paths()
     from webp_tpu_torch.encode import device as edev
 
     height, width = distinct[0].shape[:2]
-    planes = edev.rgb_to_planes(distinct)
-    out = {}
-    for two_pass in (True, False):
-        arrays, probs, segs = edev.analyze_frames_lossy_batch(planes, QUALITY, method, two_pass,
-                                                              segments, device="cpu")
-        out[two_pass] = arrays, edev.finish_frames_lossy_batch(
-            arrays, probs, QUALITY, width, height, PARTITIONS, segs), segs
-    return out
+    analysis = analysis or plain_analysis(distinct, method, segments)
+    return {two_pass: (arrays, edev.finish_frames_lossy_batch(
+                arrays, probs, QUALITY, width, height, PARTITIONS, segs), segs)
+            for two_pass, (arrays, probs, segs) in analysis.items()}
 
 
 def reference_worker() -> None:
@@ -774,10 +820,18 @@ def reference_worker() -> None:
 
 
 def reference_job(method: int, segments: bool):
-    """(encode_reference of the full-size frames, its seconds), in a worker."""
+    """(encode_reference of the full-size frames, their two-pass payloads at
+    one partition as the encoder API codes a lossy still, its seconds), in
+    a worker."""
+    from webp_tpu_torch.encode import device as edev
+
     t0 = time.perf_counter()
-    ref = encode_reference(encode_inputs(WIDTH, HEIGHT)[0], method, segments)
-    return ref, time.perf_counter() - t0
+    distinct = encode_inputs(WIDTH, HEIGHT)[0]
+    analysis = plain_analysis(distinct, method, segments)
+    ref = encode_reference(distinct, method, segments, analysis)
+    arrays, probs, segs = analysis[True]
+    one_partition = edev.finish_frames_lossy_batch(arrays, probs, QUALITY, WIDTH, HEIGHT, 1, segs)
+    return ref, one_partition, time.perf_counter() - t0
 
 
 def mode_counts(arrays):
@@ -811,84 +865,98 @@ def check_reference(ref, segments: bool) -> str:
     return summary
 
 
-def encode_stages(rgbs, dev, method: int, segments: bool, device_tokens: bool = False,
-                  reps: int = 3):
-    """Host-clock ms per stage of the two-pass encode (a synchronise ends
-    each), the median of `reps` runs after a warm-up; also the bytes that
-    came back from the device after pass 2 (the host finisher's: the wire
-    rows, and the dense int8 rows of sp_over images), and the payloads."""
-    import torch
+def stage_timer(ms: dict):
+    """stage(name, fn) -> fn(), with ms[name] = (host-clock ms, CUDA-event
+    ms) of that run, ended by a synchronise."""
+    def stage(name, fn):
+        out, host, event = both_clocks(fn)
+        ms[name] = (host, event)
+        return out
+    return stage
 
+
+def lossy_stages(planes, width: int, height: int, dev, quality: int, method: int,
+                 segments: bool, partitions: int, stage, device_tokens: bool = False):
+    """The two-pass encode of host planes (Y, U, V) [B, ...] as
+    `encode_frames_lossy_batch` runs it, each stage through `stage`:
+    (payloads, the bytes that came back from the device after pass 2: the
+    host finisher's wire rows and the dense int8 rows of sp_over images, or
+    the device tokens')."""
     from webp_tpu_torch.common import vp8_tables as T
     from webp_tpu_torch.encode import device as edev
     from webp_tpu_torch.ops import wire
     from webp_tpu_torch.ops.enc_params import EncTables
     from webp_tpu_torch.ops.encode_wavefront import encode_analysis_batch
 
-    height, width = rgbs[0].shape[:2]
     n_try = edev.n_try_for(method)
-    mbw, mbh = width // 16, height // 16
-    names = ("rgb_to_yuv", "upload", "segment", "pass1", "stats_d2h_probs", "tables", "pass2")
-    names += (("encode_tokens", "fetch_tokens", "header_coders", "mb_headers", "assemble")
-              if device_tokens else ("wire", "d2h", "finish"))
+    mbw, mbh = (width + 15) // 16, (height + 15) // 16
+    y, u, v = stage("upload", lambda: edev.upload(planes, dev))
+
+    def segment():
+        segs = edev.segment(y, u, v, quality) if segments else None
+        return segs, edev.params_for(segs, quality, dev)
+
+    def pass1():
+        default = EncTables.from_probs(T.COEFF_PROBS_DEFAULT, dev)
+        return edev.encode_analysis_stats_batch(y, u, v, P, default, min(n_try, 3), sid)
+
+    segs, (P, sid) = stage("segment", segment)
+    totals, ones = stage("pass1", pass1)
+    probs = stage("stats_d2h_probs",
+                  lambda: edev.adapt_probs(totals.cpu().numpy(), ones.cpu().numpy()))
+    tables = stage("tables", lambda: edev.tables_for(probs, dev))
+    arrays = stage("pass2", lambda: encode_analysis_batch(y, u, v, P, tables, n_try,
+                                                          method >= 4, sid))
+    if device_tokens:
+        skipped, lanes = stage("encode_tokens", lambda: edev.encode_tokens(
+            arrays, probs, mbw, mbh, partitions))
+        tokens = stage("fetch_tokens", lambda: edev.fetch_tokens(arrays, skipped, lanes, sid))
+        coders = stage("header_coders", lambda: edev.header_coders(tokens, probs, quality, segs))
+        headers = stage("mb_headers", lambda: edev.code_mb_headers(tokens, coders, mbw, mbh,
+                                                                    segs))
+        payloads = stage("assemble", lambda: edev.assemble(tokens, coders, headers, width,
+                                                           height))
+        return payloads, tokens.meta.nbytes + sum(a.nbytes for a in (*tokens.parts, *headers))
+
+    def pack():
+        pre = wire.prepack_pack(arrays)
+        return pre[0], wire.wire(*pre[5:], *pre[1:5])
+
+    lv8, rows = stage("wire", pack)
+    host = stage("d2h", lambda: edev.fetch_packed(lv8, rows, arrays))
+    payloads = stage("finish", lambda: edev.finish_frames_lossy_batch(
+        host, probs, quality, width, height, partitions, segs))
+    flags = rows[:, :2].cpu().numpy()
+    return payloads, nbytes(rows) + (nbytes(*arrays.values()) if flags[:, 1].any()
+                                     else int(flags[:, 0].sum()) * nbytes(lv8[0]))
+
+
+def encode_stages(rgbs, dev, method: int, segments: bool, device_tokens: bool = False,
+                  reps: int = 3):
+    """Host-clock ms per stage of the two-pass encode (`lossy_stages` after
+    the colour conversion), the median of `reps` runs after a warm-up; also
+    the bytes that came back from the device after pass 2, and the
+    payloads."""
+    from webp_tpu_torch.encode import device as edev
+
+    height, width = rgbs[0].shape[:2]
     runs = []
     for _ in range(reps + 1):
-        t = [time.perf_counter()]
-
-        def mark():
-            torch.cuda.synchronize()
-            t.append(time.perf_counter())
-
-        planes = edev.rgb_to_planes(rgbs)
-        mark()
-        y, u, v = edev.upload(planes, dev)
-        mark()
-        segs = edev.segment(y, u, v, QUALITY) if segments else None
-        P, sid = edev.params_for(segs, QUALITY, dev)
-        mark()
-        default = EncTables.from_probs(T.COEFF_PROBS_DEFAULT, dev)
-        totals, ones = edev.encode_analysis_stats_batch(y, u, v, P, default, min(n_try, 3), sid)
-        mark()
-        probs = edev.adapt_probs(totals.cpu().numpy(), ones.cpu().numpy())
-        mark()
-        tables = edev.tables_for(probs, dev)
-        mark()
-        arrays = encode_analysis_batch(y, u, v, P, tables, n_try, method >= 4, sid)
-        mark()
-        if device_tokens:
-            skipped, lanes = edev.encode_tokens(arrays, probs, mbw, mbh, PARTITIONS)
-            mark()
-            tokens = edev.fetch_tokens(arrays, skipped, lanes, sid)
-            mark()
-            coders = edev.header_coders(tokens, probs, QUALITY, segs)
-            mark()
-            headers = edev.code_mb_headers(tokens, coders, mbw, mbh, segs)
-            mark()
-            payloads = edev.assemble(tokens, coders, headers, width, height)
-            mark()
-            d2h = tokens.meta.nbytes + sum(a.nbytes for a in (*tokens.parts, *headers))
-        else:
-            pre = wire.prepack_pack(arrays)
-            rows = wire.wire(*pre[5:], *pre[1:5])
-            mark()
-            host = edev.fetch_packed(pre[0], rows, arrays)
-            mark()
-            payloads = edev.finish_frames_lossy_batch(host, probs, QUALITY, width, height,
-                                                      PARTITIONS, segs)
-            mark()
-            flags = rows[:, :2].cpu().numpy()
-            d2h = nbytes(rows) + (nbytes(*arrays.values()) if flags[:, 1].any()
-                                  else int(flags[:, 0].sum()) * nbytes(pre[0][0]))
-        runs.append([(b - a) * 1000 for a, b in zip(t, t[1:])])
-    ms = {n: statistics.median(r[i] for r in runs[1:]) for i, n in enumerate(names)}
+        runs.append({})
+        stage = stage_timer(runs[-1])
+        planes = stage("rgb_to_yuv", lambda: edev.rgb_to_planes(rgbs))
+        payloads, d2h = lossy_stages(planes, width, height, dev, QUALITY, method, segments,
+                                     PARTITIONS, stage, device_tokens)
+    ms = {n: statistics.median(r[n][0] for r in runs[1:]) for n in runs[0]}
     return ms, d2h, payloads
 
 
 def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dict) -> dict:
     """One encode path, counted, checked and timed; name -> kernel record.
     `pending` is the worker's `reference_job(method, segments)`.  The
-    flagship leaves its planes, parameters, pass-2 arrays, probabilities
-    and two-pass payloads in keep["flagship"]."""
+    flagship leaves its planes, parameters, pass-2 arrays, probabilities,
+    two-pass payloads and the plain one-partition payloads in
+    keep["flagship"]."""
     import numpy as np
     import torch
 
@@ -919,7 +987,7 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     #    CPU encode of the distinct frames (from the worker).
     distinct, rgbs = encode_inputs(WIDTH, HEIGHT)
     t0 = time.perf_counter()
-    ref, ref_s = pending.get()
+    ref, one_partition, ref_s = pending.get()
     summary = check_reference(ref, segments)
     print(f"[{name}] plain CPU encode (both flows, worker process): {ref_s:.1f} s, waited "
           f"{time.perf_counter() - t0:.1f} s; "
@@ -1120,6 +1188,7 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     records.update({k: {"launches": launches[k], **r} for k, r in wire_records.items()})
     if flagship:
         keep["flagship"] = dict(planes=(y, u, v), P=P, sid=sid, segs=segs, pass2=pass2,
+                                one_partition=one_partition,
                                 probs=probs.cpu().numpy(), payloads=payloads[True], n_try=n_try)
         tok = token_phase(dev, card, name, pass2, probs, sid, segs, mbw, mbh)
         for k, r in tok.items():
@@ -2171,6 +2240,240 @@ def container_phase(dev, card: str, keep: dict) -> dict:
     return launches
 
 
+def api_inputs():
+    """The encoder-API phase's images: the encode phases' first 768x512 RGB
+    frame and its RGBA with a seeded alpha plane; the small RGB, RGBA and
+    gray images; three RGBA animation frames (the first opaque, the second
+    the first with a box of the third)."""
+    _import_paths()
+    import numpy as np
+    import random_webp as rw
+    from synthetic_rgb import synthetic_frame
+
+    s, n = API_SEEDS, API_SMALL
+    rgb = encode_inputs(WIDTH, HEIGHT)[0][0]
+    small = synthetic_frame(n, n, s[1])
+    frames = [np.dstack([synthetic_frame(n, n, s[3] + i), rw.alpha_plane(n, n, s[3] + i)])
+              for i in range(3)]
+    frames[0][..., 3] = 255
+    frames[1] = frames[0].copy()
+    frames[1][n // 6: n // 2, n // 3: n - 7] = frames[2][n // 6: n // 2, n // 3: n - 7]
+    return {"rgb": rgb, "rgba": np.dstack([rgb, rw.alpha_plane(WIDTH, HEIGHT, s[0])]),
+            "small_rgb": small, "small_rgba": np.dstack([small, rw.alpha_plane(n, n, s[1])]),
+            "small_gray": np.ascontiguousarray(synthetic_frame(n, n, s[2])[..., 1]),
+            "frames": frames}
+
+
+def api_files(images, device, counts=None, keep=None) -> dict:
+    """The encoder API's files on `device`, those the CPU run checks: name
+    -> bytes.  With `counts`, each file's launches into counts[name], the
+    counts set to 0 just before it and read just after."""
+    import torch
+
+    import webp_tpu_torch as api
+    from webp_tpu_torch import _build
+
+    icc, exif, xmp = API_META
+
+    def alpha_quality_50():
+        enc = api.Encoder.new_rgba(images["small_rgba"], device=device).with_method(0)
+        enc.config.alpha_quality = 50
+        return enc.encode()
+
+    def animation(lossless):
+        enc = api.AnimationEncoder(API_SMALL, API_SMALL, lossless=lossless, method=2,
+                                   device=device)
+        for i, frame in enumerate(images["frames"]):
+            enc.add_frame(frame, 100 + i)
+        return enc.finish()
+
+    makers = {
+        "rgba_alph": lambda: api.Encoder.new_rgba(images["small_rgba"], device=device).encode(),
+        "l8": lambda: api.Encoder.new_l8(images["small_gray"], device=device).with_method(2)
+        .encode(),
+        "photo_meta": lambda: api.Encoder.new_rgb(images["small_rgb"], device=device)
+        .with_preset(api.Preset.PHOTO).with_icc_profile(icc).with_exif_metadata(exif)
+        .with_xmp_metadata(xmp).encode(),
+        "alpha_quality_50": alpha_quality_50,
+        "target_size": lambda: api.Encoder.new_rgb(images["small_rgb"], device=device)
+        .with_method(0).with_target_size(API_TARGET).encode(),
+        "anim_lossy": lambda: animation(False),
+        "anim_lossless": lambda: animation(True),
+        "lossless_768": lambda: api.encode_lossless_rgba(images["rgba"], device=device),
+    }
+    out = {}
+    for name, make in makers.items():
+        if counts is None:
+            out[name] = make()
+            continue
+        _build.reset_launches()
+        out[name] = make()
+        torch.cuda.synchronize()
+        counts[name] = {k: _build.LAUNCHES[k] for k in API_KERNELS}
+        off_path(_build.LAUNCHES, keep)
+    return out
+
+
+def api_reference():
+    """(api_files on the CPU, its seconds), in a worker: the plain twins take
+    ~30 s a 256x256 lossy file at method 4."""
+    t0 = time.perf_counter()
+    return api_files(api_inputs(), "cpu"), time.perf_counter() - t0
+
+
+def riff_chunks(data: bytes) -> dict:
+    """fourcc -> payload of a file's top-level chunks."""
+    out, off = {}, 12
+    while off + 8 <= len(data):
+        size = int.from_bytes(data[off + 4: off + 8], "little")
+        out[data[off: off + 4]] = data[off + 8: off + 8 + size]
+        off += 8 + size + (size & 1)
+    return out
+
+
+def api_stages(enc, dev):
+    """One `Encoder.encode()` of a still, stage by stage as it runs them
+    (the lossy route's through `lossy_stages` at a batch of one), each
+    ended by a synchronise: (file, {stage: (host ms, CUDA-event ms)})."""
+    import numpy as np
+
+    from webp_tpu_torch.container import chunks as ck
+    from webp_tpu_torch.encode import api as eapi
+
+    ms = {}
+    stage = stage_timer(ms)
+    if enc.config.lossless:
+        body = eapi._chunk(ck.VP8L, stage("vp8l", enc.lossless_payload))
+        return stage("mux", lambda: enc.mux(body, enc.has_alpha, False)), ms
+    height, width = enc.image.shape[:2]
+    planes = stage("colour", lambda: tuple(np.ascontiguousarray(p)[None]
+                                           for p in enc.yuv_planes()))
+    (vp8,), _ = lossy_stages(planes, width, height, dev, int(enc.config.quality),
+                             min(enc.config.method, 6), True, 1, stage)
+    body = eapi._chunk(ck.VP8, vp8)
+    if enc.has_alpha:
+        plane = np.ascontiguousarray(enc.image[:, :, -1])
+        body = eapi._chunk(ck.ALPH, stage("alph", lambda: eapi.alpha_payload(
+            plane, enc.config.alpha_quality))) + body
+    return stage("mux", lambda: enc.mux(body, enc.has_alpha, enc.has_alpha)), ms
+
+
+def api_phase(dev, card: str, keep: dict) -> dict:
+    """The encoder API, counted, checked and timed; name -> its launches in
+    the phase's main-path runs (K8, K5, K6, K7, the fused K18 + K19, K20)."""
+    import numpy as np
+    import torch
+
+    import webp_tpu_torch as api
+    from webp_tpu_torch import _build, metrics
+    from webp_tpu_torch.encode.vp8l import near_lossless_preprocess
+
+    # 1. The main path, counted file by file: the default lossy encode() of
+    #    the 768x512 RGB frame (Q75 m4, segments on at 1,536 MBs, one
+    #    partition) and of its RGBA (+ ALPH), then the files the CPU run
+    #    checks (256x256 stills and animations, a lossless 768x512 still).
+    t0 = time.perf_counter()
+    images = api_inputs()
+    counts, files = {}, {}
+    for name, make in (("rgb_768", api.Encoder.new_rgb), ("rgba_768", api.Encoder.new_rgba)):
+        _build.reset_launches()
+        files[name] = make(images[name[:-4]], device=dev).encode()
+        torch.cuda.synchronize()
+        counts[name] = {k: _build.LAUNCHES[k] for k in API_KERNELS}
+        off_path(_build.LAUNCHES, keep)
+    files.update(api_files(images, dev, counts, keep))
+    lossy_calls = {"anim_lossy": 3, "anim_lossless": 0, "lossless_768": 0}
+    launches = dict.fromkeys(API_KERNELS, 0)
+    for name, c in counts.items():
+        calls = c["wire"]
+        ok = calls >= 7 if name == "target_size" else calls == lossy_calls.get(name, 1)
+        if not ok or any(c[k] != n * calls for k, n in API_KERNELS.items()):
+            raise AssertionError(f"{name} launched {c}: not {lossy_calls.get(name, 1)} lossy "
+                                 f"encodes of {API_KERNELS} each")
+        for k in launches:
+            launches[k] += c[k]
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the encoder API's path never launched: {launches}")
+    print(f"[api] files {({n: len(d) for n, d in files.items()})} bytes; launches "
+          f"{ {n: c['wire'] for n, c in counts.items()} } lossy encodes, in all {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 2. Checks, tolerance 0: the RGB and RGBA stills' VP8 chunk against the
+    #    plain CPU encode of the same frame at one partition (the flagship
+    #    encode phase's worker: Q75 m4, segments on); the other files
+    #    against the same calls on the CPU (this phase's worker).
+    t0 = time.perf_counter()
+    want = keep["flagship"]["one_partition"][0]
+    for name in ("rgb_768", "rgba_768"):
+        if riff_chunks(files[name]).get(b"VP8 ") != want:
+            raise AssertionError(f"{name}: the VP8 chunk differs from the plain CPU encode")
+    ref, ref_s = keep["api_reference"].get()
+    waited = time.perf_counter() - t0
+    for name, data in ref.items():
+        if files[name] != data:
+            raise AssertionError(f"{name}: the card's file differs from the CPU's")
+    if len(files["target_size"]) > API_TARGET:
+        raise AssertionError(f"target_size: {len(files['target_size'])} > {API_TARGET} bytes")
+    meta = api.WebPDecoder(files["photo_meta"], device=dev)
+    if (meta.icc_profile(), meta.exif_metadata(), meta.xmp_metadata()) != API_META:
+        raise AssertionError("photo_meta: the metadata chunks differ from the encoder's")
+
+    # 3. Every file decoded on the card: lossless pixels and alpha planes
+    #    exact, the lossy RGB's PSNR against its source.
+    def decode(data):
+        d = api.WebPDecoder(data, device=dev)
+        return [d.read_frame()[0] for _ in range(d.num_frames)] if d.is_animated() \
+            else d.read_image()
+
+    def exact(name, got, want):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{name}: decoded pixels or alpha differ from the source")
+
+    alpha_50 = near_lossless_preprocess(np.repeat(images["small_rgba"][..., 3:], 4, 2), 50)
+    sources = {"rgb_768": images["rgb"], "rgba_768": images["rgba"],
+               "rgba_alph": images["small_rgba"], "photo_meta": images["small_rgb"],
+               "alpha_quality_50": np.dstack([images["small_rgb"], alpha_50[..., 0]]),
+               "target_size": images["small_rgb"],
+               "l8": np.repeat(images["small_gray"][..., None], 3, 2)}
+    psnr = {}
+    for name, src in sources.items():
+        got = decode(files[name])
+        if src.shape[2] == 4:
+            exact(name, got[..., 3], src[..., 3])
+        psnr[name] = round(float(metrics.psnr(got[..., :3], src[..., :3])), 4)
+    for i, (got, src) in enumerate(zip(decode(files["anim_lossy"]), images["frames"])):
+        exact(f"anim_lossy frame {i}", got[..., 3], src[..., 3])
+        psnr[f"anim_lossy {i}"] = round(float(metrics.psnr(got[..., :3], src[..., :3])), 4)
+    for i, (got, src) in enumerate(zip(decode(files["anim_lossless"]), images["frames"])):
+        exact(f"anim_lossless frame {i}", got, src)
+    exact("lossless_768", decode(files["lossless_768"]), images["rgba"])
+    print(f"[api] byte-equal (tolerance 0): the 768x512 RGB and RGBA files' VP8 chunk with "
+          f"the plain CPU encode at one partition, {len(ref)} files with the same calls on the "
+          f"CPU (worker process: {ref_s:.1f} s, waited {waited:.1f} s); decoded on the card: "
+          f"lossless pixels, ALPH and the near-lossless alpha exact, PSNR (dB) against the "
+          f"sources {psnr}; checks {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 4. Times of the 768x512 stills, host clock / CUDA events, medians of 3
+    #    runs after a warm-up: encode() stage by stage, and whole.
+    reps = 3
+    for name, enc in (("rgb_768", api.Encoder.new_rgb(images["rgb"], device=dev)),
+                      ("rgba_768", api.Encoder.new_rgba(images["rgba"], device=dev)),
+                      ("lossless_768", api.Encoder.new_rgba(images["rgba"], device=dev)
+                       .with_lossless())):
+        runs = []
+        for _ in range(reps + 1):
+            data, ms = api_stages(enc, dev)
+            if data != files[name]:
+                raise AssertionError(f"{name}: the staged encode differs from encode()")
+            runs.append(ms)
+        split = ", ".join(f"{k} {statistics.median(r[k][0] for r in runs[1:]):.4f} / "
+                          f"{statistics.median(r[k][1] for r in runs[1:]):.4f}" for k in runs[0])
+        whole = median_clocks(enc.encode, reps)
+        print(f"[api] {name} encode() ms, host clock / CUDA events: {split}; encode() "
+              f"{whole[0]:.4f} / {whole[1]:.4f} ({card})", flush=True)
+    return launches
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2445,10 +2748,12 @@ def main() -> int:
     # The encode phases' plain CPU encodes take minutes of host time: worker
     # processes make them while the card builds, decodes and encodes; the
     # pool's exit stops the workers.
-    # The container phase's plain CPU decodes run in a third worker.
-    with multiprocessing.get_context("spawn").Pool(len(ENCODES) + 1, reference_worker) as pool:
+    # The container phase's plain CPU decodes run in a third worker, the
+    # encoder-API phase's CPU encodes in a fourth.
+    with multiprocessing.get_context("spawn").Pool(len(ENCODES) + 2, reference_worker) as pool:
         refs = {job: pool.apply_async(reference_job, job) for job in ENCODES}
         keep["container_reference"] = pool.apply_async(container_reference)
+        keep["api_reference"] = pool.apply_async(api_reference)
 
         # Build the host library and the kernels from the checkout.
         t0 = time.perf_counter()
@@ -2478,6 +2783,8 @@ def main() -> int:
                     r["launches"] += records[k]["launches"]
                     r["max_abs_err"] = max(r["max_abs_err"], records[k]["max_abs_err"])
                 records[k] = r
+        for k, n in phase("encoder api", api_phase, dev, card, keep).items():
+            records[k]["launches"] += n
     records["enc"]["max_abs_err"] = max(records["enc"]["max_abs_err"],
                                         phase("k5 probe", k5_probe_phase, dev, card))
     records.update(phase("parallel", parallel_phase, dev, card, keep))

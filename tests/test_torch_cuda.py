@@ -27,8 +27,11 @@ The encode wire (K18-K20) runs on the seeded pass-2 arrays of
 past 2^24, and inside the encode of Q100 frames that take its sparse and
 dense-row branches.  The decoder API (`WebPDecoder`, `decode_rgba`) runs
 on `random_webp.py`'s VP8X stills (ALPH raw and VP8L-compressed) and
-animations, held to its own device="cpu" run.  Tolerance: bit-exact
-(integer arithmetic).
+animations, held to its own device="cpu" run; the encoder API
+(`Encoder`, `encode_rgb`, `encode_lossless_rgba`, `AnimationEncoder`) on
+small seeded files, byte-equal to its device="cpu" run, with the encode
+kernels' launches counted and the files decoded back on the card.
+Tolerance: bit-exact (integer arithmetic).
 """
 
 import numpy as np
@@ -1264,3 +1267,64 @@ def test_decoder_api_on_card_matches_cpu(cuda, name, upsampling):
         np.testing.assert_array_equal(card.read_image(), host.read_image())
     got, w, h = webp_tpu_torch.decode_rgba(data)
     np.testing.assert_array_equal(got, webp_tpu_torch.decode_rgba(data, device="cpu")[0])
+
+
+def _api_animation(device, lossless):
+    enc = webp_tpu_torch.AnimationEncoder(40, 24, lossless=lossless, quality=70, device=device)
+    first = rw.rgba_frame(40, 24, 61)
+    second = first.copy()
+    second[3:9, 5:17] = 17
+    for i, frame in enumerate((first, second, second)):
+        enc.add_frame(frame, 30 + i)
+    return enc.finish()
+
+
+# name -> f(device): the file's bytes.  The lossy files take K5, K6, K7, K5
+# with the trellis from method 4, the fused K18 + K19 and K20 (K8 too at 256
+# MBs and more).
+ENCODER_API_FILES = {
+    "rgb_m4": lambda d: webp_tpu_torch.Encoder.new_rgb(synthetic_frame(48, 40, 1), device=d)
+        .encode(),
+    "rgb_m6_q90": lambda d: webp_tpu_torch.Encoder.new_rgb(synthetic_frame(37, 29, 2), device=d)
+        .with_method(6).with_quality(90).encode(),
+    "rgba_alpha_quality_50": lambda d: webp_tpu_torch.Encoder.new_rgba(
+        rw.rgba_frame(40, 24, 3), device=d).with_config(
+        webp_tpu_torch.EncoderConfig(alpha_quality=50)).encode(),
+    "l8_m2": lambda d: webp_tpu_torch.Encoder.new_l8(synthetic_frame(33, 17, 4)[..., 1],
+                                                     device=d).with_method(2).encode(),
+    "photo_meta": lambda d: webp_tpu_torch.Encoder.new_rgb(synthetic_frame(48, 40, 5), device=d)
+        .with_preset(webp_tpu_torch.Preset.PHOTO).with_icc_profile(b"icc")
+        .with_exif_metadata(b"exif").with_xmp_metadata(b"<x/>").encode(),
+    "segments_256": lambda d: webp_tpu_torch.encode_rgb(synthetic_frame(256, 256, 6), 75,
+                                                        device=d),
+    "target_size_m0": lambda d: webp_tpu_torch.Encoder.new_rgb(synthetic_frame(32, 32, 7),
+                                                               device=d)
+        .with_method(0).with_target_size(400).encode(),
+    "lossless_rgba": lambda d: webp_tpu_torch.encode_lossless_rgba(rw.rgba_frame(41, 23, 8),
+                                                                   device=d),
+    "anim_lossy": lambda d: _api_animation(d, False),
+    "anim_lossless": lambda d: _api_animation(d, True),
+}
+
+
+@pytest.mark.parametrize("name", list(ENCODER_API_FILES))
+def test_encoder_api_on_card_matches_cpu(cuda, name):
+    _build.reset_launches()
+    got = ENCODER_API_FILES[name](cuda)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    assert got == ENCODER_API_FILES[name]("cpu")
+    lossy = b"VP8 " in got
+    for k in ("enc", "token_stats", "enc_tables", "prepack_pack", "wire"):
+        assert (counts[k] > 0) == lossy, (k, counts)
+    assert (counts["analysis"] > 0) == (name == "segments_256"), counts
+    d = webp_tpu_torch.WebPDecoder(got)
+    host = webp_tpu_torch.WebPDecoder(got, device="cpu")
+    if d.is_animated():
+        for _ in range(d.num_frames):
+            (g, g_ms), (w, w_ms) = d.read_frame(), host.read_frame()
+            assert g_ms == w_ms and np.array_equal(g, w)
+    else:
+        np.testing.assert_array_equal(d.read_image(), host.read_image())
+    if name == "lossless_rgba":
+        np.testing.assert_array_equal(d.read_image(), rw.rgba_frame(41, 23, 8))

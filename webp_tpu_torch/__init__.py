@@ -1,6 +1,6 @@
-"""webp_tpu_torch: the WebP decoder API, the batched lossy VP8 decode and
-encode and the batched lossless VP8L decode of `webp_tpu`, ported to
-PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
+"""webp_tpu_torch: the WebP decoder and encoder API, the batched lossy VP8
+decode and encode and the batched lossless VP8L decode of `webp_tpu`,
+ported to PyTorch with hand-written CUDA kernels for Hopper (sm_90a).
 
 The decoder API (`container/`, `decode/alpha.py`) is the JAX package's:
 `WebPDecoder` and `ImageInfo` over WebP files (VP8 and VP8L stills, VP8X
@@ -10,6 +10,18 @@ decodes run on the device: VP8 through `decode_vp8_frame_device` (K1, the
 fused K2 + K3, K4), VP8L and compressed alpha through
 `decode_lossless_batch_device` (K9-K12); the container, the alpha filters
 and the canvas stay on the host.
+
+The encoder API (`encode/api.py`) is the JAX package's too: `Encoder`,
+`EncoderConfig`, `EncoderParams`, `Preset`, `WebPEncoder`,
+`AnimationEncoder`, `encode_rgb[a]` and `encode_lossless_rgba`, with
+VP8X, ALPH, ICCP, EXIF, XMP and ANIM / ANMF muxing.  A lossy image is
+encoded on the device at a batch of one through the batched two-pass
+encode (K8 from 256 MBs, K5, K6, K7, K5 with the trellis from method 4,
+the fused K18 + K19, K20), its colour conversion and frame finish on the
+host; lossless images, ALPH and near-lossless run the host VP8L encoder
+(`encode/vp8l.py`, numpy and the C++ of `native/vp8l.cpp`), as in the JAX
+package.  `metrics` holds the host quality metrics (PSNR, SSIM, MS-SSIM,
+DSSIM, an SSIMULACRA2-class score).
 
 The host side is the repo's C++ entropy coders (`native/vp8_entropy.cpp`
 and `native/vp8l.cpp`, built with g++ and bound in `io/native.py`), the VP8 spec and encoder
@@ -28,6 +40,7 @@ banded decode and the data-parallel factories of `webp_tpu.parallel`.
 
 import numpy as np
 
+from . import metrics
 from .container.demux import LOOP_FOREVER, ImageInfo, WebPDecoder
 from .decode.device import (
     decode_core,
@@ -41,6 +54,17 @@ from .decode.device import (
     yuv_packed_to_rgb,
 )
 from .decode.vp8l_device import decode_lossless_batch_device
+from .encode.api import (
+    AnimationEncoder,
+    Encoder,
+    EncoderConfig,
+    EncoderParams,
+    Preset,
+    WebPEncoder,
+    encode_lossless_rgba,
+    encode_rgb,
+    encode_rgba,
+)
 from .encode.device import encode_frames_lossy_batch, encode_frames_lossy_batch_mixed
 from .errors import (
     BitstreamError,
@@ -64,7 +88,6 @@ from .parallel import (
     make_encode_twopass_sharded,
     make_mesh,
 )
-
 
 
 def decode_rgba(data, device="cuda"):
@@ -107,10 +130,14 @@ def decode_rgb_into(data, out, device="cuda"):
 
 
 __all__ = [
+    "AnimationEncoder",
     "BitstreamError",
     "ChunkHeaderInvalid",
     "DecodingError",
     "EncodingError",
+    "Encoder",
+    "EncoderConfig",
+    "EncoderParams",
     "ImageInfo",
     "ImageTooLarge",
     "InconsistentImageSizes",
@@ -118,9 +145,11 @@ __all__ = [
     "InvalidSignature",
     "LOOP_FOREVER",
     "Mesh",
+    "Preset",
     "UnexpectedEof",
     "UnsupportedFeature",
     "WebPDecoder",
+    "WebPEncoder",
     "WebPError",
     "decode_core",
     "decode_lossless_batch_device",
@@ -135,11 +164,15 @@ __all__ = [
     "dispatch_decode_batch",
     "encode_frames_lossy_batch",
     "encode_frames_lossy_batch_mixed",
+    "encode_lossless_rgba",
+    "encode_rgb",
+    "encode_rgba",
     "make_decode_batch_sharded",
     "make_encode_analysis_sharded",
     "make_encode_tokens_sharded",
     "make_encode_twopass_sharded",
     "make_mesh",
+    "metrics",
     "parse_levels_batch",
     "to_device_batch",
     "wavefront_inputs",

@@ -8,8 +8,9 @@ own copy, so that it never shares a library file with another process's
 build) and binds the entry points the lossy decode needs (frame parse,
 levels-mode entropy decode, fancy YUV->RGB), those the encode needs
 (RGB->YUV420, the encode wire's expansion, token statistics, token and
-MB-header coding) and those the lossless decode needs (VP8L entropy pass,
-full host decode).
+MB-header coding), those the lossless decode needs (VP8L entropy pass,
+full host decode) and those the lossless encoder needs (LZ77 match search,
+limited Huffman code lengths, colour-cache hits, predictor choice).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i16p = ctypes.POINTER(ctypes.c_int16)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
+_u32p = ctypes.POINTER(ctypes.c_uint32)
 
 
 
@@ -110,6 +112,16 @@ def load():
         lib.vp8l_decode.restype = ctypes.c_int
         lib.vp8l_decode.argtypes = [_u8p, ctypes.c_int, ctypes.c_int32, ctypes.c_int32,
                                     ctypes.c_int, _u8p]
+        lib.vp8l_lz77.restype = ctypes.c_int
+        lib.vp8l_lz77.argtypes = [_u32p, ctypes.c_int, _i32p, _i32p, ctypes.c_int, ctypes.c_int]
+        lib.vp8l_huffman_lengths.restype = ctypes.c_int
+        lib.vp8l_huffman_lengths.argtypes = [_i64p, ctypes.c_int, ctypes.c_int, _i32p,
+                                             ctypes.c_int, ctypes.c_int, _u8p]
+        lib.vp8l_cache_hits.restype = ctypes.c_int
+        lib.vp8l_cache_hits.argtypes = [_u32p, ctypes.c_int, ctypes.c_int, _u8p, _i32p]
+        lib.vp8l_pick_predictors.restype = ctypes.c_int
+        lib.vp8l_pick_predictors.argtypes = [_u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                             _u8p, _u8p, _u8p]
         _lib = lib
         return lib
 
@@ -322,3 +334,69 @@ def vp8l_decode(data, width: int, height: int, implicit: bool = False) -> np.nda
     if rc != 0:
         raise StreamError("vp8l_decode", rc)
     return out
+
+
+def vp8l_lz77(packed: np.ndarray):
+    """Greedy windowed LZ77 over packed ARGB pixels [n] -> (lens, dists) int64
+    per token in stream order: lens 1 a literal (dist 0), lens >= 2 a copy
+    of lens pixels from dists back."""
+    px = np.ascontiguousarray(packed, np.uint32)
+    n = len(px)
+    out_len = np.zeros(n, np.int32)
+    out_dist = np.zeros(n, np.int32)
+    nt = load().vp8l_lz77(_p(px, ctypes.c_uint32), n, _p(out_len, ctypes.c_int32),
+                          _p(out_dist, ctypes.c_int32), n, 1)
+    if nt < 0:
+        raise ValueError(f"vp8l_lz77 failed: {nt}")
+    return out_len[:nt].astype(np.int64), out_dist[:nt].astype(np.int64)
+
+
+def vp8l_huffman_lengths(hist: np.ndarray, offs: np.ndarray, limit: int = 15) -> np.ndarray:
+    """Limited Huffman code lengths uint8 [K, A] of [K, A] histograms whose
+    columns are alphabets side by side: alphabet s spans columns
+    [offs[s], offs[s + 1]).  An alphabet with fewer than two symbols used
+    gets all-zero lengths."""
+    hist = np.ascontiguousarray(hist, np.int64)
+    if hist.ndim == 1:
+        hist = hist[None]
+    K, A = hist.shape
+    offs = np.ascontiguousarray(offs, np.int32)
+    out = np.zeros((K, A), np.uint8)
+    rc = load().vp8l_huffman_lengths(_p(hist, ctypes.c_int64), K, A, _p(offs, ctypes.c_int32),
+                                     len(offs) - 1, limit, _p(out, ctypes.c_uint8))
+    if rc != 0:
+        raise ValueError(f"vp8l_huffman_lengths failed: {rc}")
+    return out
+
+
+def vp8l_cache_hits(packed: np.ndarray, bits: int):
+    """Colour-cache hits of packed ARGB pixels [n] at `bits` (1..11): (hits
+    bool, hash int64) per pixel; a pixel hits when the last earlier pixel
+    of its hash bucket holds its value."""
+    px = np.ascontiguousarray(packed, np.uint32)
+    n = len(px)
+    hits = np.zeros(n, np.uint8)
+    hsh = np.zeros(n, np.int32)
+    rc = load().vp8l_cache_hits(_p(px, ctypes.c_uint32), n, bits, _p(hits, ctypes.c_uint8),
+                                _p(hsh, ctypes.c_int32))
+    if rc != 0:
+        raise ValueError(f"vp8l_cache_hits failed: {rc}")
+    return hits.astype(bool), hsh.astype(np.int64)
+
+
+def vp8l_pick_predictors(u: np.ndarray, w: int, h: int, size_bits: int, cost_lut: np.ndarray):
+    """The best of the 14 VP8L predictors per tile of 2^size_bits pixels of
+    u [h, w, 4] (subtract-green domain, 0..255) under the 129-entry cost
+    table (1/32 bit): (modes [bh, bw] uint8, wrapped residual [h, w, 4] uint8)."""
+    u8 = np.ascontiguousarray(u, np.uint8)
+    bw = (w + (1 << size_bits) - 1) >> size_bits
+    bh = (h + (1 << size_bits) - 1) >> size_bits
+    modes = np.zeros((bh, bw), np.uint8)
+    res = np.zeros((h, w, 4), np.uint8)
+    lut = np.ascontiguousarray(cost_lut, np.uint8)
+    rc = load().vp8l_pick_predictors(_p(u8, ctypes.c_uint8), w, h, size_bits,
+                                     _p(lut, ctypes.c_uint8), _p(modes, ctypes.c_uint8),
+                                     _p(res, ctypes.c_uint8))
+    if rc != 0:
+        raise ValueError(f"vp8l_pick_predictors failed: {rc}")
+    return modes, res
