@@ -297,6 +297,23 @@ API_KERNELS = {"analysis": 1, "enc": 2, "token_stats": 1, "enc_tables": 1, "prep
                "wire": 1}
 
 
+# The pipeline phase: seeds of its second batch (the first is the encode
+# phases' ENC_SEEDS), the rounds a run times between a fill round and a
+# last one, its turns, the kernels a batch of each flow launches, and the
+# decode's per batch and output.
+PIPE_SEEDS = (71, 72)
+PIPE_ROUNDS = 4
+PIPE_TURNS = 2  # turns of serial, pipelined, pipelined, serial runs
+PIPE_KERNELS = {
+    False: {"analysis": 1, "enc": 2, "token_stats": 1, "enc_tables": 1, "prepack_pack": 1,
+            "wire": 1, "coeff_tokens": 0, "mb_headers": 0},
+    True: {"analysis": 1, "enc": 2, "token_stats": 1, "enc_tables": 1, "prepack_pack": 0,
+           "wire": 0, "coeff_tokens": 1, "mb_headers": 1},
+}
+PIPE_DECODE_KERNELS = {"rgb": {"residual": 1, "recon_filter": 1, "yuv2rgb": 1},
+                       "yuv": {"residual": 1, "recon_filter": 1, "yuv2rgb": 0}}
+
+
 def _import_paths() -> None:
     for p in (str(ROOT), str(ROOT / "tests")):
         if p not in sys.path:
@@ -882,7 +899,6 @@ def lossy_stages(planes, width: int, height: int, dev, quality: int, method: int
     (payloads, the bytes that came back from the device after pass 2: the
     host finisher's wire rows and the dense int8 rows of sp_over images, or
     the device tokens')."""
-    from webp_tpu_torch.common import vp8_tables as T
     from webp_tpu_torch.encode import device as edev
     from webp_tpu_torch.ops import wire
     from webp_tpu_torch.ops.enc_params import EncTables
@@ -897,8 +913,8 @@ def lossy_stages(planes, width: int, height: int, dev, quality: int, method: int
         return segs, edev.params_for(segs, quality, dev)
 
     def pass1():
-        default = EncTables.from_probs(T.COEFF_PROBS_DEFAULT, dev)
-        return edev.encode_analysis_stats_batch(y, u, v, P, default, min(n_try, 3), sid)
+        return edev.encode_analysis_stats_batch(y, u, v, P, EncTables.default(dev), min(n_try, 3),
+                                                sid)
 
     segs, (P, sid) = stage("segment", segment)
     totals, ones = stage("pass1", pass1)
@@ -910,7 +926,8 @@ def lossy_stages(planes, width: int, height: int, dev, quality: int, method: int
     if device_tokens:
         skipped, lanes = stage("encode_tokens", lambda: edev.encode_tokens(
             arrays, probs, mbw, mbh, partitions))
-        tokens = stage("fetch_tokens", lambda: edev.fetch_tokens(arrays, skipped, lanes, sid))
+        tokens = stage("fetch_tokens", lambda: edev.fetch_tokens(arrays, skipped,
+                                                                  lanes.result(), sid))
         coders = stage("header_coders", lambda: edev.header_coders(tokens, probs, quality, segs))
         headers = stage("mb_headers", lambda: edev.code_mb_headers(tokens, coders, mbw, mbh,
                                                                     segs))
@@ -1189,7 +1206,8 @@ def encode_phase(dev, card: str, method: int, segments: bool, pending, keep: dic
     if flagship:
         keep["flagship"] = dict(planes=(y, u, v), P=P, sid=sid, segs=segs, pass2=pass2,
                                 one_partition=one_partition,
-                                probs=probs.cpu().numpy(), payloads=payloads[True], n_try=n_try)
+                                probs=probs.cpu().numpy(), payloads=payloads[True], n_try=n_try,
+                                k5_ms=(p1_ms, ms["enc"]))
         tok = token_phase(dev, card, name, pass2, probs, sid, segs, mbw, mbh)
         for k, r in tok.items():
             records[k] = {"launches": token_launches[k], **r}
@@ -2474,6 +2492,195 @@ def api_phase(dev, card: str, keep: dict) -> dict:
     return launches
 
 
+def pipeline_phase(dev, card: str, keep: dict) -> dict:
+    """`bench.py`'s pipelines on the card at 768x512, batch 8: the flagship
+    encode (Q75 m4, segments on, 8 partitions) with the host finisher and
+    with device tokens, and the decode, out="rgb" and out="yuv", over two
+    alternating batches; name -> launches of its pipelined runs."""
+    import torch
+
+    from webp_tpu_torch import _build, encode_frames_lossy_batch
+    from webp_tpu_torch.decode import device as tdev
+    from webp_tpu_torch.encode import device as edev
+    from pipeline_lane import decode_lane, encode_lane, sync_errors
+    from synthetic_rgb import synthetic_frame
+
+    method, n = 4, PIPE_ROUNDS + 2
+    mbw, mbh = (WIDTH + 15) // 16, (HEIGHT + 15) // 16
+    name = f"Q{QUALITY} m{method}, segments on, {PARTITIONS} partitions, batch {BATCH}"
+    launches = {}
+
+    def add(counts):
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+
+    # 1. Inputs: the encode phases' batch and a second seeded one; each
+    #    batch's serial encode (the flagship phase held batch 0's to the
+    #    plain CPU encode).
+    second = [synthetic_frame(WIDTH, HEIGHT, s) for s in PIPE_SEEDS]
+    batches = [encode_inputs(WIDTH, HEIGHT)[1], [second[i % 2] for i in range(BATCH)]]
+    t0 = time.perf_counter()
+    planes = [edev.rgb_to_planes(b) for b in batches]
+    colour_ms = (time.perf_counter() - t0) * 1000 / (2 * BATCH)
+    serial = {tokens: [encode_frames_lossy_batch(b, QUALITY, method, True, True,
+                                                 num_partitions=PARTITIONS, device=dev,
+                                                 device_tokens=tokens) for b in batches]
+              for tokens in (False, True)}
+    if serial[False][0] != keep["flagship"]["payloads"] or serial[True] != serial[False]:
+        raise AssertionError("the serial encodes differ from the flagship phase's or each other")
+
+    def serial_ms(tokens):
+        """ms/img of the serial encode, both batches in turn (host clock)."""
+        times = []
+        for i in range(PIPE_ROUNDS):
+            t0 = time.perf_counter()
+            encode_frames_lossy_batch(batches[i % 2], QUALITY, method, True, True,
+                                      num_partitions=PARTITIONS, device=dev, device_tokens=tokens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1000 / BATCH)
+        return times
+
+    def pipelined(tokens):
+        """One pipelined run: (ms/img per timed round, the lane's parts of
+        each timed round in ms/batch, XFER bytes/img, launches)."""
+        def dispatch(i, segs):
+            return edev.dispatch_frames_lossy_batch(planes[i % 2], QUALITY, method, True, True,
+                                                    device=dev, device_tokens=tokens,
+                                                    num_partitions=PARTITIONS, seg_results=segs)
+
+        def finish(i, fetched):
+            arrays, probs, segs = fetched
+            if tokens:
+                return edev.finish_frames_tokens(arrays, probs, QUALITY, WIDTH, HEIGHT, segs)
+            return edev.finish_frames_lossy_batch(arrays, probs, QUALITY, WIDTH, HEIGHT,
+                                                  PARTITIONS, segs)
+
+        edev.XFER.update(up=0, down=0)
+        _build.reset_launches()
+        try:
+            out, times, parts = encode_lane(n, dispatch, lambda i: edev.dispatch_seg_results(
+                planes[i % 2], QUALITY, device=dev), finish, sync_errors)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        counts = {k: _build.LAUNCHES[k] for k in PIPE_KERNELS[tokens]}
+        expect = {k: c * n for k, c in PIPE_KERNELS[tokens].items()}
+        if counts != expect:
+            raise AssertionError(f"device_tokens={tokens}: the pipeline launched {counts}, "
+                                 f"expected {expect}")
+        for i, got in enumerate(out):
+            if got != serial[tokens][i % 2]:
+                raise AssertionError(f"device_tokens={tokens}: round {i} differs from the serial "
+                                     "encode of its batch")
+        xfer = {k: v / (n * BATCH) for k, v in edev.XFER.items()}
+        # The first round finishes nothing, the last chains nothing.
+        return ([t * 1000 / BATCH for t in times[1:-1]],
+                [{k: v * 1000 for k, v in p.items()} for p in parts[1:-1]], xfer, counts)
+
+    # 2. The main path, both flows: pipelined runs between serial ones in
+    #    turns (the host clock moves between runs), counted and checked.
+    for tokens in (False, True):
+        flow = "device tokens" if tokens else "host finish"
+        ser, pipe, parts = [], [], []
+        for _ in range(PIPE_TURNS):
+            ser += serial_ms(tokens)
+            for _ in range(2):
+                times, run_parts, xfer, counts = pipelined(tokens)
+                pipe += times
+                parts += run_parts
+                add(counts)
+            ser += serial_ms(tokens)
+        split = ", ".join(f"{k} {statistics.median(p[k] for p in parts):.4f}" for k in parts[0])
+        pm, sm = statistics.median(pipe), statistics.median(ser)
+        print(f"[pipeline] encode, {flow}, {name}: pipelined {pm:.4f} ms/img "
+              f"{[round(x, 4) for x in pipe]} (+ colour {colour_ms:.4f} = "
+              f"{pm + colour_ms:.4f}, as bench.py's t_encode) against serial "
+              f"encode_frames_lossy_batch {sm:.4f} ms/img {[round(x, 4) for x in ser]}; "
+              f"{2 * PIPE_TURNS * n} rounds over 2 alternating batches byte-equal to the serial "
+              f"encode, dispatch halves under set_sync_debug_mode('error') from round 1 ({card})",
+              flush=True)
+        print(f"[pipeline] encode, {flow}: the lane's parts of a round (host clock, ms/batch, "
+              f"median of {len(parts)}): {split}; XFER up {xfer['up']:.0f} B/img, down "
+              f"{xfer['down']:.0f} B/img; launches {counts} a run ({card})", flush=True)
+
+    # 3. probe_stage_times beside the flagship encode phase's K5 times.
+    p1_ms, p2_ms = keep["flagship"]["k5_ms"]
+    probe = edev.probe_stage_times(planes[0], QUALITY, method, True,
+                                   seg_results=keep["flagship"]["segs"], reps=3, device=dev)
+    print(f"[pipeline] probe_stage_times (CUDA events, best of 3, ms/batch): p1 (K5 pass 1 + K6) "
+          f"{probe['p1_s'] * 1000:.4f}, p2 (K5 pass 2; the JAX package's p2 also holds the "
+          f"prepack K18) {probe['p2_s'] * 1000:.4f}, pack (fused K18 + K19, K20) "
+          f"{probe['pack_s'] * 1000:.4f}; the flagship phase's K5 pass 1 {p1_ms:.4f}, pass 2 "
+          f"{p2_ms:.4f} ({card})", flush=True)
+
+    # 4. The decode pipeline over the pipelined encode's payloads.
+    payloads = serial[False]
+    want = [tdev.decode_vp8_batch_device(p, device=dev) for p in payloads]
+
+    def decode_serial(out):
+        times = []
+        for i in range(PIPE_ROUNDS):
+            t0 = time.perf_counter()
+            h = tdev.dispatch_decode_batch(payloads[i % 2], out=out, device=dev)
+            if out == "yuv":
+                tdev.yuv_packed_to_rgb(h.cpu().numpy(), mbw, mbh, WIDTH, HEIGHT)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1000 / BATCH)
+        return times
+
+    def decode_pipelined(out):
+        def dispatch(i):
+            h = tdev.dispatch_decode_batch(payloads[i % 2], out=out, device=dev)
+            done = torch.cuda.Event()
+            done.record()
+            return h, done
+
+        def fetch(i, handle):
+            h, done = handle
+            if out == "rgb":  # the output stays on the device
+                done.synchronize()
+                return h
+            return tdev.yuv_packed_to_rgb(_build.download(h)(), mbw, mbh, WIDTH, HEIGHT)
+
+        _build.reset_launches()
+        try:
+            got, times, spent = decode_lane(n, dispatch, fetch, sync_errors)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        counts = {k: _build.LAUNCHES[k] for k in PIPE_DECODE_KERNELS[out]}
+        expect = {k: c * n for k, c in PIPE_DECODE_KERNELS[out].items()}
+        if counts != expect:
+            raise AssertionError(f"the {out} decode pipeline launched {counts}, expected {expect}")
+        for i, g in enumerate(got):
+            g = g.cpu().numpy() if out == "rgb" else g
+            if not (g == want[i % 2]).all():
+                raise AssertionError(f"the {out} decode pipeline's round {i} differs from "
+                                     "decode_vp8_batch_device")
+        # The first round waits for a dispatch it overlaps with nothing, the
+        # last overlaps no dispatch.
+        return ([t * 1000 / BATCH for t in times[1:-1]], [t * 1000 for t in spent[1:]],
+                counts)
+
+    for out in ("rgb", "yuv"):
+        ser, pipe, dispatch_ms = [], [], []
+        for _ in range(PIPE_TURNS):
+            ser += decode_serial(out)
+            for _ in range(2):
+                times, spent, counts = decode_pipelined(out)
+                pipe += times
+                dispatch_ms += spent
+                add(counts)
+            ser += decode_serial(out)
+        print(f"[pipeline] decode out={out!r}{' + yuv_packed_to_rgb' if out == 'yuv' else ''}: "
+              f"pipelined {statistics.median(pipe):.4f} ms/img {[round(x, 4) for x in pipe]} "
+              f"against serial {statistics.median(ser):.4f} ms/img {[round(x, 4) for x in ser]}; "
+              f"the lane's dispatch_decode_batch (parse, upload, launches; host clock) "
+              f"{statistics.median(dispatch_ms):.4f} ms/batch; pixels equal to "
+              f"decode_vp8_batch_device, dispatches under set_sync_debug_mode('error') from "
+              f"round 1; launches {counts} a run ({card})", flush=True)
+    return launches
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2566,6 +2773,7 @@ def parallel_phase(dev, card: str, keep: dict) -> dict:
     want_analysis = encode_analysis_batch(y, u, v, P, default, n_try1, True)
     want_prepack = wire.prepack(pass2)
     skipped, want_lanes = edev.encode_tokens(pass2, probs, mbw, mbh, PARTITIONS)
+    want_lanes = want_lanes.result()
     want_tokens = edev.fetch_tokens(pass2, skipped, want_lanes, sid)
 
     def same(got, want, what):
@@ -2785,6 +2993,9 @@ def main() -> int:
                 records[k] = r
         for k, n in phase("encoder api", api_phase, dev, card, keep).items():
             records[k]["launches"] += n
+    # After the encoder API phase: the plain CPU workers have ended.
+    for k, n in phase("pipeline", pipeline_phase, dev, card, keep).items():
+        records[k]["launches"] += n
     records["enc"]["max_abs_err"] = max(records["enc"]["max_abs_err"],
                                         phase("k5 probe", k5_probe_phase, dev, card))
     records.update(phase("parallel", parallel_phase, dev, card, keep))

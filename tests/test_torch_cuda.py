@@ -30,7 +30,12 @@ on `random_webp.py`'s VP8X stills (ALPH raw and VP8L-compressed) and
 animations, held to its own device="cpu" run; the encoder API
 (`Encoder`, `encode_rgb`, `encode_lossless_rgba`, `AnimationEncoder`) on
 small seeded files, byte-equal to its device="cpu" run, with the encode
-kernels' launches counted and the files decoded back on the card.
+kernels' launches counted and the files decoded back on the card.  The
+pipelined batch API (`dispatch_frames_lossy_batch`, `dispatch_seg_results`,
+`dispatch_decode_batch` driven as `bench.py` drives them,
+`tests/pipeline_lane.py`) on two alternating batches of seeded frames,
+byte-equal to the serial path, its dispatch halves under
+`torch.cuda.set_sync_debug_mode("error")`.
 Tolerance: bit-exact (integer arithmetic).
 """
 
@@ -66,6 +71,7 @@ from sparse_inputs import flat_cases
 from random_vp8l import PALETTE, SUBTRACT_GREEN, color, predictor, quantize, vp8l_stream, with_alpha
 from synthetic_rgb import synthetic_frame
 from lane_inputs import K1_CASES, K4_SIZES, k1_case, k4_planes
+from pipeline_lane import decode_lane, encode_lane, sync_errors
 from token_inputs import (CARRY_PATTERNS, header_inputs, prefix_coders, steered_lanes,
                           token_arrays)
 from torch_fixtures import encode_frame, force_escapes, mixed_payloads, scalar_decode
@@ -988,6 +994,59 @@ def test_device_tokens_slice_on_card_matches_cpu(cuda, method, segments, size):
     assert (_build.LAUNCHES["coeff_tokens"], _build.LAUNCHES["mb_headers"],
             _build.LAUNCHES["bool_lanes"]) == (1, 1, 0)
     assert got == want
+
+
+@pytest.mark.parametrize("device_tokens", [False, True], ids=["host_finish", "device_tokens"])
+def test_pipeline_on_card_matches_serial(cuda, device_tokens):
+    """`bench.py`'s encode pipeline on the card (one lane for every dispatch,
+    fetch and hook; Q75 m4, segments on at 256x256 through
+    `dispatch_seg_results`, 8 partitions) over two alternating batches,
+    then the decode pipeline over its payloads: every batch byte-equal to
+    the serial `encode_frames_lossy_batch` and `decode_vp8_batch_device`,
+    and no dispatch half waits for the device from the second round on."""
+    batches = [[synthetic_frame(256, 256, s) for s in seeds] for seeds in ((11, 12), (13, 14))]
+    planes = [edev.rgb_to_planes(b) for b in batches]
+    want = [webp_tpu_torch.encode_frames_lossy_batch(b, 75, 4, True, True, num_partitions=8,
+                                                     device=cuda, device_tokens=device_tokens)
+            for b in batches]
+
+    def dispatch(i, segs):
+        return edev.dispatch_frames_lossy_batch(planes[i % 2], 75, 4, True, True, device=cuda,
+                                                device_tokens=device_tokens, num_partitions=8,
+                                                seg_results=segs)
+
+    def finish(i, fetched):
+        arrays, probs, segs = fetched
+        if device_tokens:
+            return edev.finish_frames_tokens(arrays, probs, 75, 256, 256, segs)
+        return edev.finish_frames_lossy_batch(arrays, probs, 75, 256, 256, 8, segs)
+
+    try:
+        got, _, _ = encode_lane(4, dispatch, lambda i: edev.dispatch_seg_results(
+            planes[i % 2], 75, device=cuda), finish, sync_errors)
+        decoded, _, _ = decode_lane(4, lambda i: tdev.dispatch_decode_batch(got[i], device=cuda),
+                                    lambda i, rgb: _build.download(rgb)(), sync_errors)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got == [want[i % 2] for i in range(4)]
+    for i, d in enumerate(decoded):
+        np.testing.assert_array_equal(d, webp_tpu_torch.decode_vp8_batch_device(got[i],
+                                                                                device=cuda))
+
+
+def test_dispatch_half_waits_raise_under_sync_debug(cuda):
+    """The check the pipeline tests rely on: a blocking upload inside the
+    error mode raises, `_build.upload` and `_build.download` do not."""
+    a = np.arange(1024, dtype=np.int32)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = _build.upload(a, cuda)
+        wait = _build.download(t * 2)
+        with pytest.raises(RuntimeError):
+            torch.from_numpy(a).to(cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_array_equal(wait(), a * 2)
 
 
 # ---- scale-out: K16 recon_banded, K17 filter_banded

@@ -422,6 +422,43 @@ def device_constant(name: str, values, device):
     return t
 
 
+def upload(a, device):
+    """The host numpy array `a` on `device`.  To a CUDA device it is staged in
+    pinned memory and copied without blocking the host; PyTorch's caching
+    host allocator keeps the staging buffer until the copy has run.  On the
+    CPU, a tensor over `a` itself."""
+    import numpy as np
+    import torch
+
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def download(t):
+    """Starts a copy of the tensor `t` to the host without blocking; returns
+    wait() -> the numpy array.  From a CUDA device the copy goes to pinned
+    memory on `t`'s current stream, and wait() waits for an event recorded
+    after it (not for the stream's later work).  On the CPU, wait() returns
+    `t`'s numpy view."""
+    import torch
+
+    if t.device.type == "cpu":
+        return t.numpy
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+
+    def wait():
+        done.synchronize()
+        return host.numpy()
+
+    return wait
+
+
 _scratch = {}
 
 

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import _build
 from ..io import native
 from ..ops.recon_filter import recon_filter_
 from ..ops.residual import SLOTS, residuals_dense, residuals_sparse
@@ -231,13 +232,25 @@ def to_device_batch(batch, device):
 
     Raises ValueError if a sparse batch's escape list does not ascend within
     each image (the order `narrow_levels` writes, which kernel K1 needs).
+    On a CUDA device the copies do not block the host (`_build.upload`:
+    pinned staging, queued on the current stream).
     """
     keys = SPARSE_KEYS if batch["bitmap"] is not None else DENSE_KEYS
     if keys is SPARSE_KEYS and (np.diff(batch["esc_pos"], axis=1) < 0).any():
         raise ValueError("esc_pos must ascend within each image")
-    out = {k: torch.from_numpy(batch[k]).to(device) for k in keys}
+    out = {k: _build.upload(batch[k], device) for k in keys}
+    XFER["up"] += sum(int(batch[k].nbytes) for k in keys)
     out["headers"] = batch["headers"]
     return out
+
+
+# Host <-> device bytes since the caller last reset them, as the JAX
+# package's `webp_tpu/decode/device.py:145` XFER: "up" counts the arrays that
+# `to_device_batch` uploads for the route the batch takes (the sparse levels,
+# escapes, dequant table and per-MB fields, or the dense int16 levels and
+# per-MB fields; `headers` stays on the host).  "down" is not counted here:
+# the caller fetches the output.
+XFER = {"up": 0, "down": 0}
 
 
 # Header fields that one batch shares: width, height, mbw, mbh and the loop
@@ -306,8 +319,11 @@ def decode_core(dev_batch, out: str = "rgb"):
 
 def dispatch_decode_batch(payloads, out: str = "rgb", device="cuda"):
     """Parse, upload and decode same-geometry VP8 payloads; returns the
-    tensor on `device` (see `decode_core`).  CUDA work is queued on the
-    current stream and not awaited."""
+    tensor on `device` (see `decode_core`).  The port of the JAX package's
+    `webp_tpu/decode/device.py:166`: CUDA work is queued on the current
+    stream and not awaited, and nothing here waits for the device, so a
+    pipeline can parse and dispatch batch i+1 on one thread while another
+    fetches batch i."""
     return decode_core(to_device_batch(parse_levels_batch(payloads), device), out)
 
 

@@ -1,7 +1,10 @@
 """Batched lossy VP8 encode on a torch device (methods 0-6, segments on or off).
 
-The port of `webp_tpu/encode/vp8.py` `analyze_frames_lossy_batch` (:1448),
-`dispatch_seg_results` (:1379), `encode_frames_lossy_batch` (:1682),
+The port of `webp_tpu/encode/vp8.py`'s batch API: `analyze_frames_lossy_batch`
+(:1448) as `dispatch_frames_lossy_batch` and its blocking form,
+`dispatch_seg_results` (:1379), `compute_seg_results` (:1428),
+`setup_segments` (:1079), `probe_stage_times` (:1608), `encode_frame_lossy`
+(:1215), the `XFER` counters (:1233), `encode_frames_lossy_batch` (:1682),
 `finish_frames_lossy_batch` (:1702) and `encode_frames_lossy_batch_mixed`
 (:1755), with `encode_wavefront2.encode_analysis_stats_batch` (:1471).
 The stages, each a function here so that they can be timed apart:
@@ -51,9 +54,23 @@ finisher's device branches, `webp_tpu/encode/vp8.py:1301-1376`, :814-849,
 With two_pass=False, one K5 pass runs on the default tables at
 n_try = min(n_try, 3), with the trellis from method 4, then stages 8-10,
 and the finisher adapts the header's probabilities from the final levels
-itself.  Every
-entry point takes an explicit `device`: on "cpu" the kernels' plain twins
-run, on "cuda" the kernels (or the call raises).
+itself.
+
+Pipelining.  `dispatch_frames_lossy_batch` runs stages 2-4 and returns
+`fetch(chain=None, early_chain=None)`, which runs the rest up to the
+host finish; `dispatch_seg_results` splits stage 3 the same way.  The
+dispatch halves never wait for the device: uploads are staged in pinned
+memory (`_build.upload`), downloads go to pinned memory behind an event
+(`_build.download`), and the token coders' byte counts are read after
+`chain`.  So one lane thread can keep the card fed, as `bench.py:196-250`
+does: batch i+1's K8 goes in `early_chain`, ahead of batch i's pass 2,
+and its pass 1 in `chain`, right after batch i's pass 2 is queued, while
+another thread finishes batch i-1 on the host.  Each pipeline's launches
+run on one CUDA stream: the stream current when it was dispatched, which
+`fetch` makes current again around its own launches and the hooks.
+
+Every entry point takes an explicit `device`: on "cpu" the kernels' plain
+twins run, on "cuda" the kernels (or the call raises).
 """
 
 from __future__ import annotations
@@ -61,6 +78,7 @@ from __future__ import annotations
 import functools
 import os
 import threading
+import time
 from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
@@ -68,6 +86,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import _build
 from ..common import vp8_tables as T
 from ..io import native
 from ..ops.analysis import analyze_alphas_batch
@@ -77,14 +96,27 @@ from ..ops.encode_wavefront import OUT_FIELDS, encode_analysis_batch
 from ..ops import token_ops
 from ..ops.boolenc2 import Lanes
 from ..ops.token_stats import token_stats_levels
+from ..ops import wire as wire_ops
 from ..ops.wire import encode_analysis_batch_packed, unpack_dense_wire, unpack_wire
 from . import vp8
-from .analysis import MIN_MBS, setup_segments_from_alphas
+from .analysis import MIN_MBS, Segmentation, segments_off, setup_segments_from_alphas
 from .boolenc import assemble_lane
 from .costs import ProbaStats
 from .quant import SegmentParams, quality_to_quant_index
 
 DEVICE_TOKEN_PARTS = 8  # the JAX package's partitions of the device-token flow
+
+# Host <-> device bytes of the batched encode since the caller last reset
+# them, as `webp_tpu/encode/vp8.py:1233` XFER counts them: "up" the planes
+# that `dispatch_frames_lossy_batch` uploads (:1483); "down" what comes
+# back after pass 2: the wire rows and the dense int8 rows of sp_over
+# images (or the dense arrays after an escape overflow), or in the
+# device-token flow the modes, skip flags, lane fields and partition bytes
+# and K14's header lanes (:1286, :1344).  Not counted, as in the JAX
+# package: the parameters, probabilities, tables and segment ids (up), the
+# pass-1 statistics and K8's alphas (down), and the planes that
+# `dispatch_seg_results` uploads for K8.
+XFER = {"up": 0, "down": 0}
 
 
 def n_try_for(method: int) -> int:
@@ -108,7 +140,9 @@ def rgb_to_planes(rgbs):
 
 
 def upload(planes, device):
-    return tuple(torch.from_numpy(p).to(device) for p in planes)
+    """Host planes (Y, U, V) on `device`; to a card without blocking the host
+    (`_build.upload`)."""
+    return tuple(_build.upload(p, device) for p in planes)
 
 
 def skip_flags(arrays):
@@ -116,16 +150,66 @@ def skip_flags(arrays):
     return token_ops.skip_flags(arrays["y2_levels"], arrays["y_levels"], arrays["uv_levels"])
 
 
+def dispatch_segment(y, u, v, quality: int):
+    """K8 on device planes and a copy of its alphas to the host that does not
+    block; returns finish() -> per-image `Segmentation`s (k-means in a host
+    thread pool, after waiting for the copy), or None below 256 MBs, where
+    segments stay off and nothing is launched."""
+    B, H, W = y.shape
+    if (H // 16) * (W // 16) < MIN_MBS:
+        return lambda: None
+    alpha, uv_alpha = analyze_alphas_batch(y, u, v)
+    wait = _build.download(torch.cat([alpha, uv_alpha[:, None]], dim=1))
+    qi = quality_to_quant_index(quality)
+
+    def finish():
+        joint = wait()
+        return _pool_map(lambda i: setup_segments_from_alphas(joint[i, :-1], int(joint[i, -1]), qi),
+                         range(B))
+
+    return finish
+
+
 def segment(y, u, v, quality: int):
     """Per-image `Segmentation`s of device planes from K8's alphas (frames of
     at least 256 MBs), or None below that: segments stay off."""
-    B, H, W = y.shape
+    return dispatch_segment(y, u, v, quality)()
+
+
+def dispatch_seg_results(planes, quality: int, device="cuda"):
+    """Segmentation of host planes (Y, U, V) [B, ...], split so that a
+    pipeline can queue K8 early and collect it later: uploads the planes,
+    launches K8 and starts the copy of its alphas, waiting for nothing;
+    returns finish() -> per-image `Segmentation`s, or None below 256 MBs
+    (segments off; then nothing is uploaded).  The port of
+    `webp_tpu/encode/vp8.py:1379`; a K8 failure raises (no host
+    fallback)."""
+    B, H, W = planes[0].shape
     if (H // 16) * (W // 16) < MIN_MBS:
-        return None
-    alpha, uv_alpha = (a.cpu().numpy() for a in analyze_alphas_batch(y, u, v))
-    qi = quality_to_quant_index(quality)
-    return _pool_map(lambda i: setup_segments_from_alphas(alpha[i], int(uv_alpha[i]), qi),
-                     range(B))
+        return lambda: None
+    return dispatch_segment(*upload(planes, torch.device(device)), quality)
+
+
+def compute_seg_results(planes, quality: int, device="cuda"):
+    """`dispatch_seg_results(...)()`: per-image `Segmentation`s of host
+    planes, or None below 256 MBs (`webp_tpu/encode/vp8.py:1428`).  With
+    device="cpu" K8's plain twin computes the alphas, the counterpart of
+    the JAX package's host analysis (`device=False`)."""
+    return dispatch_seg_results(planes, quality, device)()
+
+
+def setup_segments(y, u, v, base_qi: int, device="cuda") -> Segmentation:
+    """One image's segmentation from its planes y [mbh*16, mbw*16], u, v
+    [mbh*8, mbw*8] uint8 (host) at the frame's quant index `base_qi`: K8's
+    alphas then k-means from 256 MBs, else segments off (`segments_off`
+    with the frame's parameters).  The port of `webp_tpu/encode/vp8.py:1079`
+    on the batch's route."""
+    nmb = (y.shape[0] // 16) * (y.shape[1] // 16)
+    if nmb < MIN_MBS:
+        return segments_off(nmb, SegmentParams(base_qi))
+    alpha, uv_alpha = analyze_alphas_batch(*upload((y[None], u[None], v[None]),
+                                                   torch.device(device)))
+    return setup_segments_from_alphas(alpha[0].cpu().numpy(), int(uv_alpha[0]), base_qi)
 
 
 def params_for(segs, quality: int, device):
@@ -135,7 +219,7 @@ def params_for(segs, quality: int, device):
         return EncParams.from_segment(SegmentParams(quality_to_quant_index(quality)), device), None
     sid = np.stack([s.segment_map for s in segs]).astype(np.uint8)
     return (EncParams.from_segments([s.segments for s in segs], device),
-            torch.from_numpy(sid).to(device))
+            _build.upload(sid, device))
 
 
 def encode_analysis_stats_batch(y, u, v, P: EncParams, tbl: EncTables, n_try: int, sid=None):
@@ -156,12 +240,15 @@ def adapt_probs(totals: np.ndarray, ones: np.ndarray) -> np.ndarray:
 
 
 def tables_for(probs: np.ndarray, device) -> EncTables:
-    return enc_tables(torch.from_numpy(np.ascontiguousarray(probs, np.uint8)).to(device))
+    """K7's tables of host probabilities [B, 4, 8, 3, 11] (uploaded without
+    blocking the host)."""
+    return enc_tables(_build.upload(np.ascontiguousarray(probs, np.uint8), device))
 
 
 def fetch(arrays):
     """The dense per-MB arrays to the host: per image, a dict of int32 arrays."""
     host = {k: arrays[k].cpu().numpy() for k in OUT_FIELDS}
+    XFER["down"] += sum(a.nbytes for a in host.values())
     return [{k: host[k][i].astype(np.int32) for k in OUT_FIELDS}
             for i in range(host["luma_mode"].shape[0])]
 
@@ -207,6 +294,7 @@ def fetch_packed(lv8, wire, arrays):
     image's escapes overflowed (byte 1).  Each image unpacks at first
     access (`LazyUnpack`)."""
     rows = wire.cpu().numpy()
+    XFER["down"] += rows.nbytes
     if rows[:, 1].any():
         WIRE_BRANCHES["dense_arrays"] += len(rows)
         return fetch(arrays)
@@ -214,8 +302,9 @@ def fetch_packed(lv8, wire, arrays):
     dense_idx = np.flatnonzero(rows[:, 0])
     dense = {}
     if len(dense_idx):
-        dense = dict(zip(dense_idx.tolist(),
-                         lv8[torch.from_numpy(dense_idx).to(lv8.device)].cpu().numpy()))
+        host = lv8[torch.from_numpy(dense_idx).to(lv8.device)].cpu().numpy()
+        XFER["down"] += host.nbytes
+        dense = dict(zip(dense_idx.tolist(), host))
     WIRE_BRANCHES["dense_row"] += len(dense)
     WIRE_BRANCHES["sparse"] += len(rows) - len(dense)
 
@@ -247,22 +336,27 @@ class DeviceTokens(NamedTuple):
     and the coded coefficient partitions `parts` (`Lanes` [B, P] of numpy
     arrays).  On the device, what K14 reads: `modes` (luma_mode, bpred,
     chroma_mode, skipped) and the MB segment ids `sid` (None: segments
-    off)."""
+    off).  `coders` and `headers`, once `with_headers` has run: the
+    images' `header_coders` and K14's lanes."""
     meta: np.ndarray
     parts: Lanes
     modes: dict
     sid: object
+    coders: list = None
+    headers: Lanes = None
 
 
 def encode_tokens(out, probs: np.ndarray, mbw: int, mbh: int, num_partitions: int):
     """The skip flags [B, nmb] of pass 2's device arrays `out`, and K13's
-    coefficient partitions (`Lanes` [B, P], on the device) under the images'
-    adapted probabilities `probs` [B, 4, 8, 3, 11]."""
+    coefficient partitions under the images' adapted probabilities `probs`
+    [B, 4, 8, 3, 11], as launched (`token_ops.PendingLanes`; nothing here
+    waits for the device)."""
     dev = out["luma_mode"].device
     skipped = skip_flags(out)
-    pf = torch.from_numpy(np.ascontiguousarray(probs, np.uint8).reshape(len(probs), -1)).to(dev)
-    lanes = token_ops.encode_coeff_partitions(out["luma_mode"], out["y2_levels"], out["y_levels"],
-                                              out["uv_levels"], pf, mbw, mbh, num_partitions)
+    pf = _build.upload(np.ascontiguousarray(probs, np.uint8).reshape(len(probs), -1), dev)
+    lanes = token_ops.launch_coeff_partitions(out["luma_mode"], out["y2_levels"],
+                                              out["y_levels"], out["uv_levels"], pf, mbw, mbh,
+                                              num_partitions)
     return skipped, lanes
 
 
@@ -272,6 +366,7 @@ def fetch_tokens(out, skipped, lanes: Lanes, sid) -> DeviceTokens:
     meta = torch.cat([out["bpred"], out["luma_mode"][..., None], out["chroma_mode"][..., None],
                       skipped[..., None].to(torch.uint8)], dim=-1)
     meta, fields, data = _fetch_rows(meta, lanes.fields(), lanes.data)
+    XFER["down"] += meta.nbytes + fields.nbytes + data.nbytes
     modes = {k: out[k] for k in ("luma_mode", "bpred", "chroma_mode")}
     return DeviceTokens(meta, Lanes.from_fields(fields, data), {**modes, "skipped": skipped}, sid)
 
@@ -296,7 +391,17 @@ def code_mb_headers(tokens: DeviceTokens, coders, mbw: int, mbh: int, segs=None)
     lanes = token_ops.encode_mb_headers(m["luma_mode"], m["bpred"], m["chroma_mode"], tokens.sid,
                                         m["skipped"], mb_header_params(tokens, coders, segs),
                                         mbw, mbh)
-    return Lanes.from_fields(*_fetch_rows(lanes.fields(), lanes.data))
+    fields, data = _fetch_rows(lanes.fields(), lanes.data)
+    XFER["down"] += fields.nbytes + data.nbytes
+    return Lanes.from_fields(fields, data)
+
+
+def with_headers(tokens: DeviceTokens, probs, quality: int, mbw: int, mbh: int,
+                 segs=None) -> DeviceTokens:
+    """`tokens` with its images' header coders and K14's header lanes."""
+    coders = header_coders(tokens, probs, quality, segs)
+    return tokens._replace(coders=coders,
+                           headers=code_mb_headers(tokens, coders, mbw, mbh, segs))
 
 
 def mb_header_params(tokens: DeviceTokens, coders, segs=None):
@@ -330,10 +435,96 @@ def assemble(tokens: DeviceTokens, coders, headers: Lanes, width: int, height: i
 
 def finish_frames_tokens(tokens: DeviceTokens, probs, quality: int, width: int, height: int,
                          segs=None) -> list:
-    """Stages 10-12: the payloads of the device-token flow."""
-    coders = header_coders(tokens, probs, quality, segs)
-    headers = code_mb_headers(tokens, coders, (width + 15) // 16, (height + 15) // 16, segs)
-    return assemble(tokens, coders, headers, width, height)
+    """Stage 12: the payloads of the device-token flow from `tokens` as
+    `fetch` returns them, its header coders and K14's lanes included, so
+    that every launch of a batch comes from its fetch.  The arguments are
+    `finish_frames_lossy_batch`'s; `probs`, `quality` and `segs` went into
+    the headers already."""
+    if tokens.headers is None:
+        raise ValueError("the device tokens have no header lanes: take them from fetch")
+    return assemble(tokens, tokens.coders, tokens.headers, width, height)
+
+
+def dispatch_frames_lossy_batch(planes, quality: int, method: int, two_pass: bool = True,
+                                segments: bool = False, *, device="cuda",
+                                device_tokens: bool = False,
+                                num_partitions: int = DEVICE_TOKEN_PARTS, seg_results=None):
+    """Stages 2-4 on host planes (Y, U, V) [B, ...], waiting for nothing:
+    the upload, segments (K8, unless `seg_results` gives them), the
+    parameters and pass 1 (K5 + K6, and a copy of its statistics to the
+    host that does not block), or with two_pass=False the one K5 pass and
+    the wire.  The port of `webp_tpu/encode/vp8.py:1448`.
+
+    Returns fetch(chain=None, early_chain=None) -> what
+    `analyze_frames_lossy_batch` returns.  The two-pass fetch waits for
+    the statistics, calls `early_chain()`, adapts the probabilities,
+    launches K7 and pass 2 with the wire (or, with device_tokens, pass 2
+    and K13), calls `chain()`, and only then fetches: the wire rows, or
+    the device tokens, whose fetch also runs the frame headers and K14
+    (stage 11) so that every launch of a batch comes from its fetch.  The
+    one-pass fetch calls `early_chain()` and `chain()`, then fetches.  The
+    hooks are the pipeline's (`bench.py:196-250`): `early_chain` for the
+    next batch's `dispatch_seg_results`, `chain` for its dispatch.
+
+    Both halves launch on the CUDA stream that is current on the calling
+    thread when this is called; `fetch` makes it current again around its
+    launches and the hooks, so call both halves of a pipeline from one
+    thread (the launch order is then fixed).  The fetch after `chain`
+    waits for that stream, the chained launches included.  With segments
+    and `seg_results` None, this waits for K8's alphas, as the blocking
+    `segment` does; `seg_results` from `dispatch_seg_results` keeps it
+    free of waits."""
+    if device_tokens and not two_pass:
+        raise ValueError("device_tokens needs the two-pass flow")
+    if device_tokens:
+        vp8.check_partitions(num_partitions)
+    n_try = n_try_for(method)
+    trellis = method >= 4
+    dev = torch.device(device)
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    y, u, v = upload(planes, dev)
+    XFER["up"] += sum(int(p.nbytes) for p in planes)
+    segs = None
+    if segments:
+        segs = seg_results if seg_results is not None else segment(y, u, v, quality)
+    P, sid = params_for(segs, quality, dev)
+    default = EncTables.default(dev)
+    if not two_pass:
+        packed = encode_analysis_batch_packed(y, u, v, P, default, min(n_try, 3), trellis, sid)
+
+        def fetch1(chain=None, early_chain=None):
+            with torch.cuda.stream(stream):
+                if early_chain is not None:
+                    early_chain()
+                if chain is not None:
+                    chain()
+                return fetch_packed(*packed), None, segs
+
+        return fetch1
+    stats = _build.download(torch.stack(encode_analysis_stats_batch(y, u, v, P, default,
+                                                                    min(n_try, 3), sid)))
+
+    def fetch(chain=None, early_chain=None):
+        with torch.cuda.stream(stream):
+            totals, ones = stats()
+            if early_chain is not None:
+                early_chain()
+            probs = adapt_probs(totals, ones)
+            tables = tables_for(probs, dev)
+            if not device_tokens:
+                packed = encode_analysis_batch_packed(y, u, v, P, tables, n_try, trellis, sid)
+                if chain is not None:
+                    chain()
+                return fetch_packed(*packed), probs, segs
+            out = encode_analysis_batch(y, u, v, P, tables, n_try, trellis, sid)
+            mbw, mbh = y.shape[2] // 16, y.shape[1] // 16
+            skipped, lanes = encode_tokens(out, probs, mbw, mbh, num_partitions)
+            if chain is not None:
+                chain()
+            tokens = fetch_tokens(out, skipped, lanes.result(), sid)
+            return with_headers(tokens, probs, quality, mbw, mbh, segs), probs, segs
+
+    return fetch
 
 
 def analyze_frames_lossy_batch(planes, quality: int, method: int, two_pass: bool = True,
@@ -342,33 +533,61 @@ def analyze_frames_lossy_batch(planes, quality: int, method: int, two_pass: bool
     """Stages 2-9 on host planes (Y, U, V) [B, ...]: (per-image arrays, each
     unpacked at first access, per-image adapted probabilities or None,
     per-image segmentations or None).  With device_tokens (two-pass only),
-    stages 2-9 with
-    `num_partitions` coefficient partitions coded on the device:
-    (`DeviceTokens`, probabilities, segmentations)."""
-    if device_tokens and not two_pass:
-        raise ValueError("device_tokens needs the two-pass flow")
-    if device_tokens:
-        vp8.check_partitions(num_partitions)
+    stages 2-11 with `num_partitions` coefficient partitions coded on the
+    device: (`DeviceTokens` with its header lanes, probabilities,
+    segmentations).  `dispatch_frames_lossy_batch(...)()`."""
+    return dispatch_frames_lossy_batch(planes, quality, method, two_pass, segments,
+                                       device=device, device_tokens=device_tokens,
+                                       num_partitions=num_partitions)()
+
+
+def probe_stage_times(planes, quality: int, method: int, segments: bool = True,
+                      seg_results=None, reps: int = 3, device="cuda") -> dict:
+    """Per-stage times of the two-pass encode of host planes (Y, U, V), in
+    seconds per batch, each the best of `reps` runs after one more: "p1_s"
+    pass 1 (K5 + K6), "p2_s" pass 2 (K5 with the per-image tables), "pack_s"
+    the wire (the fused K18 + K19, then K20), the launches the pipeline
+    makes, on the current stream.  On a card CUDA events time them; on the
+    CPU (plain twins) the host clock.  The port of
+    `webp_tpu/encode/vp8.py:1608`, whose p2_s holds the prepack (K18):
+    JAX's `_prepack_batch_pertbl` is K5 + K18, and its pack_s K19 alone."""
     n_try = n_try_for(method)
-    trellis = method >= 4
     dev = torch.device(device)
     y, u, v = upload(planes, dev)
-    segs = segment(y, u, v, quality) if segments else None
+    segs = None
+    if segments:
+        segs = seg_results if seg_results is not None else segment(y, u, v, quality)
     P, sid = params_for(segs, quality, dev)
-    default = EncTables.from_probs(T.COEFF_PROBS_DEFAULT, dev)
-    if not two_pass:
-        packed = encode_analysis_batch_packed(y, u, v, P, default, min(n_try, 3), trellis, sid)
-        return fetch_packed(*packed), None, segs
-    totals, ones = encode_analysis_stats_batch(y, u, v, P, default, min(n_try, 3), sid)
-    probs = adapt_probs(totals.cpu().numpy(), ones.cpu().numpy())
-    tables = tables_for(probs, dev)
-    if not device_tokens:
-        packed = encode_analysis_batch_packed(y, u, v, P, tables, n_try, trellis, sid)
-        return fetch_packed(*packed), probs, segs
-    out = encode_analysis_batch(y, u, v, P, tables, n_try, trellis, sid)
-    mbw, mbh = y.shape[2] // 16, y.shape[1] // 16
-    skipped, lanes = encode_tokens(out, probs, mbw, mbh, num_partitions)
-    return fetch_tokens(out, skipped, lanes, sid), probs, segs
+
+    def best_of(fn):
+        out = fn()
+        times = []
+        for _ in range(reps):
+            if dev.type == "cuda":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) / 1000)
+            else:
+                t0 = time.perf_counter()
+                out = fn()
+                times.append(time.perf_counter() - t0)
+        return min(times), out
+
+    t_p1, (totals, ones) = best_of(lambda: encode_analysis_stats_batch(
+        y, u, v, P, EncTables.default(dev), min(n_try, 3), sid))
+    tables = tables_for(adapt_probs(totals.cpu().numpy(), ones.cpu().numpy()), dev)
+    t_p2, arrays = best_of(lambda: encode_analysis_batch(y, u, v, P, tables, n_try, method >= 4,
+                                                         sid))
+
+    def pack():
+        pre = wire_ops.prepack_pack(arrays)
+        return wire_ops.wire(*pre[5:], *pre[1:5])
+
+    t_pack, _ = best_of(pack)
+    return {"p1_s": t_p1, "p2_s": t_p2, "pack_s": t_pack}
 
 
 def finish_frames_lossy_batch(arrays_list, probs, quality: int, width: int, height: int,
@@ -405,6 +624,16 @@ def encode_frames_lossy_batch(rgbs, quality: int = 75, method: int = 4, two_pass
     if device_tokens:
         return finish_frames_tokens(arrays, probs, quality, w, h, segs)
     return finish_frames_lossy_batch(arrays, probs, quality, w, h, num_partitions, segs)
+
+
+def encode_frame_lossy(rgb: np.ndarray, quality: int = 75, method: int = 4,
+                       device="cuda") -> bytes:
+    """One RGB frame [h, w, 3|4] uint8 -> its VP8 payload, with the JAX
+    package's `Vp8Encoder` defaults (`webp_tpu/encode/vp8.py:1215`):
+    two-pass, one partition, segments from 256 MBs; batch 1 of
+    `encode_frames_lossy_batch`."""
+    return encode_frames_lossy_batch([rgb], quality, method, True, True, num_partitions=1,
+                                     device=device)[0]
 
 
 def encode_frames_lossy_batch_mixed(rgbs, quality: int = 75, method: int = 4,

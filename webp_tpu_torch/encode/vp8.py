@@ -119,6 +119,18 @@ def _frame_header(enc: BoolEncoder, quant_index: int, segs: Segmentation,
     enc.write_literal(8, skip_prob)
 
 
+def adapted_probs_for(arrays, mbw: int, mbh: int) -> np.ndarray:
+    """The token probabilities [4, 8, 3, 11] uint8 adapted from one image's
+    analysis arrays: the skip flags and contexts, the token statistics of
+    the coded blocks (C++ `vp8_token_stats`), then `ProbaStats.updated_probs`
+    from the defaults.  The port of `webp_tpu/encode/vp8.py:1192`, what the
+    one-pass flow's finisher does in `finish_frame`."""
+    ctx = compute_contexts(arrays["luma_mode"], arrays["y2_levels"], arrays["y_levels"],
+                           arrays["uv_levels"], mbw, mbh)
+    levels, meta = token_stream(arrays, ctx, skip_flags(arrays), mbw)
+    return ProbaStats(*native.vp8_token_stats(levels, meta)).updated_probs(T.COEFF_PROBS_DEFAULT)
+
+
 def skip_probability(skipped: np.ndarray) -> int:
     """The header's probability that an MB is not skipped, from the skip flags."""
     total = len(skipped)

@@ -13,9 +13,13 @@ instead.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from .. import _build
+from ..common import vp8_tables as T
 from ..encode import tables as ET
 from ..encode.costs import LevelCosts
 
@@ -70,7 +74,8 @@ class EncParams:
 
     @classmethod
     def from_segments(cls, segments_lists, device="cpu") -> "EncParams":
-        """Per image, a list of four `SegmentParams`."""
+        """Per image, a list of four `SegmentParams`; the fields are views of
+        one upload (`_build.upload`: the host is not blocked)."""
         def vec(seg, name):
             if name == "y1_sharpen":
                 return np.asarray(seg.y1.sharpen)[ZZ]
@@ -80,14 +85,15 @@ class EncParams:
             v[0] = getattr(getattr(seg, m), attr)[0]
             return v
 
-        p = cls()
-        for name in cls.VECS:
-            a = np.array([[vec(s, name) for s in segs] for segs in segments_lists], np.int32)
-            setattr(p, name, torch.from_numpy(a).to(device))
-        for name in cls.LAMS:
-            a = np.array([[int(getattr(s, name)) for s in segs] for segs in segments_lists],
-                         np.int32)
-            setattr(p, name, torch.from_numpy(a).to(device))
+        fields = [np.array([[vec(s, name) for s in segs] for segs in segments_lists], np.int32)
+                  for name in cls.VECS]
+        fields += [np.array([[int(getattr(s, name)) for s in segs] for segs in segments_lists],
+                            np.int32) for name in cls.LAMS]
+        flat = _build.upload(np.concatenate([a.reshape(-1) for a in fields]), device)
+        p, at = cls(), 0
+        for name, a in zip(cls.VECS + cls.LAMS, fields):
+            setattr(p, name, flat[at:at + a.size].view(a.shape))
+            at += a.size
         return p
 
     @property
@@ -156,6 +162,13 @@ class EncTables:
         return cls(field(lambda lc: lc.pos_cost), field(lambda lc: lc.pos_cost[..., CLS_REPS]),
                    field(lambda lc: lc.eob_cost), field(lambda lc: lc.init_cost))
 
+    @classmethod
+    def default(cls, device) -> "EncTables":
+        """The one table set of the default token probabilities on `device`,
+        made once per device (`_build.device_constant`)."""
+        return cls(*(_build.device_constant(f"default_{f}", a, device).view(a.shape)
+                     for f, a in zip(cls.FIELDS, _default_fields())))
+
     def rows(self, start: int, stop: int) -> "EncTables":
         """Images start..stop-1 of per-image tables (views, no copy): one
         rank's shard of a batched instance."""
@@ -171,3 +184,10 @@ class EncTables:
             raise ValueError(f"tables for {self.batch} images, batch {batch}")
         return EncTables(*(getattr(self, f).expand(batch, *getattr(self, f).shape[1:])
                            for f in self.FIELDS))
+
+
+@functools.cache
+def _default_fields():
+    """The default probabilities' tables as host int32 arrays [1, ...]."""
+    t = EncTables.from_probs(T.COEFF_PROBS_DEFAULT)
+    return tuple(getattr(t, f).numpy() for f in EncTables.FIELDS)

@@ -38,6 +38,8 @@ has no fallback.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 
@@ -241,17 +243,31 @@ def encode_coeff_partitions_plain(luma_mode, y2_levels, y_levels, uv_levels, pro
     return Lanes(*(x.reshape(B, nparts, *x.shape[1:]) for x in lanes))
 
 
+class PendingLanes(NamedTuple):
+    """A coder's lanes as launched at `capacity` bytes a lane, before the
+    check of their byte counts; run(capacity) launches the coder again."""
+    lanes: Lanes
+    capacity: int
+    run: Callable
+
+    def result(self) -> Lanes:
+        """The lanes with data cut to the largest byte count, after one more
+        run at that count if a lane went over.  Reads the counts on the
+        host, so it waits for the device."""
+        lanes = self.lanes
+        need = int(lanes.n_bytes.max()) if lanes.n_bytes.numel() else 0
+        if need > self.capacity:
+            lanes = self.run(need)
+            again = int(lanes.n_bytes.max())
+            if again > need:
+                raise RuntimeError(f"lane coder overflow: {again} bytes after a relaunch at {need}")
+        return lanes._replace(data=lanes.data[..., :need])
+
+
 def _capacity_run(run, capacity: int) -> Lanes:
     """run(capacity), once more at the largest reported byte count if a lane
     went over; data cut to the largest count."""
-    lanes = run(capacity)
-    need = int(lanes.n_bytes.max()) if lanes.n_bytes.numel() else 0
-    if need > capacity:
-        lanes = run(need)
-        again = int(lanes.n_bytes.max())
-        if again > need:
-            raise RuntimeError(f"lane coder overflow: {again} bytes after a relaunch at {need}")
-    return lanes._replace(data=lanes.data[..., :need])
+    return PendingLanes(run(capacity), capacity, run).result()
 
 
 def encode_coeff_partitions(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw: int,
@@ -262,6 +278,14 @@ def encode_coeff_partitions(luma_mode, y2_levels, y_levels, uv_levels, probs, mb
     `Lanes` [B, P] (data [B, P, largest n_bytes]).  K13 for CUDA tensors,
     the plain twin for CPU ones; `capacity` bytes per partition first
     (default `token_budget`)."""
+    return launch_coeff_partitions(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw, mbh,
+                                   nparts, capacity).result()
+
+
+def launch_coeff_partitions(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw: int,
+                            mbh: int, nparts: int, capacity: int = None) -> PendingLanes:
+    """`encode_coeff_partitions` up to its launch, which waits for nothing;
+    `.result()` of the return checks the byte counts."""
     dev = _build.same_device(luma_mode, y2_levels, y_levels, uv_levels, probs)
     B, nmb = luma_mode.shape
     if nmb != mbw * mbh:
@@ -269,8 +293,11 @@ def encode_coeff_partitions(luma_mode, y2_levels, y_levels, uv_levels, probs, mb
     if capacity is None:
         capacity = token_budget(nmb, nparts)
     coder = encode_coeff_partitions_plain if dev.type == "cpu" else _coeff_tokens_kernel
-    return _capacity_run(lambda cap: coder(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw,
-                                           mbh, nparts, cap), capacity)
+
+    def run(cap):
+        return coder(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw, mbh, nparts, cap)
+
+    return PendingLanes(run(capacity), capacity, run)
 
 
 def _coeff_tokens_kernel(luma_mode, y2_levels, y_levels, uv_levels, probs, mbw, mbh, nparts,
@@ -619,7 +646,7 @@ def header_params(write_segments, seg_probs, skip_prob, init_state, device) -> t
             np.asarray(seg_probs, np.int64).reshape(-1, 3),
             np.asarray(skip_prob, np.int64)[:, None],
             np.asarray(init_state, np.int64).reshape(3, -1).T]
-    return torch.from_numpy(np.concatenate(cols, axis=1)).to(device)
+    return _build.upload(np.concatenate(cols, axis=1), device)
 
 
 def encode_mb_headers_plain(luma_mode, bpred, chroma_mode, segment_ids, skipped, params,

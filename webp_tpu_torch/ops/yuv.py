@@ -10,7 +10,8 @@ The encoder API's colour conversions run on the host too, in numpy
 float32 as in the JAX package (`webp_tpu/ops/yuv.py:142-252`), since
 another summation order moves the rounded chroma and the bytes with it:
 `rgb_to_yuv420_sharp` (the least-squares chroma refinement of the PHOTO
-and PICTURE presets, over the C++ `rgb_to_yuv420`) and `gray_to_yuv420`.
+and PICTURE presets, over the C++ `rgb_to_yuv420`) and `gray_to_yuv420`;
+`rgb_to_yuv420_numpy` is the numpy form of the C++ `rgb_to_yuv420`.
 """
 
 from __future__ import annotations
@@ -102,6 +103,46 @@ def fancy_yuv420_to_rgb(y, u, v, width: int, height: int) -> torch.Tensor:
 # -- encoder side, host numpy ------------------------------------------------
 
 YUV_FIX = 16
+YUV_HALF = 1 << (YUV_FIX - 1)
+
+
+def rgb_to_yuv420_numpy(rgb: np.ndarray):
+    """BT.601 fixed-point RGB -> YUV420 (libwebp's coefficients) in numpy:
+    2x2 chroma averages, edges replicated to whole MBs.  [h, w, 3|4] uint8
+    -> (y [mbh*16, mbw*16], u, v [mbh*8, mbw*8]).  A copy of the JAX
+    package's `webp_tpu/ops/yuv.py:97`, the equality oracle of the C++
+    `rgb_to_yuv420` (`io/native.py`) that the encode runs."""
+    h, w = rgb.shape[:2]
+    mbw, mbh = (w + 15) // 16, (h + 15) // 16
+    r, g, b = (rgb[:, :, k].astype(np.int32) for k in range(3))
+    y = ((16839 * r + 33059 * g + 6420 * b + YUV_HALF + (16 << YUV_FIX)) >> YUV_FIX).astype(
+        np.uint8)
+    u_raw = -9719 * r - 19081 * g + 28800 * b + (128 << YUV_FIX)
+    v_raw = 28800 * r - 24116 * g - 4684 * b + (128 << YUV_FIX)
+    ew, eh = w + (w & 1), h + (h & 1)
+
+    def downsample(raw):
+        full = np.empty((eh, ew), np.int64)
+        full[:h, :w] = raw
+        if w & 1:
+            full[:h, w] = raw[:, w - 1]
+        if h & 1:
+            full[h, :] = full[h - 1, :]
+        s = full[0::2, 0::2] + full[0::2, 1::2] + full[1::2, 0::2] + full[1::2, 1::2]
+        return ((s + (YUV_HALF << 2)) >> (YUV_FIX + 2)).astype(np.uint8)
+
+    def pad(plane, ph, pw):
+        out = np.empty((ph, pw), np.uint8)
+        sh, sw = plane.shape
+        out[:sh, :sw] = plane
+        if sw < pw:
+            out[:sh, sw:] = plane[:, sw - 1 : sw]
+        if sh < ph:
+            out[sh:, :] = out[sh - 1 : sh, :]
+        return out
+
+    return (pad(y, mbh * 16, mbw * 16), pad(downsample(u_raw), mbh * 8, mbw * 8),
+            pad(downsample(v_raw), mbh * 8, mbw * 8))
 
 
 def _up1d(c, N):
