@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from . import spans
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
@@ -300,15 +302,18 @@ def stale(lib: Path, sources) -> bool:
 
 def load():
     """Build (if the library is missing, from other sources, or older than
-    one of them) and load the kernels."""
+    one of them) and load the kernels, as the span `build.load`, which
+    counts whether nvcc ran."""
     global _lib, _entries
     lib = _lib
     if lib is not None:
         return lib
-    with _lock:
+    with _lock, spans.span("build.load") as s:
         if _lib is not None:
             return _lib
-        if stale(LIB_PATH, _sources()):
+        built = stale(LIB_PATH, _sources())
+        s.count(nvcc=built)
+        if built:
             _build()
         lib = ctypes.CDLL(str(LIB_PATH))
         for name, argtypes in _SIGNATURES.items():

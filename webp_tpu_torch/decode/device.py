@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, spans
 from ..io import native
 from ..ops.recon_filter import recon_filter_
 from ..ops.residual import SLOTS, residuals_dense, residuals_sparse
@@ -154,11 +154,12 @@ def _parse_levels(payloads):
 
     def one(b):
         levels = i16buf[b, : nmb * SLOTS]
-        native.entropy_decode16_into(
-            payloads[b], headers[b], segs[b].reshape(-1),
-            fv["luma_mode"][b], fv["chroma_mode"][b], fv["segment_ids"][b],
-            fv["bpred"][b].reshape(-1), fv["skipped"][b], fv["non_zero"][b], levels,
-        )
+        with spans.span("dec.entropy"):
+            native.entropy_decode16_into(
+                payloads[b], headers[b], segs[b].reshape(-1),
+                fv["luma_mode"][b], fv["chroma_mode"][b], fv["segment_ids"][b],
+                fv["bpred"][b].reshape(-1), fv["skipped"][b], fv["non_zero"][b], levels,
+            )
         if headers[b][2] != mbw or headers[b][3] != mbh:
             raise ValueError("mixed geometries in decode batch")
         # Per-(segment, block, position) dequant factors: blocks 0-15 luma
@@ -178,13 +179,14 @@ def _parse_levels(payloads):
         fv["level"][b] = lv
         fv["interior"][b] = it
         fv["hev"][b] = hv
-        bm, vl, ep, ev = narrow_levels(levels, nmb)
+        with spans.span("dec.narrow"):
+            bm, vl, ep, ev = narrow_levels(levels, nmb)
         if bm is not None and ep is not None:
             bitmap[b], vals[b], esc_pos[b], esc_val[b] = bm, vl, ep, ev
             sparse_ok[b] = True
 
     with ThreadPoolExecutor(max_workers=max(1, min(B, os.cpu_count() or 1))) as pool:
-        list(pool.map(one, range(B)))
+        list(pool.map(spans.task(one), range(B)))
     return dict(i16buf=i16buf, bitmap=bitmap, vals=vals, esc_pos=esc_pos, esc_val=esc_val,
                 u8buf=u8buf, headers=headers, segs=segs, sparse_ok=sparse_ok)
 
@@ -323,8 +325,15 @@ def dispatch_decode_batch(payloads, out: str = "rgb", device="cuda"):
     `webp_tpu/decode/device.py:166`: CUDA work is queued on the current
     stream and not awaited, and nothing here waits for the device, so a
     pipeline can parse and dispatch batch i+1 on one thread while another
-    fetches batch i."""
-    return decode_core(to_device_batch(parse_levels_batch(payloads), device), out)
+    fetches batch i.  Spans (`spans.py`): `dec.parse` (with a
+    `dec.parse.task` per image, holding `dec.entropy` and `dec.narrow`),
+    `dec.upload` and `dec.launch`."""
+    with spans.span("dec.parse"):
+        batch = parse_levels_batch(payloads)
+    with spans.span("dec.upload"):
+        dev_batch = to_device_batch(batch, device)
+    with spans.span("dec.launch"):
+        return decode_core(dev_batch, out)
 
 
 def decode_vp8_batch_device(payloads, device="cuda", device_out: bool = False):

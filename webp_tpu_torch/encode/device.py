@@ -69,6 +69,17 @@ another thread finishes batch i-1 on the host.  Each pipeline's launches
 run on one CUDA stream: the stream current when it was dispatched, which
 `fetch` makes current again around its own launches and the hooks.
 
+Tracing (`spans.py`, off unless a caller starts it): `enc.colour`
+(`rgb_to_planes`), `enc.seg_dispatch` (the upload, K8 and the alphas'
+copy), `enc.alphas_wait` and `enc.kmeans` (the segments' finish),
+`enc.dispatch` (the upload and pass 1); in the two-pass fetch
+`enc.stats_wait`, `enc.probs`, `enc.tables` (K7) and `enc.pass2`, then
+with device tokens `enc.k13_launch`, `enc.k13_wait` (count `relaunches`),
+`enc.token_fetch`, `enc.header_coders` and `enc.k14`, else
+`enc.wire_fetch`; the finishers `enc.assemble` and `enc.finish`.  Every
+host pool task is a `<stage>.task` span.  The bytes each fetch brings
+down are counted in `XFER`, not on its span.
+
 Every entry point takes an explicit `device`: on "cpu" the kernels' plain
 twins run, on "cuda" the kernels (or the call raises).
 """
@@ -86,7 +97,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, spans
 from ..common import vp8_tables as T
 from ..io import native
 from ..ops.analysis import analyze_alphas_batch
@@ -130,13 +141,14 @@ def n_try_for(method: int) -> int:
 def _pool_map(fn, items):
     items = list(items)
     with ThreadPoolExecutor(max_workers=max(1, min(len(items), os.cpu_count() or 1))) as pool:
-        return list(pool.map(fn, items))
+        return list(pool.map(spans.task(fn), items))
 
 
 def rgb_to_planes(rgbs):
     """Same-geometry RGB frames -> padded (Y, U, V) uint8 batches on the host."""
-    planes = _pool_map(native.rgb_to_yuv420, rgbs)
-    return tuple(np.stack([p[i] for p in planes]) for i in range(3))
+    with spans.span("enc.colour"):
+        planes = _pool_map(native.rgb_to_yuv420, rgbs)
+        return tuple(np.stack([p[i] for p in planes]) for i in range(3))
 
 
 def upload(planes, device):
@@ -163,9 +175,12 @@ def dispatch_segment(y, u, v, quality: int):
     qi = quality_to_quant_index(quality)
 
     def finish():
-        joint = wait()
-        return _pool_map(lambda i: setup_segments_from_alphas(joint[i, :-1], int(joint[i, -1]), qi),
-                         range(B))
+        with spans.span("enc.alphas_wait"):
+            joint = wait()
+        with spans.span("enc.kmeans"):
+            return _pool_map(
+                lambda i: setup_segments_from_alphas(joint[i, :-1], int(joint[i, -1]), qi),
+                range(B))
 
     return finish
 
@@ -187,7 +202,8 @@ def dispatch_seg_results(planes, quality: int, device="cuda"):
     B, H, W = planes[0].shape
     if (H // 16) * (W // 16) < MIN_MBS:
         return lambda: None
-    return dispatch_segment(*upload(planes, torch.device(device)), quality)
+    with spans.span("enc.seg_dispatch"):
+        return dispatch_segment(*upload(planes, torch.device(device)), quality)
 
 
 def compute_seg_results(planes, quality: int, device="cuda"):
@@ -234,15 +250,17 @@ def encode_analysis_stats_batch(y, u, v, P: EncParams, tbl: EncTables, n_try: in
 
 def adapt_probs(totals: np.ndarray, ones: np.ndarray) -> np.ndarray:
     """Per-image adapted token probabilities [B, 4, 8, 3, 11] uint8."""
-    return np.stack(_pool_map(
-        lambda i: ProbaStats(totals[i], ones[i]).updated_probs(T.COEFF_PROBS_DEFAULT),
-        range(len(totals))))
+    with spans.span("enc.probs"):
+        return np.stack(_pool_map(
+            lambda i: ProbaStats(totals[i], ones[i]).updated_probs(T.COEFF_PROBS_DEFAULT),
+            range(len(totals))))
 
 
 def tables_for(probs: np.ndarray, device) -> EncTables:
     """K7's tables of host probabilities [B, 4, 8, 3, 11] (uploaded without
     blocking the host)."""
-    return enc_tables(_build.upload(np.ascontiguousarray(probs, np.uint8), device))
+    with spans.span("enc.tables"):
+        return enc_tables(_build.upload(np.ascontiguousarray(probs, np.uint8), device))
 
 
 def fetch(arrays):
@@ -293,18 +311,19 @@ def fetch_packed(lv8, wire, arrays):
     lv8 rows of the sp_over images; the dense `fetch(arrays)` when any
     image's escapes overflowed (byte 1).  Each image unpacks at first
     access (`LazyUnpack`)."""
-    rows = wire.cpu().numpy()
-    XFER["down"] += rows.nbytes
-    if rows[:, 1].any():
-        WIRE_BRANCHES["dense_arrays"] += len(rows)
-        return fetch(arrays)
-    nmb = lv8.shape[1]
-    dense_idx = np.flatnonzero(rows[:, 0])
-    dense = {}
-    if len(dense_idx):
-        host = lv8[torch.from_numpy(dense_idx).to(lv8.device)].cpu().numpy()
-        XFER["down"] += host.nbytes
-        dense = dict(zip(dense_idx.tolist(), host))
+    with spans.span("enc.wire_fetch"):
+        rows = wire.cpu().numpy()
+        XFER["down"] += rows.nbytes
+        if rows[:, 1].any():
+            WIRE_BRANCHES["dense_arrays"] += len(rows)
+            return fetch(arrays)
+        nmb = lv8.shape[1]
+        dense_idx = np.flatnonzero(rows[:, 0])
+        dense = {}
+        if len(dense_idx):
+            host = lv8[torch.from_numpy(dense_idx).to(lv8.device)].cpu().numpy()
+            XFER["down"] += host.nbytes
+            dense = dict(zip(dense_idx.tolist(), host))
     WIRE_BRANCHES["dense_row"] += len(dense)
     WIRE_BRANCHES["sparse"] += len(rows) - len(dense)
 
@@ -352,20 +371,32 @@ def encode_tokens(out, probs: np.ndarray, mbw: int, mbh: int, num_partitions: in
     [B, 4, 8, 3, 11], as launched (`token_ops.PendingLanes`; nothing here
     waits for the device)."""
     dev = out["luma_mode"].device
-    skipped = skip_flags(out)
-    pf = _build.upload(np.ascontiguousarray(probs, np.uint8).reshape(len(probs), -1), dev)
-    lanes = token_ops.launch_coeff_partitions(out["luma_mode"], out["y2_levels"],
-                                              out["y_levels"], out["uv_levels"], pf, mbw, mbh,
-                                              num_partitions)
+    with spans.span("enc.k13_launch"):
+        skipped = skip_flags(out)
+        pf = _build.upload(np.ascontiguousarray(probs, np.uint8).reshape(len(probs), -1), dev)
+        lanes = token_ops.launch_coeff_partitions(out["luma_mode"], out["y2_levels"],
+                                                  out["y_levels"], out["uv_levels"], pf, mbw,
+                                                  mbh, num_partitions)
     return skipped, lanes
+
+
+def coeff_lanes(pending: token_ops.PendingLanes) -> Lanes:
+    """K13's lanes once its byte counts are read (waiting for the stream),
+    after its relaunch if a lane went over (counted on the span)."""
+    with spans.span("enc.k13_wait") as s:
+        lanes = pending.result()
+        s.count(relaunches=lanes.data.shape[-1] > pending.capacity)
+    return lanes
 
 
 def fetch_tokens(out, skipped, lanes: Lanes, sid) -> DeviceTokens:
     """The modes, skip flags and K13's partitions to the host in one copy;
     the MB-header inputs stay on the device."""
-    meta = torch.cat([out["bpred"], out["luma_mode"][..., None], out["chroma_mode"][..., None],
-                      skipped[..., None].to(torch.uint8)], dim=-1)
-    meta, fields, data = _fetch_rows(meta, lanes.fields(), lanes.data)
+    with spans.span("enc.token_fetch"):
+        meta = torch.cat([out["bpred"], out["luma_mode"][..., None],
+                          out["chroma_mode"][..., None], skipped[..., None].to(torch.uint8)],
+                         dim=-1)
+        meta, fields, data = _fetch_rows(meta, lanes.fields(), lanes.data)
     XFER["down"] += meta.nbytes + fields.nbytes + data.nbytes
     modes = {k: out[k] for k in ("luma_mode", "bpred", "chroma_mode")}
     return DeviceTokens(meta, Lanes.from_fields(fields, data), {**modes, "skipped": skipped}, sid)
@@ -381,17 +412,19 @@ def header_coders(tokens: DeviceTokens, probs, quality: int, segs=None) -> list:
         return vp8.header_coder(probs[i], quality, nparts, None if segs is None else segs[i],
                                 skip_prob), skip_prob
 
-    return _pool_map(one, range(len(tokens.meta)))
+    with spans.span("enc.header_coders"):
+        return _pool_map(one, range(len(tokens.meta)))
 
 
 def code_mb_headers(tokens: DeviceTokens, coders, mbw: int, mbh: int, segs=None) -> Lanes:
     """K14: every image's MB headers, continuing its header coder; the lanes
     ([B], numpy) on the host."""
     m = tokens.modes
-    lanes = token_ops.encode_mb_headers(m["luma_mode"], m["bpred"], m["chroma_mode"], tokens.sid,
-                                        m["skipped"], mb_header_params(tokens, coders, segs),
-                                        mbw, mbh)
-    fields, data = _fetch_rows(lanes.fields(), lanes.data)
+    with spans.span("enc.k14"):
+        lanes = token_ops.encode_mb_headers(m["luma_mode"], m["bpred"], m["chroma_mode"],
+                                            tokens.sid, m["skipped"],
+                                            mb_header_params(tokens, coders, segs), mbw, mbh)
+        fields, data = _fetch_rows(lanes.fields(), lanes.data)
     XFER["down"] += fields.nbytes + data.nbytes
     return Lanes.from_fields(fields, data)
 
@@ -430,7 +463,8 @@ def assemble(tokens: DeviceTokens, coders, headers: Lanes, width: int, height: i
         return vp8.payload(header, [lane(parts, i, p) for p in range(parts.lead.shape[1])],
                            width, height)
 
-    return _pool_map(one, range(len(coders)))
+    with spans.span("enc.assemble"):
+        return _pool_map(one, range(len(coders)))
 
 
 def finish_frames_tokens(tokens: DeviceTokens, probs, quality: int, width: int, height: int,
@@ -482,15 +516,21 @@ def dispatch_frames_lossy_batch(planes, quality: int, method: int, two_pass: boo
     trellis = method >= 4
     dev = torch.device(device)
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
-    y, u, v = upload(planes, dev)
-    XFER["up"] += sum(int(p.nbytes) for p in planes)
-    segs = None
-    if segments:
-        segs = seg_results if seg_results is not None else segment(y, u, v, quality)
-    P, sid = params_for(segs, quality, dev)
-    default = EncTables.default(dev)
+    with spans.span("enc.dispatch"):
+        y, u, v = upload(planes, dev)
+        XFER["up"] += sum(int(p.nbytes) for p in planes)
+        segs = None
+        if segments:
+            segs = seg_results if seg_results is not None else segment(y, u, v, quality)
+        P, sid = params_for(segs, quality, dev)
+        default = EncTables.default(dev)
+        if two_pass:
+            stats = _build.download(torch.stack(encode_analysis_stats_batch(
+                y, u, v, P, default, min(n_try, 3), sid)))
+        else:
+            packed = encode_analysis_batch_packed(y, u, v, P, default, min(n_try, 3), trellis,
+                                                  sid)
     if not two_pass:
-        packed = encode_analysis_batch_packed(y, u, v, P, default, min(n_try, 3), trellis, sid)
 
         def fetch1(chain=None, early_chain=None):
             with torch.cuda.stream(stream):
@@ -501,27 +541,29 @@ def dispatch_frames_lossy_batch(planes, quality: int, method: int, two_pass: boo
                 return fetch_packed(*packed), None, segs
 
         return fetch1
-    stats = _build.download(torch.stack(encode_analysis_stats_batch(y, u, v, P, default,
-                                                                    min(n_try, 3), sid)))
 
     def fetch(chain=None, early_chain=None):
         with torch.cuda.stream(stream):
-            totals, ones = stats()
+            with spans.span("enc.stats_wait"):
+                totals, ones = stats()
             if early_chain is not None:
                 early_chain()
             probs = adapt_probs(totals, ones)
             tables = tables_for(probs, dev)
             if not device_tokens:
-                packed = encode_analysis_batch_packed(y, u, v, P, tables, n_try, trellis, sid)
+                with spans.span("enc.pass2"):
+                    packed = encode_analysis_batch_packed(y, u, v, P, tables, n_try, trellis,
+                                                          sid)
                 if chain is not None:
                     chain()
                 return fetch_packed(*packed), probs, segs
-            out = encode_analysis_batch(y, u, v, P, tables, n_try, trellis, sid)
+            with spans.span("enc.pass2"):
+                out = encode_analysis_batch(y, u, v, P, tables, n_try, trellis, sid)
             mbw, mbh = y.shape[2] // 16, y.shape[1] // 16
             skipped, lanes = encode_tokens(out, probs, mbw, mbh, num_partitions)
             if chain is not None:
                 chain()
-            tokens = fetch_tokens(out, skipped, lanes.result(), sid)
+            tokens = fetch_tokens(out, skipped, coeff_lanes(lanes), sid)
             return with_headers(tokens, probs, quality, mbw, mbh, segs), probs, segs
 
     return fetch
@@ -594,11 +636,12 @@ def finish_frames_lossy_batch(arrays_list, probs, quality: int, width: int, heig
                               num_partitions: int = 1, segs=None) -> list:
     """Stage 10: per-image VP8 payloads, in a host thread pool (an image's
     arrays are unpacked in its worker)."""
-    return _pool_map(
-        lambda i: vp8.finish_frame(arrays_list[i], None if probs is None else probs[i],
-                                   quality, width, height, num_partitions,
-                                   None if segs is None else segs[i]),
-        range(len(arrays_list)))
+    with spans.span("enc.finish"):
+        return _pool_map(
+            lambda i: vp8.finish_frame(arrays_list[i], None if probs is None else probs[i],
+                                       quality, width, height, num_partitions,
+                                       None if segs is None else segs[i]),
+            range(len(arrays_list)))
 
 
 def encode_frames_lossy_batch(rgbs, quality: int = 75, method: int = 4, two_pass: bool = True,
